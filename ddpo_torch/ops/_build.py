@@ -1,0 +1,157 @@
+"""Builds the CUDA kernels in ddpo_torch/csrc and binds them with ctypes.
+
+All ``csrc/*.cu`` files compile with ``nvcc`` for sm_90a into one shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds). The library is built at first use on a CUDA tensor, under
+``build/kernels/`` beside the package, and its file name carries a hash of
+the sources and flags, so an edited source is rebuilt and an unchanged one
+is loaded as it is. Nothing here runs at import time.
+
+A failed build or load raises: there is no fallback to the plain versions.
+Each kernel wrapper counts its launches in ``launches``, a plain integer per
+kernel, so a run can show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, Optional
+
+PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "kernels")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# dtype codes of csrc/common.cuh
+DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
+
+# launches per kernel wrapper since the last reset
+launches: Dict[str, int] = {"flash_fwd": 0, "gn_stats": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(launches)
+
+
+class KernelLibrary:
+    """The loaded shared library plus what its build reported."""
+
+    def __init__(self, path: str, build_seconds: float, log: str):
+        self.path = path
+        self.build_seconds = build_seconds  # 0.0 when an existing build was loaded
+        self.log = log  # nvcc/ptxas output: registers, shared memory, spills
+        lib = ctypes.CDLL(path)
+        p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.ddpo_flash_fwd.argtypes = (
+            [p, p, p, p, p, i32, i32, i32, i32, i32, i32]
+            + [i64] * 9
+            + [ctypes.c_float, p]
+        )
+        lib.ddpo_flash_fwd.restype = i32
+        lib.ddpo_gn_stats.argtypes = [p, p, p, p, i32, i64, i64, i32, p]
+        lib.ddpo_gn_stats.restype = i32
+        lib.ddpo_gn_stats_chunk.argtypes = []
+        lib.ddpo_gn_stats_chunk.restype = i32
+        lib.ddpo_error_string.argtypes = [i32]
+        lib.ddpo_error_string.restype = ctypes.c_char_p
+        self.lib = lib
+        self.gn_chunk = int(lib.ddpo_gn_stats_chunk())
+
+    def check(self, err: int, what: str) -> None:
+        if err != 0:
+            msg = self.lib.ddpo_error_string(err).decode()
+            raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+_lock = threading.Lock()
+_library: Optional[KernelLibrary] = None
+
+
+def _sources():
+    return sorted(
+        glob.glob(os.path.join(CSRC_DIR, "*.cu"))
+        + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+    )
+
+
+def _find_nvcc() -> str:
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        return "/usr/local/cuda/bin/nvcc"
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
+
+
+def source_hash() -> str:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        digest.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    return digest.hexdigest()[:16]
+
+
+def load_library() -> KernelLibrary:
+    """Build (if needed) and load the kernel library; raises on failure."""
+    global _library
+    with _lock:
+        if _library is not None:
+            return _library
+        path = os.path.join(BUILD_DIR, f"libddpo_kernels_{source_hash()}.so")
+        log_path = path + ".log"
+        build_seconds = 0.0
+        if not os.path.exists(path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{path}.tmp{os.getpid()}"
+            cu_files = [s for s in _sources() if s.endswith(".cu")]
+            cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu_files]
+            start = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            build_seconds = time.perf_counter() - start
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    "nvcc failed building the ddpo_torch kernels:\n"
+                    + " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+                )
+            with open(log_path, "w") as f:
+                f.write(proc.stdout + proc.stderr)
+            os.replace(tmp, path)
+        log = ""
+        if os.path.exists(log_path):
+            with open(log_path) as f:
+                log = f.read()
+        _library = KernelLibrary(path, build_seconds, log)
+        return _library
+
+
+def stream_handle(device) -> int:
+    """The raw cudaStream_t of PyTorch's current stream on ``device``."""
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def dtype_code(dtype) -> int:
+    code = DTYPE_CODES.get(str(dtype))
+    if code is None:
+        raise TypeError(f"the CUDA kernels take float32 or bfloat16, not {dtype}")
+    return code
