@@ -1,8 +1,8 @@
 """Builds the CUDA kernels in ddpo_torch/csrc and binds them with ctypes.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` for sm_90a into one shared
-library with a plain C interface (no PyTorch headers, so a build takes
-seconds). The library is built at first use on a CUDA tensor, under
+Each ``csrc/*.cu`` file compiles with its own ``nvcc`` for sm_90a, all
+started together, and the objects link into one shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds). The library is built at first use on a CUDA tensor, under
 ``build/kernels/`` beside the package, and its file name carries a hash of
 the sources and flags, so an edited source is rebuilt and an unchanged one
 is loaded as it is. Nothing here runs at import time.
@@ -29,14 +29,16 @@ CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "kernels")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
 
 # launches per kernel wrapper since the last reset
-launches: Dict[str, int] = {"flash_fwd": 0, "gn_stats": 0}
+launches: Dict[str, int] = {
+    "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "gn_stats": 0,
+}
 
 
 def reset_launch_counts() -> None:
@@ -63,6 +65,11 @@ class KernelLibrary:
             + [ctypes.c_float, p]
         )
         lib.ddpo_flash_fwd.restype = i32
+        # q, k, v, dout, lse, delta, outputs, dtype, B, H, Sq, Sk, D, strides, scale, stream
+        lib.ddpo_flash_bwd_dq.argtypes = [p] * 7 + [i32] * 6 + [p, ctypes.c_float, p]
+        lib.ddpo_flash_bwd_dq.restype = i32
+        lib.ddpo_flash_bwd_dkv.argtypes = [p] * 8 + [i32] * 6 + [p, ctypes.c_float, p]
+        lib.ddpo_flash_bwd_dkv.restype = i32
         lib.ddpo_gn_stats.argtypes = [p, p, p, p, i32, i64, i64, i32, p]
         lib.ddpo_gn_stats.restype = i32
         lib.ddpo_gn_stats_chunk.argtypes = []
@@ -122,18 +129,43 @@ def load_library() -> KernelLibrary:
         if not os.path.exists(path):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{path}.tmp{os.getpid()}"
+            nvcc = _find_nvcc()
             cu_files = [s for s in _sources() if s.endswith(".cu")]
-            cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu_files]
+            objs = [f"{tmp}.{os.path.basename(s)}.o" for s in cu_files]
             start = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            # each compiler writes to a file: a full pipe would stall it
+            logs = [open(f"{obj}.log", "w+") for obj in objs]
+            procs = [
+                subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", src, "-o", obj],
+                                 stdout=log, stderr=subprocess.STDOUT, text=True)
+                for src, obj, log in zip(cu_files, objs, logs)
+            ]
+            for proc in procs:
+                proc.wait()
+            output = ""
+            for log in logs:
+                log.seek(0)
+                output += log.read()
+                log.close()
+                os.remove(log.name)
+            failed = [src for src, proc in zip(cu_files, procs) if proc.returncode != 0]
+            if not failed:
+                link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                                      capture_output=True, text=True)
+                output += link.stdout + link.stderr
+                if link.returncode != 0:
+                    failed = ["the link"]
+            for obj in objs:
+                if os.path.exists(obj):
+                    os.remove(obj)
             build_seconds = time.perf_counter() - start
-            if proc.returncode != 0:
+            if failed:
                 raise RuntimeError(
-                    "nvcc failed building the ddpo_torch kernels:\n"
-                    + " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+                    f"nvcc failed building the ddpo_torch kernels ({', '.join(failed)}):\n"
+                    + output
                 )
             with open(log_path, "w") as f:
-                f.write(proc.stdout + proc.stderr)
+                f.write(output)
             os.replace(tmp, path)
         log = ""
         if os.path.exists(log_path):

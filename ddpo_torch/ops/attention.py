@@ -1,4 +1,4 @@
-"""Attention: the plain PyTorch version and the CUDA flash-attention forward.
+"""Attention: the plain PyTorch versions and the CUDA flash-attention kernels.
 
 Port of ddpo_tpu/ops/attention.py. Layout as in the JAX package: q
 (B, Sq, H, D), k/v (B, Sk, H, D) -> out (B, Sq, H, D); the softmax runs in
@@ -6,17 +6,25 @@ float32 whatever the input dtype.
 
 ``attention`` dispatches as JAX's does, with "on a TPU" read as "on a CUDA
 tensor": long self-attention (Sq >= 256, Sk >= 256, D <= 256) goes to the
-kernel (csrc/flash_fwd.cu, replacing the Pallas ``_flash_kernel``); the
-77-token cross-attention, the 8x8 mid-block, the VAE's single-head D=512
-attention and everything on the CPU take the plain version. A CUDA tensor
-that meets the gate goes to the kernel or raises.
+kernels; the 77-token cross-attention, the 8x8 mid-block, the VAE's
+single-head D=512 attention and everything on the CPU take the plain
+version. A CUDA tensor that meets the gate goes to the kernels or raises.
 
-The flash backward is not ported yet, so the kernel path refuses tensors
-that require grad instead of returning an output without a gradient.
+Kernels (each replaces a Pallas kernel of the JAX package):
+  - csrc/flash_fwd.cu ``flash_fwd``: out and the row logsumexp
+    (``_flash_kernel``);
+  - csrc/flash_bwd.cu ``flash_bwd_dq`` and ``flash_bwd_dkv``: dq, and dk/dv,
+    recomputing P from the logsumexp (``_flash_bwd_dq_kernel``,
+    ``_flash_bwd_dkv_kernel``).
+
+Under autograd the gate goes through ``FlashAttention``, whose backward
+follows JAX's ``_use_pallas_bwd``: the backward kernels for bf16, autograd
+through ``attention_reference`` for fp32.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -61,8 +69,6 @@ def _check_flash_inputs(q, k, v) -> None:
         raise ValueError(f"flash kernel takes head dims 1..256, got {d}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("q, k, v need a unit stride over D")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError("the flash backward kernel is not ported yet")
 
 
 def flash_attention_fwd(
@@ -97,6 +103,131 @@ def flash_attention_fwd(
     return out, lse
 
 
+def flash_attention_bwd_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain flash backward in fp32 -> (dq, dk, dv), fp32.
+
+    The math of JAX's ``_flash_backward``: P = exp(s - lse) is recomputed
+    from the forward's logsumexp (B, H, Sq), never taken from a stored
+    softmax; delta = rowsum(dO * O), dS = P * (dO V^T - delta),
+    dQ = scale * dS K, dK = scale * dS^T Q, dV = P^T dO.
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), do.float()
+    p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale - lse[..., None])
+    delta = _delta(out, do)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", gf, vf) - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+    return dq, dk, dv
+
+
+def _delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """rowsum(dO * O) in fp32, (B, H, Sq) contiguous; plain torch, as JAX
+    computes it in XLA outside its kernels."""
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash-attention backward -> (dq, dk, dv) in the dtypes of q, k, v.
+
+    CUDA tensors run the two kernels; CPU tensors take the plain version.
+    ``out`` and ``lse`` are what ``flash_attention_fwd`` returned.
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        dq, dk, dv = flash_attention_bwd_reference(q, k, v, out, lse, do, scale)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash kernel for device {q.device}")
+    _check_flash_inputs(q, k, v)
+    b, sq, h, _ = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"dout {tuple(do.shape)} {do.dtype} does not match q")
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous (B, H, Sq) fp32, got {tuple(lse.shape)}")
+    delta = _delta(out, do)
+    return (flash_bwd_dq(q, k, v, do, lse, delta, scale),
+            *flash_bwd_dkv(q, k, v, do, lse, delta, scale))
+
+
+def _bwd_common(q, k, v, do, lse, delta, scale):
+    """The leading and trailing ctypes arguments both backward kernels take."""
+    b, sq, h, d = q.shape
+    strides = (ctypes.c_int64 * 12)(*(t.stride(i) for t in (q, k, v, do) for i in range(3)))
+    inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+              delta.data_ptr())
+    shape = (_build.dtype_code(q.dtype), b, h, sq, k.shape[1], d, strides, float(scale),
+             _build.stream_handle(q.device))
+    return inputs, shape
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, scale: float) -> torch.Tensor:
+    """Launch ``flash_bwd_dq`` on checked CUDA inputs -> dq in q's dtype.
+    ``delta`` is ``_delta(out, do)``; ``flash_attention_bwd`` checks the rest."""
+    inputs, shape = _bwd_common(q, k, v, do, lse, delta, scale)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    kl = _build.load_library()
+    kl.check(kl.lib.ddpo_flash_bwd_dq(*inputs, dq.data_ptr(), *shape), "flash_bwd_dq launch")
+    _build.launches["flash_bwd_dq"] += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``flash_bwd_dkv`` on checked CUDA inputs -> (dk, dv)."""
+    inputs, shape = _bwd_common(q, k, v, do, lse, delta, scale)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    kl = _build.load_library()
+    kl.check(kl.lib.ddpo_flash_bwd_dkv(*inputs, dk.data_ptr(), dv.data_ptr(), *shape),
+             "flash_bwd_dkv launch")
+    _build.launches["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention under autograd (JAX's ``flash_attention`` custom_vjp).
+
+    The forward is ``flash_attention_fwd``. The backward follows JAX's
+    ``_use_pallas_bwd`` gate: bf16 runs ``flash_attention_bwd`` from the
+    saved (q, k, v, out, lse); fp32 keeps only (q, k, v) and differentiates
+    ``attention_reference``, as JAX's XLA-recompute VJP does.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = flash_attention_fwd(q, k, v, scale)
+        if q.dtype == torch.bfloat16:
+            ctx.save_for_backward(q, k, v, out, lse)
+        else:
+            ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        # read once: under a non-reentrant checkpoint a second read raises
+        saved = ctx.saved_tensors
+        if len(saved) == 5:
+            dq, dk, dv = flash_attention_bwd(*saved, do, ctx.scale)
+            return dq, dk, dv, None
+        q, k, v = (t.detach().requires_grad_() for t in saved)
+        with torch.enable_grad():
+            ref = attention_reference(q, k, v, ctx.scale)
+        dq, dk, dv = torch.autograd.grad(ref, (q, k, v), do)
+        return dq, dk, dv, None
+
+
 def attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None
 ) -> torch.Tensor:
@@ -107,6 +238,10 @@ def attention(
         and k.shape[1] >= 256
         and q.shape[-1] <= 256
     )
-    if use_flash:
-        return flash_attention_fwd(q, k, v, scale)[0]
-    return attention_reference(q, k, v, scale)
+    if not use_flash:
+        return attention_reference(q, k, v, scale)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, scale)
+    return flash_attention_fwd(q, k, v, scale)[0]

@@ -7,10 +7,12 @@ version for a CPU tensor. Normalize, affine and SiLU stay in PyTorch, as
 they stayed in XLA. The port keeps PyTorch's NCHW layout, where each
 (n, group) is one contiguous run of (C/G)*H*W elements.
 
+Under autograd the statistics go through ``GroupStats``, on both devices:
+its forward is ``group_stats`` and its backward the analytic one of JAX's
+``_moments_bwd``, in plain torch as JAX's is plain XLA.
+
 The fused GN+SiLU Pallas kernel is opt-in in JAX and not ported yet;
 ``group_norm_silu`` is ``group_norm(silu=True)``, JAX's default path.
-The analytic backward of the statistics is not ported yet either, so the
-kernel path refuses tensors that require grad.
 """
 
 from __future__ import annotations
@@ -49,8 +51,6 @@ def group_stats(x: torch.Tensor, g: int) -> Tuple[torch.Tensor, torch.Tensor]:
     code = _build.dtype_code(x.dtype)
     if not x.is_contiguous():
         raise ValueError("group_stats needs a contiguous NCHW map")
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError("the GroupNorm statistics backward is not ported yet")
     n = x.shape[0]
     n_runs = n * g
     run_len = x.numel() // n_runs
@@ -66,6 +66,25 @@ def group_stats(x: torch.Tensor, g: int) -> Tuple[torch.Tensor, torch.Tensor]:
     kl.check(err, "gn_stats launch")
     _build.launches["gn_stats"] += 1
     return sums, sq_sums
+
+
+class GroupStats(torch.autograd.Function):
+    """``group_stats`` with the analytic backward of JAX's ``_moments_bwd``:
+    d sums / dx = 1 and d sq_sums / dx = 2x within each group, so
+    gx = g_sums[n, g] + 2 x g_sq[n, g], cast to x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.save_for_backward(x)
+        ctx.groups = g
+        return group_stats(x, g)
+
+    @staticmethod
+    def backward(ctx, g_sums, g_sq):
+        (x,) = ctx.saved_tensors
+        xf = x.reshape(x.shape[0], ctx.groups, -1).float()
+        gx = g_sums[..., None] + 2.0 * xf * g_sq[..., None]
+        return gx.to(x.dtype).reshape(x.shape), None
 
 
 def group_norm(
@@ -84,7 +103,7 @@ def group_norm(
     g = num_groups_for(c, num_groups)
     denom = float(x.numel() // n // g)
 
-    sums, sq_sums = group_stats(x, g)
+    sums, sq_sums = GroupStats.apply(x, g)
     mean = sums / denom
     var = sq_sums / denom - mean**2
     rstd = torch.rsqrt(var + eps)

@@ -14,13 +14,16 @@ SCRIPT = """
 import importlib, pkgutil, sys
 import ddpo_torch
 import ddpo_torch.pipelines.generate
+import ddpo_torch.pipelines.policy_gradient
 for info in pkgutil.walk_packages(ddpo_torch.__path__, "ddpo_torch."):
     importlib.import_module(info.name)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "ddpo_tpu"))
 print("LEAKED", bad)
 # importing builds nothing: the kernels are built at first use on a CUDA tensor
-print("LIBRARY", ddpo_torch.ops._build._library)
-sys.exit(1 if bad or ddpo_torch.ops._build._library is not None else 0)
+# nor the JPEG reward's library: it is built at the reward's first call
+import ddpo_torch.native.jpeg as jpeg
+print("LIBRARY", ddpo_torch.ops._build._library, jpeg._lib)
+sys.exit(1 if bad or ddpo_torch.ops._build._library is not None or jpeg._lib is not None else 0)
 """
 
 
