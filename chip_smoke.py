@@ -19,11 +19,29 @@ Phases, in order; any failure exits non-zero:
      rollout, at its batch, with fp32 masters cast to bf16 at use, grad on
      and remat; the recomputed log-probs must equal the sampler's, and one
      backward must launch the expected kernels.
+  3c. gn_silu: the fused GroupNorm+SiLU kernel, through
+     group_norm_silu(use_kernel=True), at every GN+SiLU input shape of the
+     UNet (2B = 8) and the VAE decoder (batch 4), bf16 and some fp32, and a
+     gcd-clamped case that must take group_norm; against the fp32 plain
+     version, two calls bit-equal; times beside F.group_norm + F.silu.
+  3d. conv3x3: the tap-GEMM kernel at every Conv3x3 input shape of the UNet
+     (2B = 8) and the VAE decoder (batch 4), bf16, fp32 cases and an odd
+     map; against the fp32 9-tap plain version; times beside F.conv2d.
+  3e. the conv probes p1, p2, p6, p7: ddpo_torch.bench.conv_probe.main at
+     JAX's shape (B16, 64x64, 320 -> 320, bf16), then each probe against
+     its plain version.
+  4-7 launch none of the new kernels.
   7. DDPO: ddpo_torch.pipelines.policy_gradient.main, one epoch at the
      defaults of --dataset compressed-animals (sample batch 8, 50 steps,
      train batch 2, bf16 over fp32 masters, adamw), a full-state
      checkpoint, and a --resume call that trains no further epoch; checks
      the exact launch counts of all four kernels.
+  8. the conv path, with ops.conv.set_conv_kernel_enabled(True) (reset
+     after): (a) one UNet forward at 2B = 8 with the switch on against off;
+     (b) phase 4 again: conv3x3 launches 49 per UNet forward x 50 + 31 in
+     the VAE decode; (c) phases 5 and 6 again: the rollout, and the
+     on-policy update, which launches conv3x3 twice per module (forward and
+     remat recompute; the backward is the library conv's).
 
 The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}. With no CUDA device, or run
@@ -44,6 +62,11 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+
+# the card's published peaks (H100 SXM data sheet, dense): device memory,
+# bf16 tensor cores, fp32 outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 # UNet self-attentions per forward that meet the flash gate at 512 px:
 # down blocks 0-2 (S = 4096, 1024, 256) x 2 and up blocks 1-3 x 3; the
@@ -76,6 +99,29 @@ def median_ms(fn, iters: int) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def roofline(flops: float, nbytes: float, dtype: str = "bfloat16"):
+    """(least ms the card could take, what bounds it): the larger of the
+    operations over the peak rate of their type and the bytes (each input
+    read once, each output written once) over the memory rate."""
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def expected(**counts):
+    """Every kernel's launch count: those given, and 0 for the rest."""
+    from ddpo_torch.ops import _build
+
+    unknown = set(counts) - set(_build.launches)
+    if unknown:
+        fail(f"no launch counter for {sorted(unknown)}")
+    return {name: counts.get(name, 0) for name in _build.launches}
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
 
 
 def timed_pair(kernel_fn, plain_fn, iters: int):
@@ -121,6 +167,7 @@ def phase_build():
 
 def check_flash(results):
     import torch
+    import torch.nn.functional as F
 
     from ddpo_torch.ops.attention import (
         attention_lse_reference,
@@ -159,10 +206,17 @@ def check_flash(results):
                 iters = 10 if sq == 4096 else 30
                 k_ms, p_ms = timed_pair(lambda: flash_attention_fwd(q, k, v),
                                         lambda: attention_reference(q, k, v), iters)
+                # the library yardstick: SDPA on (B, H, S, D) views
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                lib_ms = median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters)
                 flops = 4.0 * b * h * sq * sk * d
-                entry.update(ms=k_ms, plain_ms=p_ms)
+                nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + 4 * b * h * sq
+                bound_ms, bound_by = roofline(flops, nbytes, name)
+                entry.update(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                             bound_by=bound_by)
                 line += (f"; kernel {k_ms:.3f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s), "
-                         f"plain {p_ms:.3f} ms")
+                         f"plain {p_ms:.3f} ms, SDPA {lib_ms:.3f} ms, bound {bound_ms:.4f} ms "
+                         f"({bound_by})")
             log(line)
             results.append(entry)
             del q, k, v, out, lse, ref, ref_lse
@@ -171,6 +225,7 @@ def check_flash(results):
 
 def check_flash_bwd(results):
     import torch
+    import torch.nn.functional as F
 
     from ddpo_torch.ops.attention import (
         _delta,
@@ -234,15 +289,28 @@ def check_flash_bwd(results):
                     lambda: flash_attention_bwd(q, k, v, out, lse, do, scale),
                     lambda: torch.autograd.grad(attention_reference(*leaves), leaves, do),
                     iters)
+                # the library yardstick: SDPA's whole backward (dq, dk, dv)
+                sdpa_leaves = [t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)]
+                sdpa_out = F.scaled_dot_product_attention(*sdpa_leaves)
+                do_t = do.transpose(1, 2)
+                lib_ms = median_ms(lambda: torch.autograd.grad(sdpa_out, sdpa_leaves, do_t,
+                                                               retain_graph=True), iters)
                 flops = 2.0 * b * h * sq * sk * d  # one (Sq, Sk, D) product
+                io = (q.numel() + k.numel() + v.numel() + do.numel()) * q.element_size()
+                stats = 2 * 4 * b * h * sq  # lse and delta
+                # dq: S, dP and dS K; dkv: S, dP, P^T dO and dS^T Q
+                dq_bound = roofline(3 * flops, io + stats + q.numel() * q.element_size(), name)
+                dkv_bound = roofline(4 * flops, io + stats + 2 * k.numel() * k.element_size(), name)
                 entry.update(dq_ms=dq_ms, dkv_ms=dkv_ms, plain_ms=(p1 + p2) / 2,
-                             wrapper_ms=wrap_ms, recompute_plain_ms=rec_ms)
+                             wrapper_ms=wrap_ms, recompute_plain_ms=rec_ms, library_ms=lib_ms,
+                             dq_bound=dq_bound, dkv_bound=dkv_bound)
                 line += (f"; dq {dq_ms:.3f} ms ({3 * flops / dq_ms / 1e9:.1f} TFLOP/s), "
                          f"dkv {dkv_ms:.3f} ms ({4 * flops / dkv_ms / 1e9:.1f} TFLOP/s), "
                          f"plain backward (autograd through attention_reference) "
                          f"{entry['plain_ms']:.3f} ms; flash_attention_bwd {wrap_ms:.3f} ms "
-                         f"against recompute + plain backward {rec_ms:.3f} ms")
-                del leaves, ref_out, delta
+                         f"against recompute + plain backward {rec_ms:.3f} ms; SDPA backward "
+                         f"{lib_ms:.3f} ms; bounds dq {dq_bound[0]:.4f}, dkv {dkv_bound[0]:.4f} ms")
+                del leaves, ref_out, delta, sdpa_leaves, sdpa_out
             log(line)
             results.append(entry)
             del q, k, v, do, out, lse, grads, again, refs
@@ -296,25 +364,252 @@ def check_gn_stats(results):
             if dtype == torch.bfloat16:
                 k_ms, p_ms = timed_pair(lambda: group_stats(x, g),
                                         lambda: group_stats_reference(x, g), 20)
+                view = x.view(shape[0], g, -1)
+                lib_ms = median_ms(lambda: torch.var_mean(view, dim=-1), 20)
+                nbytes = x.numel() * x.element_size() + 2 * 4 * shape[0] * g
+                bound_ms, bound_by = roofline(3.0 * x.numel(), nbytes, "float32")
                 gbs = x.numel() * x.element_size() / k_ms / 1e6
-                entry.update(ms=k_ms, plain_ms=p_ms)
-                line += f"; kernel {k_ms:.4f} ms ({gbs:.0f} GB/s), plain {p_ms:.4f} ms"
+                entry.update(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                             bound_by=bound_by)
+                line += (f"; kernel {k_ms:.4f} ms ({gbs:.0f} GB/s), plain {p_ms:.4f} ms, "
+                         f"var_mean {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
             log(line)
             results.append(entry)
             del x
             torch.cuda.empty_cache()
 
 
-def count_group_norms():
-    from ddpo_torch.models.layers import GroupNorm
+def count_modules():
+    """GroupNorms and Conv3x3s of the SD-1.4 UNet and of its VAE decoder."""
+    from ddpo_torch.models.layers import Conv3x3, GroupNorm
     from ddpo_torch.utils.serialization import build_models
 
     _, vae, unet = build_models("sd14", "meta")
-    return (sum(isinstance(m, GroupNorm) for m in unet.modules()),
-            sum(isinstance(m, GroupNorm) for m in vae.decoder.modules()))
+
+    def count(module, kind):
+        return sum(isinstance(m, kind) for m in module.modules())
+
+    counts = (count(unet, GroupNorm), count(vae.decoder, GroupNorm),
+              count(unet, Conv3x3), count(vae.decoder, Conv3x3))
+    # conv_in, 22 resnets x 2, 3 upsamplers, conv_out; 14 resnets x 2, 3 upsamplers
+    if counts[2:] != (49, 31):
+        fail(f"Conv3x3 modules: UNet {counts[2]}, VAE decoder {counts[3]}, expected 49 and 31")
+    return counts
 
 
-def phase_serving(unet_gn, vae_gn):
+def collect_model_shapes():
+    """The input shapes of every GroupNorm+SiLU and every Conv3x3 module:
+    one bf16 forward of the SD-1.4 UNet at 2B = 8 and one VAE decode at
+    batch 4, 512 px, random weights from seed 0."""
+    import torch
+
+    from ddpo_torch.models.layers import Conv3x3, GroupNorm
+    from ddpo_torch.utils.serialization import load_stable_diffusion
+
+    models = load_stable_diffusion(model_preset="sd14", device="cuda",
+                                   dtype=torch.bfloat16, seed=0)
+    gn_shapes, conv_shapes = [], []
+
+    def record(shapes, key):
+        if key not in shapes:
+            shapes.append(key)
+
+    hooks = []
+    for m in [*models.unet.modules(), *models.vae.decoder.modules()]:
+        if isinstance(m, GroupNorm) and m.silu:
+            hooks.append(m.register_forward_pre_hook(
+                lambda mod, args: record(gn_shapes, tuple(args[0].shape))))
+        elif isinstance(m, Conv3x3):
+            hooks.append(m.register_forward_pre_hook(
+                lambda mod, args: record(conv_shapes, (*args[0].shape, mod.out_channels))))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    with torch.no_grad():
+        latents = torch.randn((8, 4, 64, 64), generator=gen, device="cuda").to(torch.bfloat16)
+        context = torch.randn((8, 77, 768), generator=gen, device="cuda").to(torch.bfloat16)
+        models.unet(latents, torch.full((8,), 500, device="cuda"), context)
+        models.vae.decode(latents[:4])
+    for hook in hooks:
+        hook.remove()
+    del models
+    torch.cuda.empty_cache()
+    log(f"model shapes: {len(gn_shapes)} distinct GroupNorm+SiLU inputs, "
+        f"{len(conv_shapes)} distinct Conv3x3 (N, Cin, H, W, Cout)")
+    return gn_shapes, conv_shapes
+
+
+def check_gn_silu(results, model_shapes):
+    """The op-level path group_norm_silu(use_kernel=True) once at each shape
+    (counted), then each output against the fp32 plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    from ddpo_torch.ops import _build
+    from ddpo_torch.ops.groupnorm import group_norm_silu, group_norm_silu_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    odd, clamped = (2, 64, 17, 17), (2, 48, 17, 17)  # 48 channels -> group_norm, 16 groups
+    cases = [(shape, torch.bfloat16) for shape in model_shapes]
+    largest = max(model_shapes, key=lambda t: t[0] * t[1] * t[2] * t[3])
+    cases += [(model_shapes[0], torch.float32), (largest, torch.float32),
+              (odd, torch.bfloat16), (odd, torch.float32), (clamped, torch.float32)]
+    inputs = []
+    for shape, dtype in cases:
+        c = shape[1]
+        inputs.append(((torch.randn(shape, generator=gen, device="cuda") + 0.3).to(dtype),
+                       torch.randn(c, generator=gen, device="cuda").to(dtype),
+                       torch.randn(c, generator=gen, device="cuda").to(dtype)))
+    _build.reset_launch_counts()
+    outs = [group_norm_silu(x, scale, bias, use_kernel=True) for x, scale, bias in inputs]
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    want = expected(gn_silu=len(cases) - 1, gn_stats=1)  # the clamped case: group_norm
+    log(f"gn_silu path: {len(cases)} calls, launches {counts}")
+    if counts != want:
+        fail(f"gn_silu path launches {counts} != expected {want}")
+
+    for (shape, dtype), (x, scale, bias), out in zip(cases, inputs, outs):
+        name = dtype_name(dtype)
+        again = group_norm_silu(x, scale, bias, use_kernel=True)
+        ref = group_norm_silu_reference(x.float(), scale.float(), bias.float())
+        peak = ref.abs().max().item()
+        err = (out.float() - ref).abs().max().item()
+        bound = (1e-2 if dtype == torch.bfloat16 else 1e-4) * max(1.0, peak)
+        same = torch.equal(out, again)
+        line = (f"gn_silu {name} {shape}: max|out-ref| {err:.3e} (bound {bound:.3g}, "
+                f"max|ref| {peak:.2f}); two calls equal: {same}")
+        if not (err <= bound and same and out.dtype == dtype):
+            fail(line)
+        entry = {"shape": list(shape), "dtype": name, "max_abs_err": err}
+        if dtype == torch.bfloat16 and shape in model_shapes:
+            g = 32
+            iters = 5 if x.numel() > 2**26 else 20
+            k_ms, p_ms = timed_pair(
+                lambda: group_norm_silu(x, scale, bias, use_kernel=True),
+                lambda: group_norm_silu_reference(x, scale, bias), iters)
+            lib_ms = median_ms(lambda: F.silu(F.group_norm(x, g, scale, bias, 1e-5)), iters)
+            nbytes = 2 * x.numel() * x.element_size() + 2 * scale.numel() * scale.element_size()
+            bound_ms, bound_by = roofline(8.0 * x.numel(), nbytes, "float32")
+            entry.update(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
+            line += (f"; kernel {k_ms:.4f} ms ({nbytes / k_ms / 1e6:.0f} GB/s), plain "
+                     f"{p_ms:.4f} ms, F.group_norm + F.silu {lib_ms:.4f} ms, bound "
+                     f"{bound_ms:.4f} ms ({bound_by})")
+        log(line)
+        results.append(entry)
+        del again, ref
+    del inputs, outs
+    torch.cuda.empty_cache()
+    return counts["gn_silu"]
+
+
+def check_conv3x3(results, model_shapes):
+    """The direct conv kernel at every model shape against its 9-tap plain
+    version in fp32 (TF32 off), with F.conv2d's time beside it."""
+    import torch
+    import torch.nn.functional as F
+
+    from ddpo_torch.ops.conv import conv3x3_direct, conv3x3_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    odd = (2, 96, 13, 17, 40)
+    cases = [(shape, torch.bfloat16) for shape in model_shapes]
+    cases += [(model_shapes[0], torch.float32), (model_shapes[1], torch.float32),
+              (odd, torch.bfloat16), (odd, torch.float32)]
+    for shape, dtype in cases:
+        n, cin, h, w, cout = shape
+        name = dtype_name(dtype)
+        x = torch.randn((n, cin, h, w), generator=gen, device="cuda").to(dtype)
+        weight = (torch.randn((cout, cin, 3, 3), generator=gen, device="cuda")
+                  * (9 * cin) ** -0.5).to(dtype)
+        out = conv3x3_direct(x, weight)
+        again = conv3x3_direct(x, weight)
+        ref = conv3x3_reference(x.float(), weight.float())
+        peak = ref.abs().max().item()
+        err = (out.float() - ref).abs().max().item()
+        bound = (1e-2 if dtype == torch.bfloat16 else 1e-4) * max(1.0, peak)
+        same = torch.equal(out, again)
+        line = (f"conv3x3 {name} x{(n, cin, h, w)} -> {cout}: max|out-ref| {err:.3e} (bound "
+                f"{bound:.3g}, max|ref| {peak:.2f}); two calls equal: {same}")
+        if not (err <= bound and same and out.dtype == dtype):
+            fail(line)
+        del again, ref
+        flops = 2.0 * n * h * w * 9 * cin * cout
+        iters = 3 if flops > 1e11 else 10
+        k_ms, p_ms = timed_pair(lambda: conv3x3_direct(x, weight),
+                                lambda: conv3x3_reference(x, weight), iters)
+        lib_ms = median_ms(lambda: F.conv2d(x, weight, padding=1), iters)
+        nbytes = (x.numel() + weight.numel() + out.numel()) * x.element_size()
+        bound_ms, bound_by = roofline(flops, nbytes, name)
+        results.append({"shape": list(shape), "dtype": name, "max_abs_err": err, "ms": k_ms,
+                        "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by})
+        log(line + f"; kernel {k_ms:.3f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s), plain "
+            f"{p_ms:.3f} ms, F.conv2d {lib_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        del x, weight, out
+        torch.cuda.empty_cache()
+
+
+def phase_probes(results):
+    """ddpo_torch.bench.conv_probe.main at JAX's shape (counted), then each
+    probe against its plain version at that shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from ddpo_torch.bench import conv_probe as cp
+    from ddpo_torch.ops import _build
+
+    _build.reset_launch_counts()
+    probe_ms = cp.main()
+    counts = _build.launch_counts()
+    log(f"conv_probe.main launches {counts}")
+    probes = ("p1", "p2", "p6", "p7")
+    if any(counts[f"conv_probe_{p}"] == 0 for p in probes) or counts["conv3x3"] == 0:
+        fail("conv_probe.main did not launch every probe kernel")
+    b, h, w, cin, cout = cp.B, cp.H, cp.W, cp.CIN, cp.COUT
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    x = torch.randn((b, cin, h, w), generator=gen, device="cuda").to(torch.bfloat16)
+    w9 = (torch.randn((9, cin, cout), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+    weights = {"p1": w9, "p2": w9, "p6": w9.reshape(3, 3 * cin, cout),
+               "p7": w9.reshape(9 * cin, cout)}
+    w_oihw = w9.reshape(3, 3, cin, cout).permute(3, 2, 0, 1).contiguous()
+    x_nhwc = x.permute(0, 2, 3, 1).contiguous()
+    library = {"p1": lambda: cp.p0_einsum(x_nhwc, w9), "p2": None,
+               "p6": lambda: F.conv2d(x, w_oihw, padding=1),
+               "p7": lambda: F.conv2d(x, w_oihw, padding=1)}
+    flops = 2.0 * b * h * w * 9 * cin * cout
+    nbytes = (x.numel() + x.numel() * cout // cin + w9.numel()) * 2
+    # the least products each probe's function needs: p1 is x (sum_t W_t), one;
+    # p2 is sum_dy shift_dy(x) (sum_i W[3 dy + i]), three; p6 and p7, the 3x3 conv, nine
+    products = {"p1": 1, "p2": 3, "p6": 9, "p7": 9}
+    for p in probes:
+        bound_ms, bound_by = roofline(flops * products[p] / 9, nbytes)
+        probe, reference = getattr(cp, p), getattr(cp, f"{p}_reference")
+        out = probe(x, weights[p])
+        again = probe(x, weights[p])
+        ref = reference(x.float(), weights[p].float())
+        peak = ref.abs().max().item()
+        err = (out.float() - ref).abs().max().item()
+        bound = 1e-2 * max(1.0, peak)
+        same = torch.equal(out, again)
+        line = (f"probe {p} bf16 x{(b, cin, h, w)} -> {cout}: max|out-ref| {err:.3e} (bound "
+                f"{bound:.3g}); two calls equal: {same}")
+        if not (err <= bound and same):
+            fail(line)
+        del out, again, ref
+        k_ms, p_ms = timed_pair(lambda: probe(x, weights[p]),
+                                lambda: reference(x, weights[p]), 5)
+        lib_ms = median_ms(library[p], 10) if library[p] else None
+        results[p] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "launches": counts[f"conv_probe_{p}"], "main_ms": probe_ms[p]}
+        log(line + f"; kernel {k_ms:.3f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s), plain "
+            f"{p_ms:.3f} ms, library {'none' if lib_ms is None else f'{lib_ms:.3f} ms'}, "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
+    del x, x_nhwc, w9, weights, w_oihw
+    torch.cuda.empty_cache()
+
+
+def phase_serving(unet_gn, vae_gn, unet_conv=0, vae_conv=0):
     import numpy as np
     import torch
 
@@ -341,15 +636,16 @@ def phase_serving(unet_gn, vae_gn):
     if not (np.isfinite(images).all() and images.min() >= 0.0 and images.max() <= 1.0):
         fail("images are not finite values in [0, 1]")
     sampler_calls = decode_calls = 1  # one batch of n_images
-    want = {"flash_fwd": FLASH_PER_UNET_FORWARD * steps * sampler_calls,
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "gn_stats": unet_gn * steps * sampler_calls + vae_gn * decode_calls}
+    want = expected(flash_fwd=FLASH_PER_UNET_FORWARD * steps * sampler_calls,
+                    gn_stats=unet_gn * steps * sampler_calls + vae_gn * decode_calls,
+                    conv3x3=unet_conv * steps * sampler_calls + vae_conv * decode_calls)
     log(f"launches {counts}, expected {want} "
-        f"(UNet GroupNorms {unet_gn}, VAE decoder GroupNorms {vae_gn})")
+        f"(UNet GroupNorms {unet_gn}, VAE decoder GroupNorms {vae_gn}; direct convs "
+        f"{unet_conv} and {vae_conv})")
     if counts != want:
         fail(f"kernel launches {counts} != expected {want}")
-    events = read_metrics(result.outdir)
-    ips = [e["images_per_sec"] for e in events if e.get("phase") == "generate"]
+    events = read_metrics(result.outdir)  # the run dir keeps earlier runs' events too
+    ips = [e["images_per_sec"] for e in events if e.get("phase") == "generate"][-sampler_calls:]
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"images/s (sampling + decode, per batch): {ips}; "
         f"max_memory_allocated {peak:.2f} GiB")
@@ -406,7 +702,7 @@ def phase_rollout():
     return models, embeds, uncond, traj
 
 
-def phase_onpolicy(rollout, unet_gn):
+def phase_onpolicy(rollout, unet_gn, unet_conv=0):
     """ppo_loss on step 0 of phase 5's rollout, through the trainer's path."""
     import torch
 
@@ -450,13 +746,15 @@ def phase_onpolicy(rollout, unet_gn):
         f"got a gradient, all finite: {finite}")
     if not (max_dlogp <= bound and clipfrac == 0.0 and finite and grads):
         fail("the trainer's recompute is off-policy or its gradient is not finite")
-    # one forward, its remat recompute and one backward
-    want = {"flash_fwd": 2 * FLASH_PER_UNET_FORWARD, "flash_bwd_dq": FLASH_PER_UNET_FORWARD,
-            "flash_bwd_dkv": FLASH_PER_UNET_FORWARD, "gn_stats": 2 * unet_gn}
+    # one forward, its remat recompute and one backward (whose convs are
+    # the library's)
+    want = expected(flash_fwd=2 * FLASH_PER_UNET_FORWARD, flash_bwd_dq=FLASH_PER_UNET_FORWARD,
+                    flash_bwd_dkv=FLASH_PER_UNET_FORWARD, gn_stats=2 * unet_gn,
+                    conv3x3=2 * unet_conv)
     log(f"on-policy launches {counts}, expected {want}")
     if counts != want:
         fail(f"kernel launches {counts} != expected {want}")
-    return {k: p.detach().cpu() for k, p in params.items()}
+    return {k: p.detach().cpu() for k, p in params.items()}, counts
 
 
 def phase_train(init_params, unet_gn, vae_gn):
@@ -484,14 +782,14 @@ def phase_train(init_params, unet_gn, vae_gn):
     steps = args.n_inference_steps
     n_updates = (args.sample_batch_size * n_sample // args.train_batch_size) * int(
         steps * args.train_timestep_ratio)
-    want = {
+    want = expected(
         # sampler: one 2B UNet call per step; trainer: forward + remat
         # recompute + backward per (minibatch, timestep)
-        "flash_fwd": FLASH_PER_UNET_FORWARD * (steps * n_sample + 2 * n_updates),
-        "flash_bwd_dq": FLASH_PER_UNET_FORWARD * n_updates,
-        "flash_bwd_dkv": FLASH_PER_UNET_FORWARD * n_updates,
-        "gn_stats": unet_gn * (steps * n_sample + 2 * n_updates) + vae_gn * n_sample,
-    }
+        flash_fwd=FLASH_PER_UNET_FORWARD * (steps * n_sample + 2 * n_updates),
+        flash_bwd_dq=FLASH_PER_UNET_FORWARD * n_updates,
+        flash_bwd_dkv=FLASH_PER_UNET_FORWARD * n_updates,
+        gn_stats=unet_gn * (steps * n_sample + 2 * n_updates) + vae_gn * n_sample,
+    )
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -548,6 +846,50 @@ def phase_train(init_params, unet_gn, vae_gn):
     return want
 
 
+def phase_conv_path(unet_gn, vae_gn, unet_conv, vae_conv):
+    """Phases 4-6 again with every Conv3x3 on the direct kernel."""
+    import torch
+
+    from ddpo_torch.ops import _build
+    from ddpo_torch.ops.conv import set_conv_kernel_enabled
+    from ddpo_torch.utils.serialization import load_stable_diffusion
+
+    try:
+        # (a) one UNet forward at 2B = 8, switch on against off
+        models = load_stable_diffusion(model_preset="sd14", device="cuda",
+                                       dtype=torch.bfloat16, seed=0)
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        latents = torch.randn((8, 4, 64, 64), generator=gen, device="cuda").to(torch.bfloat16)
+        context = torch.randn((8, 77, 768), generator=gen, device="cuda").to(torch.bfloat16)
+        t = torch.full((8,), 500, device="cuda")
+        with torch.no_grad():
+            set_conv_kernel_enabled(None)
+            off = models.unet(latents, t, context).float()
+            set_conv_kernel_enabled(True)
+            _build.reset_launch_counts()
+            on = models.unet(latents, t, context).float()
+            launched = _build.launch_counts()["conv3x3"]
+        rel = ((on - off).abs().max() / off.abs().max()).item()
+        bound = 5e-2
+        log(f"conv path (a): UNet forward at 2B = 8, direct kernel against cuDNN: "
+            f"max|on-off| / max|off| = {rel:.3e} (bound {bound:g}: bf16 through 49 convs), "
+            f"conv3x3 launches {launched} (expected {unet_conv})")
+        if not (rel <= bound and launched == unet_conv and torch.isfinite(on).all()):
+            fail("the UNet with the direct conv kernel differs from the library's")
+        del models, latents, context, off, on
+        torch.cuda.empty_cache()
+        # (b) serving
+        counts, ips, peak = phase_serving(unet_gn, vae_gn, unet_conv, vae_conv)
+        # (c) rollout and the on-policy update
+        rollout = phase_rollout()
+        _, update_counts = phase_onpolicy(rollout, unet_gn, unet_conv)
+        del rollout
+        torch.cuda.empty_cache()
+    finally:
+        set_conv_kernel_enabled(None)
+    return counts, update_counts
+
+
 def main() -> None:
     try:
         import torch
@@ -563,44 +905,73 @@ def main() -> None:
 
     smi = phase_device()
     phase_build()
-    flash_results, bwd_results, gn_results = [], [], []
+    flash_results, bwd_results, gn_results, silu_results, conv_results = [], [], [], [], []
+    probe_results = {}
     check_flash(flash_results)
     check_flash_bwd(bwd_results)
     check_gn_stats(gn_results)
-    unet_gn, vae_gn = count_group_norms()
+    unet_gn, vae_gn, unet_conv, vae_conv = count_modules()
+    gn_shapes, conv_shapes = collect_model_shapes()
+    silu_launches = check_gn_silu(silu_results, gn_shapes)
+    check_conv3x3(conv_results, conv_shapes)
+    phase_probes(probe_results)
     phase_serving(unet_gn, vae_gn)
     rollout = phase_rollout()
-    init_params = phase_onpolicy(rollout, unet_gn)
+    init_params, _ = phase_onpolicy(rollout, unet_gn)
     del rollout
     counts = phase_train(init_params, unet_gn, vae_gn)
+    conv_counts, _ = phase_conv_path(unet_gn, vae_gn, unet_conv, vae_conv)
     shutil.rmtree(bucket, ignore_errors=True)
 
     def headline(results, shape):
         return next(r for r in results if r["shape"] == shape and r["dtype"] == "bfloat16")
 
+    def timing(entry, ms="ms", bound=None):
+        bound_ms, bound_by = bound or (entry["bound_ms"], entry["bound_by"])
+        return {"ms": entry[ms], "plain_ms": entry["plain_ms"], "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": entry["library_ms"]}
+
     flash_main = headline(flash_results, [8, 4096, 4096, 8, 40])
     bwd_main = headline(bwd_results, [4, 4096, 4096, 8, 40])
     gn_main = headline(gn_results, [8, 320, 64, 64])
+    silu_main = headline(silu_results, [8, 320, 64, 64])
+    conv_main = headline(conv_results, [8, 320, 64, 64, 320])
     kernels = [
         {"name": "flash_fwd", "route": "cuda", "source": "ddpo_torch/csrc/flash_fwd.cu",
          "replaces": "ddpo_tpu/ops/attention.py:58", "launches": counts["flash_fwd"],
-         "max_abs_err": max(r["max_abs_err"] for r in flash_results),
-         "ms": flash_main["ms"], "plain_ms": flash_main["plain_ms"]},
+         "max_abs_err": max(r["max_abs_err"] for r in flash_results), **timing(flash_main)},
         {"name": "flash_bwd_dq", "route": "cuda", "source": "ddpo_torch/csrc/flash_bwd.cu",
          "replaces": "ddpo_tpu/ops/attention.py:177", "launches": counts["flash_bwd_dq"],
          "max_abs_err": max(r["max_abs_err_dq"] for r in bwd_results),
-         "ms": bwd_main["dq_ms"], "plain_ms": bwd_main["plain_ms"]},
+         **timing(bwd_main, "dq_ms", bwd_main["dq_bound"])},
         {"name": "flash_bwd_dkv", "route": "cuda", "source": "ddpo_torch/csrc/flash_bwd.cu",
          "replaces": "ddpo_tpu/ops/attention.py:211", "launches": counts["flash_bwd_dkv"],
          "max_abs_err": max(r["max_abs_err_dkv"] for r in bwd_results),
-         "ms": bwd_main["dkv_ms"], "plain_ms": bwd_main["plain_ms"]},
+         **timing(bwd_main, "dkv_ms", bwd_main["dkv_bound"])},
         {"name": "gn_stats", "route": "cuda", "source": "ddpo_torch/csrc/gn_stats.cu",
          "replaces": "ddpo_tpu/ops/groupnorm.py:126", "launches": counts["gn_stats"],
-         "max_abs_err": max(r["max_abs_err"] for r in gn_results),
-         "ms": gn_main["ms"], "plain_ms": gn_main["plain_ms"]},
+         "max_abs_err": max(r["max_abs_err"] for r in gn_results), **timing(gn_main)},
+        {"name": "gn_silu", "route": "cuda", "source": "ddpo_torch/csrc/gn_silu.cu",
+         "replaces": "ddpo_tpu/ops/groupnorm.py:232", "launches": silu_launches,
+         "max_abs_err": max(r["max_abs_err"] for r in silu_results), **timing(silu_main)},
+        {"name": "conv3x3", "route": "cuda", "source": "ddpo_torch/csrc/conv3x3.cu",
+         "replaces": "ddpo_tpu/ops/conv.py:58", "launches": conv_counts["conv3x3"],
+         "max_abs_err": max(r["max_abs_err"] for r in conv_results), **timing(conv_main)},
     ]
-    log("kernels: launches are the DDPO phase's; a backward kernel's plain_ms is the "
-        "whole plain backward (dq, dk and dv)")
+    for probe, line in (("p1", 46), ("p2", 71), ("p6", 164), ("p7", 196)):
+        entry = probe_results[probe]
+        kernels.append({
+            "name": f"conv_probe_{probe}", "route": "cuda", "source": "ddpo_torch/csrc/conv3x3.cu",
+            "replaces": f"bench_conv_probe.py:{line}", "launches": entry["launches"],
+            "max_abs_err": entry["max_abs_err"], **timing(entry)})
+    if any(k["launches"] <= 0 for k in kernels):
+        fail(f"a kernel was never launched on its path: {[k['name'] for k in kernels]}")
+    log("kernels: launches are the DDPO phase's for the four kernels of the default path, "
+        "the op-level path's for gn_silu, the serving phase's with the conv switch on for "
+        "conv3x3 and conv_probe.main's for the probes; a backward kernel's plain_ms and "
+        "library_ms are the whole backward (dq, dk and dv); times at the headline shapes: "
+        "flash (8, 4096, 8, 40) and (4, 4096, 8, 40), GroupNorm (8, 320, 64, 64), conv "
+        "(8, 320, 64, 64) -> 320 and the probes' (16, 320, 64, 64) -> 320, bf16")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,7 @@ chain ("f:models/{iteration+1}").
 
 This is the PyTorch port's copy of ddpo_tpu/config/base.py: every preset and
 value is unchanged, so one command line means the same run in both packages.
+One key is the port's own: ``device`` in the generate and pg blocks.
 Every measurement a comment below cites was taken by the JAX package on a
 TPU v5e; none of them describes this port's speed.
 """
@@ -109,6 +110,9 @@ base = {
         "seed": None,
         "dtype": "bfloat16",
         "model_preset": "sd14",
+        # the port's counterpart of JAX_PLATFORMS: "cuda" (the kernels'
+        # device, raising when there is no card) or "cpu"
+        "device": "cuda",
     },
     # sizes manifest builder (pipelines/save_sizes.py)
     "sizes": {
@@ -273,6 +277,7 @@ base = {
         "keep_checkpoints": 0,
         "model_preset": "sd14",  # "tiny" for CPU smoke tests
         "remat": True,  # rematerialize UNet activations in the PPO backward
+        "device": "cuda",  # or "cpu"; "cuda" raises when there is no card
     },
 }
 

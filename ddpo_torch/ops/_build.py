@@ -37,7 +37,9 @@ DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
 
 # launches per kernel wrapper since the last reset
 launches: Dict[str, int] = {
-    "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "gn_stats": 0,
+    "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "gn_stats": 0, "gn_silu": 0,
+    "conv3x3": 0, "conv_probe_p1": 0, "conv_probe_p2": 0, "conv_probe_p6": 0,
+    "conv_probe_p7": 0,
 }
 
 
@@ -72,6 +74,12 @@ class KernelLibrary:
         lib.ddpo_flash_bwd_dkv.restype = i32
         lib.ddpo_gn_stats.argtypes = [p, p, p, p, i32, i64, i64, i32, p]
         lib.ddpo_gn_stats.restype = i32
+        # x, scale, bias, out, dtype, n_runs, num_groups, cpg, hw, eps, stream
+        lib.ddpo_gn_silu.argtypes = [p, p, p, p, i32, i64, i32, i32, i64, ctypes.c_float, p]
+        lib.ddpo_gn_silu.restype = i32
+        # x, w, out, dtype, tap map, B, Cin, H, W, Cout, stream
+        lib.ddpo_tap_gemm.argtypes = [p, p, p, i32, i32] + [i32] * 5 + [p]
+        lib.ddpo_tap_gemm.restype = i32
         lib.ddpo_gn_stats_chunk.argtypes = []
         lib.ddpo_gn_stats_chunk.restype = i32
         lib.ddpo_error_string.argtypes = [i32]

@@ -1,8 +1,21 @@
-"""3x3 stride-1 SAME convolution.
+"""3x3 stride-1 SAME convolution, and the tap-GEMM kernel behind it.
 
-Port of ddpo_tpu/ops/conv.py's dispatch: JAX never picks its Pallas conv
-(``_kernel_profitable`` returns False), so the product stays a library call,
-as XLA's conv emitter did it there: here ``F.conv2d`` on NCHW/OIHW.
+Port of ddpo_tpu/ops/conv.py's dispatch. ``set_conv_kernel_enabled``
+forces (True), forbids (False) or restores the automatic choice (None) of
+the direct kernel. Automatic never picks it, since JAX's
+``_kernel_profitable`` returns False, so by default the product is a library
+call, as XLA's conv emitter did it there: ``F.conv2d`` on NCHW/OIHW.
+
+With the switch on, ``conv3x3`` runs ``conv3x3_direct``: on a CUDA tensor
+the tap-GEMM kernel (csrc/conv3x3.cu, replacing the Pallas
+``_conv3x3_kernel``), on a CPU tensor its plain version,
+``conv3x3_reference``. The bias is added after the product is rounded to
+x's dtype, as JAX adds it. Under autograd the product goes through
+``Conv3x3Direct``, whose backward is the library conv's gradient, as JAX
+differentiates its XLA conv.
+
+``tap_gemm`` launches the kernel for ``conv3x3_direct`` and for the conv
+probes of ddpo_torch/bench/conv_probe.py.
 """
 
 from __future__ import annotations
@@ -12,9 +25,112 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ddpo_torch.ops import _build
+
+# offsets of the 9 taps in csrc/conv3x3.cu: (dy - 1, dx - 1), (dy - 1, 0), (0, 0)
+TAP_MAPS = {"shift3x3": 0, "rows": 1, "none": 2}
+
+_CONV_OVERRIDE: Optional[bool] = None
+
+
+def set_conv_kernel_enabled(value: Optional[bool]) -> None:
+    """Force (True) or forbid (False) the direct kernel, or restore the
+    automatic choice (None), which is the library conv. Read at each call."""
+    global _CONV_OVERRIDE
+    _CONV_OVERRIDE = value
+
+
+def tap_gemm(x: torch.Tensor, w_kn: torch.Tensor, tap_map: str, counter: str) -> torch.Tensor:
+    """out[b, :, p] = sum over the 9 taps t and cin of x[b, cin, p + offset_t]
+    * w_kn[t * Cin + cin, :], zero outside the map; on CUDA tensors only.
+
+    x: contiguous (B, Cin, H, W); w_kn: contiguous, 9 * Cin * Cout values in
+    (tap, cin, cout) order; the result (B, Cout, H, W) has x's dtype.
+    ``counter`` names the entry of ``_build.launches`` this launch adds to.
+    """
+    if not (x.is_cuda and w_kn.device == x.device):
+        raise ValueError(f"tap_gemm runs on one CUDA device, got {x.device} and {w_kn.device}")
+    if w_kn.dtype != x.dtype:
+        raise TypeError(f"x is {x.dtype} but the weight is {w_kn.dtype}")
+    code = _build.dtype_code(x.dtype)
+    if x.dim() != 4 or not x.is_contiguous() or not w_kn.is_contiguous():
+        raise ValueError("tap_gemm needs a contiguous NCHW x and a contiguous weight")
+    b, cin, h, w = x.shape
+    if w_kn.numel() % (9 * cin):
+        raise ValueError(f"weight {tuple(w_kn.shape)} is not (9 * {cin}, Cout)")
+    cout = w_kn.numel() // (9 * cin)
+    out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device)
+    kl = _build.load_library()
+    err = kl.lib.ddpo_tap_gemm(
+        x.data_ptr(), w_kn.data_ptr(), out.data_ptr(), code, TAP_MAPS[tap_map],
+        b, cin, h, w, cout, _build.stream_handle(x.device),
+    )
+    kl.check(err, f"{counter} launch")
+    _build.launches[counter] += 1
+    return out
+
+
+def conv3x3_reference(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The kernel's plain version, written out as the 9-tap sum: zero-padded
+    shifted windows, one product over Cin per tap, summed in (dy, dx)
+    order in fp32; the result has x's dtype."""
+    h, w = x.shape[2:]
+    xp = F.pad(x.float(), (1, 1, 1, 1))
+    wf = weight.float()
+    acc = None
+    for dy in range(3):
+        for dx in range(3):
+            term = torch.einsum("bchw,oc->bohw", xp[:, :, dy:dy + h, dx:dx + w],
+                                wf[:, :, dy, dx])
+            acc = term if acc is None else acc + term
+    return acc.to(x.dtype)
+
+
+def conv3x3_direct(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The product of JAX's ``conv3x3_direct`` without its bias: x
+    (N, Cin, H, W), weight (Cout, Cin, 3, 3) -> (N, Cout, H, W) in x's dtype.
+
+    CUDA tensors run the kernel; CPU tensors take the plain version.
+    """
+    if x.device.type == "cpu":
+        return conv3x3_reference(x, weight)
+    if x.device.type != "cuda":
+        raise ValueError(f"no conv3x3 kernel for device {x.device}")
+    if weight.shape[1:] != (x.shape[1], 3, 3):
+        raise ValueError(f"weight {tuple(weight.shape)} does not fit x {tuple(x.shape)}")
+    # OIHW -> (dy, dx, cin, cout): the kernel's (K, N) operand, JAX's HWIO
+    w_kn = weight.permute(2, 3, 1, 0).contiguous()
+    return tap_gemm(x.contiguous(), w_kn, "shift3x3", "conv3x3")
+
+
+class Conv3x3Direct(torch.autograd.Function):
+    """``conv3x3_direct`` under autograd (JAX's ``_conv3x3_pallas_op``): the
+    backward is the library conv's input and weight gradients."""
+
+    @staticmethod
+    def forward(ctx, x, weight):
+        ctx.save_for_backward(x, weight)
+        return conv3x3_direct(x, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        # read once: under a non-reentrant checkpoint a second read raises
+        x, weight = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.nn.grad.conv2d_input(x.shape, weight, g, padding=1)
+        if ctx.needs_input_grad[1]:
+            gw = torch.nn.grad.conv2d_weight(x, weight.shape, g, padding=1)
+        return gx, gw
+
 
 def conv3x3(
     x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
     """x (N, Cin, H, W), weight (Cout, Cin, 3, 3) -> (N, Cout, H, W)."""
-    return F.conv2d(x, weight, bias, stride=1, padding=1)
+    if not _CONV_OVERRIDE:
+        return F.conv2d(x, weight, bias, stride=1, padding=1)
+    out = Conv3x3Direct.apply(x, weight.to(x.dtype))
+    if bias is not None:
+        out = out + bias.to(out.dtype)[:, None, None]
+    return out

@@ -11,14 +11,17 @@ Under autograd the statistics go through ``GroupStats``, on both devices:
 its forward is ``group_stats`` and its backward the analytic one of JAX's
 ``_moments_bwd``, in plain torch as JAX's is plain XLA.
 
-The fused GN+SiLU Pallas kernel is opt-in in JAX and not ported yet;
-``group_norm_silu`` is ``group_norm(silu=True)``, JAX's default path.
+``group_norm_silu`` follows JAX's opt-in: by default it is
+``group_norm(silu=True)``; with ``use_kernel=True`` a CUDA tensor runs the
+fused kernel (csrc/gn_silu.cu, replacing the Pallas ``_gn_silu_kernel``:
+statistics, normalize, affine and SiLU in one launch, forward only) and a
+CPU tensor ``group_norm(silu=True)``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -87,23 +90,11 @@ class GroupStats(torch.autograd.Function):
         return gx.to(x.dtype).reshape(x.shape), None
 
 
-def group_norm(
-    x: torch.Tensor,
-    scale: torch.Tensor,
-    bias: torch.Tensor,
-    num_groups: int = 32,
-    eps: float = 1e-5,
-    silu: bool = False,
-) -> torch.Tensor:
-    """GroupNorm over an NCHW (or N, C, ...) tensor with fp32 statistics.
-
-    var = E[x^2] - E[x]^2 as in the JAX package; the output has x's dtype.
-    """
+def _normalize(x, sums, sq_sums, scale, bias, g, eps, silu):
+    """Normalize, affine and optional SiLU from the group sums, in fp32;
+    var = E[x^2] - E[x]^2 as in the JAX package; the output has x's dtype."""
     n, c = x.shape[:2]
-    g = num_groups_for(c, num_groups)
     denom = float(x.numel() // n // g)
-
-    sums, sq_sums = GroupStats.apply(x, g)
     mean = sums / denom
     var = sq_sums / denom - mean**2
     rstd = torch.rsqrt(var + eps)
@@ -116,5 +107,78 @@ def group_norm(
     return out.to(x.dtype).reshape(x.shape)
 
 
-def group_norm_silu(x, scale, bias, num_groups: int = 32, eps: float = 1e-5):
-    return group_norm(x, scale, bias, num_groups, eps, silu=True)
+def group_norm(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    num_groups: int = 32,
+    eps: float = 1e-5,
+    silu: bool = False,
+) -> torch.Tensor:
+    """GroupNorm over an NCHW (or N, C, ...) tensor with fp32 statistics.
+
+    var = E[x^2] - E[x]^2 as in the JAX package; the output has x's dtype.
+    """
+    g = num_groups_for(x.shape[1], num_groups)
+    sums, sq_sums = GroupStats.apply(x, g)
+    return _normalize(x, sums, sq_sums, scale, bias, g, eps, silu)
+
+
+def group_norm_silu_reference(x, scale, bias, num_groups: int = 32, eps: float = 1e-5):
+    """The fused kernel's plain version, which the card checks hold it
+    against: ``group_norm(silu=True)`` with the statistics from
+    ``group_stats_reference``, on any device."""
+    g = num_groups_for(x.shape[1], num_groups)
+    sums, sq_sums = group_stats_reference(x, g)
+    return _normalize(x, sums, sq_sums, scale, bias, g, eps, True)
+
+
+def gn_silu_kernel(x, scale, bias, num_groups: int, eps: float) -> torch.Tensor:
+    """Launch csrc/gn_silu.cu on a contiguous CUDA map whose channels split
+    into ``num_groups``; the output has x's dtype. No backward: JAX's
+    kernel has none either."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError("the fused GN+SiLU kernel is forward only, as in JAX")
+    code = _build.dtype_code(x.dtype)
+    if x.dim() < 2 or not x.is_contiguous():
+        raise ValueError("gn_silu needs a contiguous NCHW map")
+    n, c = x.shape[:2]
+    if c % num_groups or scale.shape != (c,) or bias.shape != (c,):
+        raise ValueError(f"gn_silu: {c} channels, {num_groups} groups, scale "
+                         f"{tuple(scale.shape)}, bias {tuple(bias.shape)}")
+    scale32 = scale.detach().to(x.device, torch.float32).contiguous()
+    bias32 = bias.detach().to(x.device, torch.float32).contiguous()
+    out = torch.empty_like(x)
+    kl = _build.load_library()
+    err = kl.lib.ddpo_gn_silu(
+        x.data_ptr(), scale32.data_ptr(), bias32.data_ptr(), out.data_ptr(), code,
+        n * num_groups, num_groups, c // num_groups, x.numel() // (n * c), float(eps),
+        _build.stream_handle(x.device),
+    )
+    kl.check(err, "gn_silu launch")
+    _build.launches["gn_silu"] += 1
+    return out
+
+
+def group_norm_silu(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    num_groups: int = 32,
+    eps: float = 1e-5,
+    use_kernel: Optional[bool] = None,
+) -> torch.Tensor:
+    """Fused GroupNorm + SiLU, JAX's ``group_norm_silu``.
+
+    ``use_kernel`` None means False, as in JAX, where XLA's fusion matched
+    the kernel. With ``use_kernel=True`` and channels that split into
+    ``num_groups``, a CUDA tensor runs the kernel; a CPU tensor, and other
+    channel counts, take ``group_norm`` (with its gcd clamp).
+    JAX's VMEM budget (map size, c % 128, s % 8) is the TPU's and is not
+    carried over: the kernel takes every NCHW map.
+    """
+    if not use_kernel or x.shape[1] % num_groups or x.device.type == "cpu":
+        return group_norm(x, scale, bias, num_groups, eps, silu=True)
+    if x.device.type != "cuda":
+        raise ValueError(f"no gn_silu kernel for device {x.device}")
+    return gn_silu_kernel(x, scale, bias, num_groups, eps)

@@ -2,9 +2,11 @@
 
 Port of the DDIM path of ddpo_tpu/pipelines/generate.py, on one device:
 prompts -> CLIP text encode -> 50-step CFG DDIM sampler -> VAE decode ->
-PNGs under the run's savepath. It runs on the CUDA device when there is
-one (where the UNet's self-attention and every GroupNorm go through the
-kernels in ddpo_torch/csrc) and on the CPU otherwise.
+PNGs under the run's savepath. It runs on the CUDA device (where the
+UNet's self-attention and every GroupNorm go through the kernels in
+ddpo_torch/csrc) and raises at once when there is none, unless
+``--device cpu`` asks for the CPU. With ``ops.conv.set_conv_kernel_enabled(True)``
+every 3x3 conv of the UNet and the VAE decoder runs the direct kernel too.
 
 ``--scheduler dpm++``, ``--quant int8`` and loading a finetuned UNet
 (``--iteration`` > 0) are not ported yet and raise.
@@ -29,7 +31,7 @@ from ddpo_torch.utils import Timer
 from ddpo_torch.utils.images import save_image, save_images
 from ddpo_torch.utils.metrics import MetricsLogger, run_dir
 from ddpo_torch.utils.parser import Parser as BaseParser
-from ddpo_torch.utils.serialization import load_stable_diffusion
+from ddpo_torch.utils.serialization import load_stable_diffusion, resolve_device
 
 
 class Parser(BaseParser):
@@ -49,6 +51,7 @@ def _dtype(name: str) -> torch.dtype:
 
 def main(argv=None) -> GenerateResult:
     args = Parser().parse_args("generate", argv)
+    device = resolve_device(args.device)
     if args.scheduler != "ddim":
         raise NotImplementedError(
             f"--scheduler {args.scheduler!r} is not ported yet (ddim only)"
@@ -63,7 +66,6 @@ def main(argv=None) -> GenerateResult:
         args.set("guidance_scale", load_guidance_scale(args.loadpath))
         print(f"[ generate ] calibrated guidance scale: {args.guidance_scale:g}")
 
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     print(f"[ generate ] device: {device}")
     batch_size = args.n_samples_per_device
     models = load_stable_diffusion(

@@ -1,7 +1,8 @@
 """DDPO training pipeline: sample -> reward -> advantage -> PPO update, one process.
 
 Port of ddpo_tpu/pipelines/policy_gradient.py (its single-process host
-loop), on one device, the CUDA device when there is one:
+loop), on one device: the CUDA device, raising at once when there is none,
+unless ``--device cpu`` asks for the CPU:
 
   - the sampler runs the UNet in ``sample_dtype`` (bf16 by default) on a
     copy cast from the fp32 master parameters once per epoch;
@@ -63,7 +64,7 @@ from ddpo_torch.utils.checkpoints import (
 from ddpo_torch.utils.images import save_image
 from ddpo_torch.utils.metrics import MetricsLogger
 from ddpo_torch.utils.parser import Parser as BaseParser
-from ddpo_torch.utils.serialization import load_stable_diffusion
+from ddpo_torch.utils.serialization import load_stable_diffusion, resolve_device
 
 
 class Parser(BaseParser):
@@ -115,8 +116,8 @@ def make_train_apply(unet: torch.nn.Module, compute_dtype: torch.dtype,
 
 def main(argv=None):
     args = Parser().parse_args("pg", argv)
+    device = resolve_device(args.device)
     _check_ported(args)
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
     sample_bs = args.sample_batch_size
     train_bs = args.train_batch_size

@@ -71,8 +71,21 @@ def tiny_configs():
     return text_cfg, unet_cfg, vae_cfg
 
 
-def build_models(model_preset: str = "sd14", device: Any = "cpu"):
+def resolve_device(device: Any) -> torch.device:
+    """``device`` as a torch.device; "cuda" raises at once when torch finds
+    no card, so nothing meant for the card runs on the CPU unasked."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' was asked for, but torch finds no CUDA device; "
+            "pass --device cpu (device='cpu') to run on the CPU"
+        )
+    return device
+
+
+def build_models(model_preset: str = "sd14", device: Any = "cuda"):
     """(text_encoder, vae, unet) with uninitialised storage on ``device``."""
+    device = resolve_device(device)
     if model_preset == "tiny":
         text_cfg, unet_cfg, vae_cfg = tiny_configs()
     elif model_preset == "sd14":
@@ -116,7 +129,7 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
 def load_stable_diffusion(
     pretrained_model: Optional[str] = None,
     model_preset: str = "sd14",
-    device: Any = "cpu",
+    device: Any = "cuda",
     dtype: torch.dtype = torch.float32,
     seed: int = 0,
 ) -> StableModels:

@@ -24,7 +24,20 @@ from ddpo_torch.ops.attention import (
     flash_attention_bwd_reference,
     flash_attention_fwd,
 )
-from ddpo_torch.ops.groupnorm import group_norm, group_stats, group_stats_reference
+from ddpo_torch.bench import conv_probe
+from ddpo_torch.ops.conv import (
+    conv3x3,
+    conv3x3_direct,
+    conv3x3_reference,
+    set_conv_kernel_enabled,
+)
+from ddpo_torch.ops.groupnorm import (
+    group_norm,
+    group_norm_silu,
+    group_norm_silu_reference,
+    group_stats,
+    group_stats_reference,
+)
 
 
 @pytest.fixture
@@ -165,3 +178,115 @@ def test_kernel_paths_refuse_what_they_cannot_do(cuda):
         flash_attention_bwd(q, q, q, out, lse[:, :, :128], q)
     with pytest.raises(ValueError):
         group_stats(torch.randn(2, 64, 8, 8, device=cuda).transpose(2, 3), 32)
+
+
+def _bound(dtype, ref):
+    """bf16: 1e-2 * max(1, max|ref|), the rounding of the bf16 outputs;
+    fp32: 1e-4 * max(1, max|ref|), the summation order."""
+    return (1e-2 if dtype == torch.bfloat16 else 1e-4) * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(8, 320, 64, 64), (2, 960, 64, 64), (2, 128, 256, 256),
+                                   (2, 64, 17, 17), (1, 2560, 8, 8)])
+def test_gn_silu_kernel_matches_plain(cuda, dtype, shape):
+    """Against the fp32 plain version on the same inputs; two calls give
+    the same bits; each call launches the kernel once."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = (torch.randn(shape, generator=gen, device=cuda) + 0.3).to(dtype)
+    scale = torch.randn(shape[1], generator=gen, device=cuda).to(dtype)
+    bias = torch.randn(shape[1], generator=gen, device=cuda).to(dtype)
+    before = _build.launch_counts()["gn_silu"]
+    out = group_norm_silu(x, scale, bias, use_kernel=True)
+    again = group_norm_silu(x, scale, bias, use_kernel=True)
+    assert _build.launch_counts()["gn_silu"] == before + 2
+    assert out.dtype == dtype and out.shape == x.shape and torch.equal(out, again)
+    ref = group_norm_silu_reference(x.float(), scale.float(), bias.float())
+    assert (out.float() - ref).abs().max().item() <= _bound(dtype, ref)
+
+
+@pytest.mark.cuda
+def test_gn_silu_dispatch_on_cuda(cuda):
+    """use_kernel None is group_norm(silu=True); channels that do not split
+    into the groups take group_norm with its gcd clamp, not the kernel."""
+    x = torch.randn(2, 48, 8, 8, device=cuda)
+    ones, zeros = torch.ones(48, device=cuda), torch.zeros(48, device=cuda)
+    before = _build.launch_counts()["gn_silu"]
+    clamped = group_norm_silu(x, ones, zeros, use_kernel=True)
+    default = group_norm_silu(x[:, :32].contiguous(), ones[:32], zeros[:32])
+    assert _build.launch_counts()["gn_silu"] == before
+    assert torch.equal(clamped, group_norm(x, ones, zeros, silu=True))
+    assert torch.equal(default, group_norm(x[:, :32].contiguous(), ones[:32], zeros[:32],
+                                           silu=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,cin,cout,h,w", [(8, 320, 320, 64, 64), (8, 4, 320, 64, 64),
+                                            (8, 320, 4, 64, 64), (8, 2560, 1280, 8, 8),
+                                            (2, 96, 40, 13, 17), (1, 3, 5, 1, 1)])
+def test_conv3x3_kernel_matches_plain(cuda, dtype, b, cin, cout, h, w):
+    """The 9-tap plain version in fp32 on the same inputs; two calls give
+    the same bits; conv_in's K = 36, conv_out's Cout = 4, the 8x8 bottom,
+    odd and 1x1 maps are masked in the kernel."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((b, cin, h, w), generator=gen, device=cuda).to(dtype)
+    weight = (torch.randn((cout, cin, 3, 3), generator=gen, device=cuda)
+              * (9 * cin) ** -0.5).to(dtype)
+    before = _build.launch_counts()["conv3x3"]
+    out = conv3x3_direct(x, weight)
+    again = conv3x3_direct(x, weight)
+    assert _build.launch_counts()["conv3x3"] == before + 2
+    assert out.dtype == dtype and out.shape == (b, cout, h, w) and torch.equal(out, again)
+    ref = conv3x3_reference(x.float(), weight.float())
+    assert (out.float() - ref).abs().max().item() <= _bound(dtype, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["p1", "p2", "p6", "p7"])
+def test_conv_probes_match_plain(cuda, name):
+    """Each probe at a cut-down shape of JAX's (B 2, 32x32, 320 -> 320, bf16)
+    against its plain version in fp32."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn((2, 320, 32, 32), generator=gen, device=cuda).to(torch.bfloat16)
+    w9 = (torch.randn((9, 320, 320), generator=gen, device=cuda) * 0.02).to(torch.bfloat16)
+    w = {"p1": w9, "p2": w9, "p6": w9.reshape(3, 960, 320), "p7": w9.reshape(2880, 320)}[name]
+    before = _build.launch_counts()[f"conv_probe_{name}"]
+    out = getattr(conv_probe, name)(x, w)
+    assert _build.launch_counts()[f"conv_probe_{name}"] == before + 1
+    ref = getattr(conv_probe, f"{name}_reference")(x.float(), w.float())
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    assert (out.float() - ref).abs().max().item() <= _bound(torch.bfloat16, ref)
+
+
+@pytest.mark.cuda
+def test_conv3x3_switch_and_autograd_on_cuda(cuda):
+    """Switch off: F.conv2d. Switch on: the kernel (bias added after the
+    product is rounded), and under autograd the library conv's gradients,
+    also under a non-reentrant checkpoint."""
+    from torch.utils.checkpoint import checkpoint
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn((2, 64, 16, 16), generator=gen, device=cuda)
+    weight = torch.randn((32, 64, 3, 3), generator=gen, device=cuda) * 0.05
+    bias = torch.randn(32, generator=gen, device=cuda)
+    g = torch.randn((2, 32, 16, 16), generator=gen, device=cuda)
+    before = _build.launch_counts()["conv3x3"]
+    try:
+        set_conv_kernel_enabled(None)
+        off = conv3x3(x, weight, bias)
+        assert _build.launch_counts()["conv3x3"] == before
+        set_conv_kernel_enabled(True)
+        on = conv3x3(x, weight, bias)
+        assert _build.launch_counts()["conv3x3"] == before + 1
+        assert torch.equal(on, conv3x3_direct(x, weight) + bias[:, None, None])
+        assert (on - off).abs().max().item() <= 1e-4
+        leaves = [t.clone().requires_grad_() for t in (x, weight, bias)]
+        checkpoint(conv3x3, *leaves, use_reentrant=False).backward(g)
+        plain = [t.clone().requires_grad_() for t in (x, weight, bias)]
+        torch.nn.functional.conv2d(*plain, padding=1).backward(g)
+        for a, r in zip(leaves, plain):
+            assert (a.grad - r.grad).abs().max().item() <= 1e-4
+    finally:
+        set_conv_kernel_enabled(None)

@@ -24,7 +24,7 @@ LOGDIR = ("logs", "bucket", "logs", "debug-animals", "models", "pg")
 CKPT_ROOT = ("bucket", "logs", "debug-animals", "models", "pg")
 
 COMMON = [
-    "--dataset", "debug-animals",
+    "--dataset", "debug-animals", "--device", "cpu",
     "--n_inference_steps", "2",
     "--resolution", "32",
     "--sample_batch_size", "2",
@@ -72,8 +72,8 @@ def test_pipeline_end_to_end(workdir, fused):
     from ddpo_torch.pipelines import policy_gradient
 
     rewards = policy_gradient.main([
-        "--dataset", "debug-animals", "--n_inference_steps", "2", "--resolution", "32",
-        "--sample_batch_size", "8", "--num_train_epochs", "1",
+        "--dataset", "debug-animals", "--device", "cpu", "--n_inference_steps", "2",
+        "--resolution", "32", "--sample_batch_size", "8", "--num_train_epochs", "1",
         "--fused_train_loop", fused,
     ])
     assert rewards == [3.5]  # arange over a batch of 8
@@ -183,3 +183,21 @@ def test_checkpoints_background_write_prune_and_error(tmp_path):
     with pytest.raises(RuntimeError, match="step 0 failed"):
         checkpoints.wait_for_pending_saves()
     checkpoints.wait_for_pending_saves()  # the error is reported once
+
+
+def test_drivers_raise_without_a_card_unless_device_cpu(workdir):
+    """Both drivers, load_stable_diffusion and build_models default to the
+    card and raise at once without one; --device cpu runs them (above)."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from ddpo_torch.pipelines import generate, policy_gradient
+    from ddpo_torch.utils.serialization import build_models, load_stable_diffusion
+
+    for main in (generate.main, policy_gradient.main):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            main(["--dataset", "debug-animals"])
+    for build in (lambda: load_stable_diffusion(model_preset="tiny"),
+                  lambda: build_models("tiny")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    assert not (workdir / "logs").exists()  # nothing ran before the check

@@ -120,8 +120,8 @@ def test_score_mode_recomputes_sampled_log_probs(rollouts):
 
 
 def test_random_init_is_seeded_and_finite():
-    a = load_stable_diffusion(model_preset="tiny", seed=3)
-    b = load_stable_diffusion(model_preset="tiny", seed=3)
+    a = load_stable_diffusion(model_preset="tiny", device="cpu", seed=3)
+    b = load_stable_diffusion(model_preset="tiny", device="cpu", seed=3)
     for ma, mb in ((a.unet, b.unet), (a.vae, b.vae), (a.text_encoder, b.text_encoder)):
         sa, sb = ma.state_dict(), mb.state_dict()
         assert all(torch.equal(sa[k], sb[k]) for k in sa)
@@ -132,7 +132,7 @@ def test_random_init_is_seeded_and_finite():
 
 def test_generate_end_to_end_debug_animals(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    result = generate.main(["--dataset", "debug-animals", "--seed", "0"])
+    result = generate.main(["--dataset", "debug-animals", "--device", "cpu", "--seed", "0"])
     assert result.images.shape == (4, 64, 64, 3)
     assert np.isfinite(result.images).all()
     assert result.images.min() >= 0.0 and result.images.max() <= 1.0
@@ -142,7 +142,7 @@ def test_generate_end_to_end_debug_animals(tmp_path, monkeypatch):
     assert {"prompts.json", "metrics.jsonl", "grid_0.png"} <= files
     with open(os.path.join(result.outdir, "00000.png"), "rb") as f:
         assert f.read(8) == b"\x89PNG\r\n\x1a\n"
-    again = generate.main(["--dataset", "debug-animals", "--seed", "0"])
+    again = generate.main(["--dataset", "debug-animals", "--device", "cpu", "--seed", "0"])
     np.testing.assert_array_equal(again.images, result.images)
 
 
@@ -150,4 +150,4 @@ def test_generate_end_to_end_debug_animals(tmp_path, monkeypatch):
 def test_generate_refuses_what_is_not_ported(tmp_path, monkeypatch, flag, value):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        generate.main(["--dataset", "debug-animals", flag, value])
+        generate.main(["--dataset", "debug-animals", "--device", "cpu", flag, value])
