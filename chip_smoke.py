@@ -3,9 +3,13 @@
 
 Phases, in order; any failure exits non-zero:
   1. device: the card's name and power limit, torch and CUDA versions.
-  2. build: nvcc builds ddpo_torch/csrc/*.cu for sm_90a.
+  2. build: nvcc builds ddpo_torch/csrc/*.cu for sm_90a; cuobjdump -sass on
+     the library says which kernel functions hold tensor-core (HMMA)
+     instructions: every bf16 flash forward and tap-GEMM instantiation must.
   3. kernels: each forward kernel against its plain PyTorch version at the
-     main path's shapes, with the bound stated, plus kernel and plain times.
+     main path's shapes, with the bound stated, plus kernel and plain times;
+     the bf16 flash forward on image 0 of each 8-image case alone must give
+     the bits of its slice of the batched call (batch invariance).
   3b. backward kernels: flash_bwd_dq and flash_bwd_dkv against the plain
      fp32 backward at the trainer's shapes (2B = 4), ragged lengths and
      D = 256, in bf16 and fp32; kernel times beside the plain backward's.
@@ -26,10 +30,13 @@ Phases, in order; any failure exits non-zero:
      version, two calls bit-equal; times beside F.group_norm + F.silu.
   3d. conv3x3: the tap-GEMM kernel at every Conv3x3 input shape of the UNet
      (2B = 8) and the VAE decoder (batch 4), bf16, fp32 cases and an odd
-     map; against the fp32 9-tap plain version; times beside F.conv2d.
+     map; against the fp32 9-tap plain version; times beside F.conv2d; in
+     bf16, image 0 alone against its slice of the batched call, bit for bit.
   3e. the conv probes p1, p2, p6, p7: ddpo_torch.bench.conv_probe.main at
      JAX's shape (B16, 64x64, 320 -> 320, bf16), then each probe against
-     its plain version.
+     its plain version; library times: the p0 einsum for p1, F.conv2d with
+     the (Cout, Cin, 3, 1) weight summed over dx for p2, F.conv2d for p6
+     and p7.
   4-7 launch none of the new kernels.
   7. DDPO: ddpo_torch.pipelines.policy_gradient.main, one epoch at the
      defaults of --dataset compressed-animals (sample batch 8, 50 steps,
@@ -37,7 +44,8 @@ Phases, in order; any failure exits non-zero:
      checkpoint, and a --resume call that trains no further epoch; checks
      the exact launch counts of all four kernels.
   8. the conv path, with ops.conv.set_conv_kernel_enabled(True) (reset
-     after): (a) one UNet forward at 2B = 8 with the switch on against off;
+     after): (a) one UNet forward at 2B = 8 with the switch on against off,
+     and the median time of a UNet step each way;
      (b) phase 4 again: conv3x3 launches 49 per UNet forward x 50 + 31 in
      the VAE decode; (c) phases 5 and 6 again: the rollout, and the
      on-policy update, which launches conv3x3 twice per module (forward and
@@ -151,6 +159,42 @@ def phase_device():
     return smi
 
 
+# kernel functions that must run their products on the tensor cores
+TENSOR_CORE_KERNELS = ("flash_fwd_mma_kernel", "tap_gemm_mma_kernel")
+
+
+def kernel_name(mangled: str) -> str:
+    """The function name in a mangled kernel symbol: the first <length><name>
+    pair naming a *_kernel, e.g. flash_fwd_mma_kernel from ...20flash_fwd_mma_kernelI..."""
+    import re
+
+    return next((m.group(2) for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*?_kernel))", mangled)
+                 if int(m.group(1)) == len(m.group(2))), mangled)
+
+
+def sass_hmma(path: str):
+    """{kernel function: [HMMA count of each instantiation]} from
+    cuobjdump -sass of the built library; fails if cuobjdump is missing."""
+    import re
+
+    from ddpo_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._find_nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+    if not tool:
+        fail("cuobjdump not found beside nvcc or on PATH: cannot read the SASS")
+    sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = kernel_name(line.split("Function :")[1].strip())
+            counts.setdefault(name, []).append(0)
+        elif name is not None and re.search(r"\bHMMA\b", line):
+            counts[name][-1] += 1
+    return counts
+
+
 def phase_build():
     from ddpo_torch.ops import _build
 
@@ -158,10 +202,19 @@ def phase_build():
     log(f"built {os.path.relpath(kl.path, REPO)} in {kl.build_seconds:.1f} s")
     lines = kl.log.splitlines()
     regs = [int(l.split("Used ")[1].split()[0]) for l in lines if "Used " in l and "registers" in l]
-    spills = sorted({l.strip() for l in lines
-                     if "spill" in l and "0 bytes spill stores, 0 bytes spill loads" not in l})
+    # ptxas prints "Function properties for <name>", then its stack and spills
+    spills = sorted({f"{kernel_name(lines[i - 1].split()[-1])}: {l.strip()}"
+                     for i, l in enumerate(lines) if i and "spill" in l
+                     and "0 bytes spill stores, 0 bytes spill loads" not in l})
     log(f"ptxas: {len(regs)} kernels, {min(regs, default=0)}..{max(regs, default=0)} "
         f"registers per thread; spills: {spills or 'none'} (full log: {kl.path}.log)")
+    hmma = sass_hmma(kl.path)
+    for name, per in sorted(hmma.items()):
+        log(f"sass: {name}: {len(per)} instantiations, {sum(n > 0 for n in per)} with HMMA "
+            f"({min(per)}..{max(per)} HMMA instructions each)")
+    for name in TENSOR_CORE_KERNELS:
+        if name not in hmma or not all(hmma[name]):
+            fail(f"{name}: every instantiation must hold HMMA instructions, got {hmma.get(name)}")
     return kl
 
 
@@ -202,6 +255,14 @@ def check_flash(results):
                 fail(line)
             entry = {"shape": [b, sq, sk, h, d], "dtype": name,
                      "max_abs_err": err, "max_abs_err_lse": err_lse}
+            if b == 8 and dtype == torch.bfloat16:
+                # batch invariance: image 0 alone gives the bits of its slice
+                out1, lse1 = flash_attention_fwd(q[:1], k[:1], v[:1])
+                same = torch.equal(out1, out[:1]) and torch.equal(lse1, lse[:1])
+                line += f"; image 0 alone equals its slice of the batch: {same}"
+                if not same:
+                    fail(line)
+                del out1, lse1
             if sq == sk and b == 8:
                 iters = 10 if sq == 4096 else 30
                 k_ms, p_ms = timed_pair(lambda: flash_attention_fwd(q, k, v),
@@ -508,7 +569,7 @@ def check_conv3x3(results, model_shapes):
     import torch
     import torch.nn.functional as F
 
-    from ddpo_torch.ops.conv import conv3x3_direct, conv3x3_reference
+    from ddpo_torch.ops.conv import conv3x3_direct, conv3x3_reference, weight_kn
 
     gen = torch.Generator(device="cuda").manual_seed(9)
     odd = (2, 96, 13, 17, 40)
@@ -530,6 +591,11 @@ def check_conv3x3(results, model_shapes):
         same = torch.equal(out, again)
         line = (f"conv3x3 {name} x{(n, cin, h, w)} -> {cout}: max|out-ref| {err:.3e} (bound "
                 f"{bound:.3g}, max|ref| {peak:.2f}); two calls equal: {same}")
+        if dtype == torch.bfloat16 and n > 1:
+            # batch invariance: image 0 alone gives the bits of its slice
+            alone = torch.equal(conv3x3_direct(x[:1], weight), out[:1])
+            line += f"; image 0 alone equals its slice of the batch: {alone}"
+            same = same and alone
         if not (err <= bound and same and out.dtype == dtype):
             fail(line)
         del again, ref
@@ -547,6 +613,19 @@ def check_conv3x3(results, model_shapes):
             f"{p_ms:.3f} ms, F.conv2d {lib_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
         del x, weight, out
         torch.cuda.empty_cache()
+    # conv3x3_direct lays the OIHW weight out as (9 Cin, Cout) on each call:
+    # the transpose kernel against torch's strided copy, at the widest weight
+    n, cin, h, w, cout = max(model_shapes, key=lambda t: t[1] * t[4])
+    weight = torch.randn((cout, cin, 3, 3), generator=gen, device="cuda").to(torch.bfloat16)
+    if not torch.equal(weight_kn(weight), weight.permute(2, 3, 1, 0).reshape(-1, cout)):
+        fail("weight_kn differs from the permute")
+    k_ms, p_ms = timed_pair(lambda: weight_kn(weight),
+                            lambda: weight.permute(2, 3, 1, 0).contiguous(), 10)
+    log(f"conv weight layout ({cout}, {cin}, 3, 3) -> ({9 * cin}, {cout}) bf16: transpose kernel "
+        f"{k_ms:.4f} ms ({4 * weight.numel() / k_ms / 1e6:.0f} GB/s), permute + contiguous "
+        f"{p_ms:.4f} ms; equal")
+    del weight
+    torch.cuda.empty_cache()
 
 
 def phase_probes(results):
@@ -573,7 +652,12 @@ def phase_probes(results):
                "p7": w9.reshape(9 * cin, cout)}
     w_oihw = w9.reshape(3, 3, cin, cout).permute(3, 2, 0, 1).contiguous()
     x_nhwc = x.permute(0, 2, 3, 1).contiguous()
-    library = {"p1": lambda: cp.p0_einsum(x_nhwc, w9), "p2": None,
+    # p2's function as one library call: the row shifts with the dx taps
+    # summed, a (3, 1) conv; the sum is taken here, outside the timed call
+    w_rows = (w9.float().reshape(3, 3, cin, cout).sum(1).permute(2, 1, 0)[..., None]
+              .to(torch.bfloat16).contiguous())
+    library = {"p1": lambda: cp.p0_einsum(x_nhwc, w9),
+               "p2": lambda: F.conv2d(x, w_rows, padding=(1, 0)),
                "p6": lambda: F.conv2d(x, w_oihw, padding=1),
                "p7": lambda: F.conv2d(x, w_oihw, padding=1)}
     flops = 2.0 * b * h * w * 9 * cin * cout
@@ -598,14 +682,14 @@ def phase_probes(results):
         del out, again, ref
         k_ms, p_ms = timed_pair(lambda: probe(x, weights[p]),
                                 lambda: reference(x, weights[p]), 5)
-        lib_ms = median_ms(library[p], 10) if library[p] else None
+        lib_ms = median_ms(library[p], 10)
         results[p] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by,
                       "launches": counts[f"conv_probe_{p}"], "main_ms": probe_ms[p]}
         log(line + f"; kernel {k_ms:.3f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s), plain "
-            f"{p_ms:.3f} ms, library {'none' if lib_ms is None else f'{lib_ms:.3f} ms'}, "
+            f"{p_ms:.3f} ms, library {lib_ms:.3f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by})")
-    del x, x_nhwc, w9, weights, w_oihw
+    del x, x_nhwc, w9, weights, w_oihw, w_rows
     torch.cuda.empty_cache()
 
 
@@ -869,11 +953,17 @@ def phase_conv_path(unet_gn, vae_gn, unet_conv, vae_conv):
             _build.reset_launch_counts()
             on = models.unet(latents, t, context).float()
             launched = _build.launch_counts()["conv3x3"]
+            # one UNet step's device time (CUDA events), switch on and off
+            step_on = median_ms(lambda: models.unet(latents, t, context), 5)
+            set_conv_kernel_enabled(None)
+            step_off = median_ms(lambda: models.unet(latents, t, context), 5)
+            set_conv_kernel_enabled(True)
         rel = ((on - off).abs().max() / off.abs().max()).item()
         bound = 5e-2
         log(f"conv path (a): UNet forward at 2B = 8, direct kernel against cuDNN: "
             f"max|on-off| / max|off| = {rel:.3e} (bound {bound:g}: bf16 through 49 convs), "
-            f"conv3x3 launches {launched} (expected {unet_conv})")
+            f"conv3x3 launches {launched} (expected {unet_conv}); one UNet step (bf16, "
+            f"2B = 8, 512 px) {step_off:.2f} ms with the switch off, {step_on:.2f} ms on")
         if not (rel <= bound and launched == unet_conv and torch.isfinite(on).all()):
             fail("the UNet with the direct conv kernel differs from the library's")
         del models, latents, context, off, on

@@ -3,34 +3,75 @@
 // Replaces: ddpo_tpu/ops/conv.py::_conv3x3_kernel (stride-1 SAME 3x3 conv,
 // the Pallas kernel behind conv3x3 with set_conv_kernel_enabled(True)) and
 // the four Pallas probes of bench_conv_probe.py: p1_kernel, p2_kernel,
-// p6_kernel and p7_kernel. All five compute, per image, a sum over 9 taps of
+// p6_kernel and p7_kernel. All five compute a sum over 9 taps of
 // (pixels x Cin) x (Cin x Cout) products, each tap reading x at an offset:
 //   TapMap 0 (conv3x3, p6, p7): (dy - 1, dx - 1) for tap = 3 * dy + dx;
 //   TapMap 1 (p2): (dy - 1, 0), the row shift only;
 //   TapMap 2 (p1): (0, 0), no shift.
-// It is one implicit GEMM per image: M = H*W pixels, N = Cout, K = 9*Cin in
-// (tap, cin) order, which is the (dy, dx, cin) order of JAX's kfold; p6 and
-// p7 group the same K differently for the TPU's MXU, which the card does not
-// need.
+// The weight is (9*Cin, Cout) in (tap, cin) order, JAX's kfold (dy, dx, cin)
+// for the conv; p6 and p7 group the same K differently for the TPU's MXU,
+// which the card does not need. x and out are NCHW.
 //
 // What bounds it on this card: 2*B*H*W*9*Cin*Cout flops against a few MB of
-// maps, so the operations. This first version runs on the CUDA cores in fp32
-// FMA (67 TFLOP/s), not the tensor cores (989 TFLOP/s in bf16), so the FMA
-// rate and the shared-memory loads that feed it are the limit.
+// maps, so the operations: 0.061 ms at (8, 320, 64, 64) -> 320 on the bf16
+// tensor cores, against 13 us for the bytes.
 //
-// What the design does about it: a block computes a 128-pixel x 64-channel
-// output tile with 256 threads, each owning 8 pixels x 4 channels, so three
-// 16-byte shared-memory loads feed 32 FMAs. K streams through two shared
-// buffers in stages of 16: each thread gathers its part of the next stage
-// into registers (A straight from NCHW x, with the zero padding done by
-// masks: there are no padded or shifted copies in device memory; B from the
-// (9*Cin, Cout) weight) while the current stage is multiplied. Sums are fp32
-// and each output element has one owner that adds its K terms in order: no
-// split K and no atomics, so the same inputs give the same bits. Ragged
-// pixel counts, Cin (K = 36 at the UNet's conv_in) and Cout (4 at its
-// conv_out) are masked in the kernel. mma.sync / wgmma tiles are later work.
+// bf16, on the tensor cores (tap_gemm_mma_kernel): an implicit GEMM with
+// M = B*H*W output pixels flattened over (image, pixel), N = Cout and
+// K = 9*Cin, run with mma.sync.m16n8k16 (bf16 in, fp32 accumulate).
+//   - Tile: 128 pixels x 64 channels, 4 warps of 64 x 32; 64 or 32 pixels
+//     (warps of 32 or 16 x 32) where 128 would give fewer than two blocks
+//     per SM, as at the 8x8 bottom. Maps of at least the tile's pixels are
+//     cut into tiles image by image; smaller maps pack whole images (two
+//     8x8 maps to a 128-pixel tile), so no tile is half masked.
+//   - K is consumed in chunks of 16 input channels. Per chunk the block
+//     stages the haloed input once: the tile's pixels and their neighbours
+//     in a padded (H+2) x (W+2) frame, one shared row of 16 bf16 channels
+//     per padded position, zeros where the frame pads the image. Each tap
+//     is then an ldmatrix whose row addresses are the tile's rows shifted by
+//     dy*(W+2) + dx, so x is read from device memory once per chunk and not
+//     nine times, and every 16-byte row stays aligned. Narrow maps (up to
+//     128 wide) stage the contiguous run of padded positions; wide ones (the
+//     VAE's 256 and 512) stage three row segments, one per dy, since a
+//     contiguous run would span three 514-wide rows. Tiles of tiny maps are
+//     cut until the staged rows fit in 448.
+//   - The staging transposes NCHW to [position][channel] in registers:
+//     a thread loads 8 channels of one position (32 lanes read 32 neighbouring
+//     positions of a channel) and stores 16 bytes. It is spread over the 9
+//     taps of the previous chunk: a thread's k-th item is loaded in tap
+//     slot k and stored in slot k + 2, so its loads fly during two taps of
+//     mma.
+//     A 1-bit XOR swizzle of the two 16-byte halves keeps ldmatrix and the
+//     stores free of bank conflicts.
+//   - The weight's (tap, 16 channels, 64 outputs) tile comes with cp.async
+//     (element-wise loads when Cout is not a multiple of 8) into the other of
+//     two buffers while the current chunk is multiplied; ldmatrix.trans
+//     reads its B fragments, its 128-byte rows XOR-swizzled by row.
+//   - The epilogue rounds to bf16 and writes NCHW; pixels past the tile's
+//     count and channels past Cout are masked.
+//   - weight_kn_kernel lays the model's OIHW weight out as (9*Cin, Cout) for
+//     conv3x3_direct, a shared-memory transpose: torch's strided copy of
+//     the same permute took as long as the 8x8 conv itself.
+// Summation order: every output element has one owner (one lane) that adds
+// its terms in one fixed order, (cin chunk, tap, 16 channels of the chunk in
+// the mma's own order). No split K and no atomics; the order depends neither
+// on the batch nor on the pixel's place in its tile, so two calls give the
+// same bits and image i alone gives the bits it gets inside a batch. It is
+// not JAX's (dy, dx, cin) order, which only moves the fp32 rounding.
+//
+// fp32 (tap_gemm_kernel) stays on the CUDA cores in FMA: TF32 tensor cores
+// keep 10 mantissa bits and would break the 1e-4 bounds against the fp32
+// plain version. A block computes a 128-pixel x 64-channel tile of one
+// image with 256 threads, each owning 8 pixels x 4 channels; K streams
+// through two shared buffers in stages of 16, gathered per tap straight
+// from NCHW x with masks (no padded copies in device memory). Ragged pixel
+// counts, Cin (K = 36 at the UNet's conv_in) and Cout (4 at its conv_out)
+// are masked in the kernel on both paths.
 
 #include "common.cuh"
+#include "mma.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -51,20 +92,8 @@ __device__ __forceinline__ void tap_offset(int tap, int& oy, int& ox) {
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void store4(T* p, float a, float b, float c, float d);
-template <>
-__device__ __forceinline__ void store4<float>(float* p, float a, float b, float c, float d) {
+__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
   *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-template <>
-__device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* p, float a, float b,
-                                                      float c, float d) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
-  uint2 u;
-  u.x = *reinterpret_cast<const uint32_t*>(&lo);
-  u.y = *reinterpret_cast<const uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
 }
 
 // advance (tap, ci) by `step` values of K = (tap, cin)
@@ -184,7 +213,7 @@ __global__ void __launch_bounds__(NT) tap_gemm_kernel(
       const int p = m0 + half * 64 + tx * 4;
       const float* r = &acc[half * 4][0];
       if (vec && p + 3 < HW) {
-        store4<T>(orow + p, r[0 * 4 + j], r[1 * 4 + j], r[2 * 4 + j], r[3 * 4 + j]);
+        store4(orow + p, r[0 * 4 + j], r[1 * 4 + j], r[2 * 4 + j], r[3 * 4 + j]);
       } else {
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -204,19 +233,341 @@ cudaError_t launch(const void* x, const void* w, void* out, int B, int Cin, int 
   return cudaGetLastError();
 }
 
+// ---- bf16 on the tensor cores ----
+
+using bf16 = __nv_bfloat16;
+constexpr int TN = 64;         // output channels per tile
+constexpr int CK = 16;         // input channels per chunk: one k16 step per tap
+constexpr int TT = 128;        // threads: 4 warps, 2 (pixels) x 2 (channels)
+constexpr int ROWS_MAX = 448;  // staged padded positions per chunk
+constexpr int B_TILE = kTaps * CK * TN;  // weight elements per chunk
+// A [2][ROWS_MAX][CK] + B [2][9][CK][TN] bf16, then the row table int64 [ROWS_MAX]
+constexpr size_t MMA_SMEM = sizeof(bf16) * (2 * ROWS_MAX * CK + 2 * B_TILE) +
+                            sizeof(int64_t) * ROWS_MAX;
+// staging items (position, 8-channel half) per thread, one per tap slot
+// (each is loaded in tap slot k and stored in slot k + 2)
+static_assert((2 * ROWS_MAX + TT - 1) / TT <= kTaps - 2, "staging must fit the tap slots");
+
+// (dy, dx) in 0..2 of a tap, for the tap maps above
+template <int MAP>
+__device__ __forceinline__ int tap_shift(int tap, int taprow) {
+  const int dy = MAP == 2 ? 1 : tap / 3;
+  const int dx = MAP == 0 ? tap % 3 : 1;
+  return dy * taprow + dx;
+}
+
+// byte offset of 16-byte half u of staged row r: the half is XOR-ed with
+// bit 2 of the row, so 8 consecutive rows hit 8 distinct bank groups
+__device__ __forceinline__ uint32_t a_offset(int r, int u) {
+  return uint32_t(r) * (CK * 2) + uint32_t((u ^ ((r >> 2) & 1)) << 4);
+}
+
+// element offset of channels 8u .. 8u+7 of weight row kk of tap `tap`; the
+// 8 units of a 128-byte row are XOR-ed with the row's low 3 bits
+__device__ __forceinline__ int b_offset(int tap, int kk, int u) {
+  return (tap * CK + kk) * TN + ((u ^ (kk & 7)) << 3);
+}
+
+// MI m16 tiles per warp (4, 2 or 1): a tile of 32 * MI pixels x 64 channels
+template <int MAP, int MI>
+__global__ void __launch_bounds__(TT) tap_gemm_mma_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ w, bf16* __restrict__ out, int B,
+    int Cin, int H, int W, int Cout, int ipg, int mpb, int tiles, int span, bool perdy,
+    bool bvec) {
+  extern __shared__ uint4 smem_u4[];
+  bf16* As = reinterpret_cast<bf16*>(smem_u4);
+  bf16* Bs = As + 2 * ROWS_MAX * CK;
+  int64_t* tbl = reinterpret_cast<int64_t*>(Bs + 2 * B_TILE);
+  const uint16_t* xs = reinterpret_cast<const uint16_t*>(x);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 1, wn = warp >> 1;
+  const int HW = H * W, WP = W + 2, HP = H + 2;
+  // the tile: pixels m0 .. m0+cnt-1 of the group of ipg images it lies in
+  const int group = blockIdx.x / tiles, tile = blockIdx.x - group * tiles;
+  const int g_img = group * ipg;
+  const int m0 = g_img * HW + tile * mpb;
+  const int cnt = min(mpb, min(ipg, B - g_img) * HW - tile * mpb);
+  const int n0 = blockIdx.y * TN;
+
+  // position of pixel m in the padded frame of the whole batch
+  auto ppad = [&](int m) {
+    const int img = m / HW, pix = m - img * HW, y = pix / W;
+    return (img * HP + y + 1) * WP + (pix - y * W) + 1;
+  };
+  const int p0 = ppad(m0);
+  // staged row s holds padded position p0 - WP - 1 + (s / seg) * WP + s % seg;
+  // pixel m's tap (dy, dx) reads row (ppad(m) - p0) + dy * taprow + dx
+  const int nrows = perdy ? 3 * span : ppad(m0 + cnt - 1) - p0 + 2 * WP + 3;
+  const int seg = perdy ? span : nrows;
+  const int taprow = perdy ? span : WP;
+  for (int r = tid; r < nrows; r += TT) {
+    const int sg = r / seg;
+    const int P = p0 - WP - 1 + sg * WP + (r - sg * seg);
+    const int img = P / (HP * WP);
+    const int q = P - img * HP * WP;
+    const int py = q / WP, px = q - py * WP;
+    tbl[r] = (img < B && py >= 1 && py <= H && px >= 1 && px <= W)
+                 ? int64_t(img) * Cin * HW + (py - 1) * W + (px - 1)
+                 : -1;
+  }
+
+  // the weight tile of chunk c -> buffer buf
+  auto stage_b = [&](int c, int buf) {
+    bf16* dst = Bs + buf * B_TILE;
+    const int c0 = c * CK;
+    if (bvec) {
+      for (int it = tid; it < kTaps * CK * (TN / 8); it += TT) {
+        const int u = it & 7, kk = (it >> 3) & (CK - 1), tap = it >> 7;
+        const int ci = c0 + kk, co = n0 + u * 8;
+        const bool ok = ci < Cin && co < Cout;
+        ddpo::cp_async16(ddpo::smem_addr(dst + b_offset(tap, kk, u)),
+                         ok ? w + (int64_t(tap) * Cin + ci) * Cout + co : w, ok);
+      }
+    } else {
+      for (int it = tid; it < B_TILE; it += TT) {
+        const int n = it % TN, kk = (it / TN) % CK, tap = it / (TN * CK);
+        const int ci = c0 + kk, co = n0 + n;
+        dst[b_offset(tap, kk, n >> 3) + (n & 7)] =
+            ci < Cin && co < Cout ? w[(int64_t(tap) * Cin + ci) * Cout + co]
+                                  : __float2bfloat16(0.f);
+      }
+    }
+  };
+  // staging item k of this thread: row r, half u, or none
+  auto item = [&](int k, int& r, int& u) {
+    const int it = tid + k * TT;
+    u = it >= nrows;
+    r = it - u * nrows;
+    return it < 2 * nrows;
+  };
+  auto load_item = [&](uint32_t (&v)[8], int r, int u, int c) {
+    const int64_t off = tbl[r];
+    const int ch0 = c * CK + u * 8;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      v[i] = off >= 0 && ch0 + i < Cin ? xs[off + int64_t(ch0 + i) * HW] : 0u;
+  };
+  auto store_item = [&](const uint32_t (&v)[8], int r, int u, int buf) {
+    *reinterpret_cast<uint4*>(reinterpret_cast<char*>(As + buf * ROWS_MAX * CK) +
+                              a_offset(r, u)) =
+        make_uint4(v[0] | (v[1] << 16), v[2] | (v[3] << 16), v[4] | (v[5] << 16),
+                   v[6] | (v[7] << 16));
+  };
+
+  // rows of this lane's ldmatrix addresses in the 4 m16 tiles (masked: row 0)
+  int a_row[MI];
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    const int mr = wm * 16 * MI + i * 16 + (lane & 15);
+    a_row[i] = mr < cnt ? ppad(m0 + mr) - p0 : 0;
+  }
+  const int a_half = lane >> 4;
+  const int b_kk = (lane & 7) + (((lane >> 3) & 1) << 3);
+
+  float acc[MI][4][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+
+  const int nchunks = (Cin + CK - 1) / CK;
+  __syncthreads();  // the row table is written
+  stage_b(0, 0);
+  ddpo::cp_async_commit();
+  for (int k = 0; k < kTaps; ++k) {
+    int r, u;
+    uint32_t v[8];
+    if (item(k, r, u)) {
+      load_item(v, r, u, 0);
+      store_item(v, r, u, 0);
+    }
+  }
+  ddpo::cp_async_wait<0>();
+  __syncthreads();
+
+  for (int c = 0; c < nchunks; ++c) {
+    const int buf = c & 1;
+    const bool more = c + 1 < nchunks;
+    // the other buffers' readers passed the barrier that ended chunk c-1
+    if (more) stage_b(c + 1, buf ^ 1);
+    ddpo::cp_async_commit();
+    const uint32_t a_base = ddpo::smem_addr(As + buf * ROWS_MAX * CK);
+    const bf16* bt = Bs + buf * B_TILE;
+    // staging of chunk c+1: item k is loaded in tap slot k and stored in
+    // slot k + 2, so its loads have two taps of mma to arrive
+    uint32_t raw[3][8];
+    int rr[3], ru[3];
+    bool rs[3] = {false, false, false};
+#pragma unroll
+    for (int tap = 0; tap < kTaps; ++tap) {
+      if (tap >= 2 && rs[(tap - 2) % 3])
+        store_item(raw[(tap - 2) % 3], rr[(tap - 2) % 3], ru[(tap - 2) % 3], buf ^ 1);
+      rs[tap % 3] = more && item(tap, rr[tap % 3], ru[tap % 3]);
+      if (rs[tap % 3]) load_item(raw[tap % 3], rr[tap % 3], ru[tap % 3], c + 1);
+
+      const int sh = tap_shift<MAP>(tap, taprow);
+      uint32_t a[MI][4], b[2][4];
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+        ddpo::ldmatrix_x4(a[i], a_base + a_offset(a_row[i] + sh, a_half));
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp)
+        ddpo::ldmatrix_x4_trans(
+            b[jp], ddpo::smem_addr(bt + b_offset(tap, b_kk, wn * 4 + jp * 2 + a_half)));
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp) {
+          ddpo::mma_bf16(acc[i][2 * jp], a[i], b[jp][0], b[jp][1]);
+          ddpo::mma_bf16(acc[i][2 * jp + 1], a[i], b[jp][2], b[jp][3]);
+        }
+    }
+    ddpo::cp_async_wait<0>();
+    __syncthreads();
+  }
+
+  // epilogue: lane holds rows g, g+8 of each m16 tile and columns 2t, 2t+1
+  // of each n8 tile
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int mr = wm * 16 * MI + i * 16 + g + 8 * hr;
+      if (mr >= cnt) continue;
+      const int m = m0 + mr, img = m / HW, pix = m - img * HW;
+      bf16* ob = out + int64_t(img) * Cout * HW + pix;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int co = n0 + wn * 32 + j * 8 + 2 * tq + e;
+          if (co < Cout) ob[int64_t(co) * HW] = __float2bfloat16(acc[i][j][2 * hr + e]);
+        }
+    }
+}
+
+// worst-case padded-frame extent d = ppad(last) - ppad(first) of a tile
+// of cnt pixels in one image (cnt <= H*W), or of k whole images
+int64_t extent_in_image(int64_t cnt, int64_t W) { return (cnt - 1) + 2 * ((cnt - 2 + W) / W); }
+int64_t extent_of_images(int64_t k, int64_t H, int64_t W) {
+  return ((k - 1) * (H + 2) + H - 1) * (W + 2) + W - 1;
+}
+
+// The largest tile of at most tm pixels whose staged rows fit in ROWS_MAX:
+// contiguous, or three dy segments. Maps of at least tm pixels are tiled
+// image by image, smaller ones by whole images. False if none fits.
+bool plan_tiles(int64_t H, int64_t W, int64_t tm, int& ipg, int& mpb, int& span, bool& perdy) {
+  const int64_t HW = H * W, WP = W + 2;
+  for (int64_t cnt = HW >= tm ? tm : (tm / HW) * HW; cnt > 0; cnt -= HW >= tm ? 1 : HW) {
+    const int64_t d = HW >= tm ? extent_in_image(cnt, W) : extent_of_images(cnt / HW, H, W);
+    const int64_t contig = d + 2 * WP + 3, segs = 3 * (d + 3);
+    if (contig > ROWS_MAX && segs > ROWS_MAX) continue;
+    ipg = HW >= tm ? 1 : int(cnt / HW);
+    mpb = int(cnt);
+    perdy = segs < contig;
+    span = int(d + 3);
+    return true;
+  }
+  return false;  // not reached: one pixel, or one image of under tm pixels, fits
+}
+
+template <int MAP, int MI>
+cudaError_t launch_tiles(const void* x, const void* w, void* out, int B, int Cin, int H, int W,
+                         int Cout, int ipg, int mpb, int span, bool perdy, cudaStream_t stream) {
+  const int tiles = int((int64_t(ipg) * H * W + mpb - 1) / mpb);
+  const int64_t groups = (B + ipg - 1) / ipg;
+  if (groups * tiles > 0x7fffffff || (Cout + TN - 1) / TN > 65535) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(tap_gemm_mma_kernel<MAP, MI>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       int(MMA_SMEM));
+  if (e != cudaSuccess) return e;
+  const bool bvec = Cout % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const dim3 grid(unsigned(groups * tiles), (Cout + TN - 1) / TN);
+  tap_gemm_mma_kernel<MAP, MI><<<grid, TT, MMA_SMEM, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<bf16*>(out), B,
+      Cin, H, W, Cout, ipg, mpb, tiles, span, perdy, bvec);
+  return cudaGetLastError();
+}
+
+// Tiles of 128 pixels, or of 64 or 32 where larger ones would give fewer
+// than two blocks per SM (the 8x8 bottom at 2B = 8: 80 blocks of 128, 320
+// of 32). The tile changes which lane owns an output, not the order of its
+// sum: the same bits either way.
+template <int MAP>
+cudaError_t launch_mma(const void* x, const void* w, void* out, int B, int Cin, int H, int W,
+                       int Cout, cudaStream_t stream) {
+  if (int64_t(B) * (H + 2) * (W + 2) >= (int64_t(1) << 31)) return cudaErrorInvalidValue;
+  int ipg, mpb, span;
+  bool perdy;
+  for (int mi = 4; mi >= 1; mi /= 2) {
+    if (!plan_tiles(H, W, 32 * mi, ipg, mpb, span, perdy)) return cudaErrorInvalidValue;
+    const int64_t blocks = (B + ipg - 1) / ipg * ((int64_t(ipg) * H * W + mpb - 1) / mpb) *
+                           ((Cout + TN - 1) / TN);
+    if (mi == 4 && blocks >= 2 * 132)
+      return launch_tiles<MAP, 4>(x, w, out, B, Cin, H, W, Cout, ipg, mpb, span, perdy, stream);
+    if (mi == 2 && blocks >= 2 * 132)
+      return launch_tiles<MAP, 2>(x, w, out, B, Cin, H, W, Cout, ipg, mpb, span, perdy, stream);
+  }
+  return launch_tiles<MAP, 1>(x, w, out, B, Cin, H, W, Cout, ipg, mpb, span, perdy, stream);
+}
+
+// bf16 takes the tensor-core kernel, fp32 the FMA kernel
+template <typename T, int MAP>
+cudaError_t launch_for(const void* x, const void* w, void* out, int B, int Cin, int H, int W,
+                       int Cout, cudaStream_t stream) {
+  if constexpr (std::is_same_v<T, bf16>)
+    return launch_mma<MAP>(x, w, out, B, Cin, H, W, Cout, stream);
+  else
+    return launch<T, MAP>(x, w, out, B, Cin, H, W, Cout, stream);
+}
+
 template <typename T>
 cudaError_t dispatch_map(int map, const void* x, const void* w, void* out, int B, int Cin,
                          int H, int W, int Cout, cudaStream_t stream) {
   switch (map) {
     case 0:
-      return launch<T, 0>(x, w, out, B, Cin, H, W, Cout, stream);
+      return launch_for<T, 0>(x, w, out, B, Cin, H, W, Cout, stream);
     case 1:
-      return launch<T, 1>(x, w, out, B, Cin, H, W, Cout, stream);
+      return launch_for<T, 1>(x, w, out, B, Cin, H, W, Cout, stream);
     case 2:
-      return launch<T, 2>(x, w, out, B, Cin, H, W, Cout, stream);
+      return launch_for<T, 2>(x, w, out, B, Cin, H, W, Cout, stream);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// OIHW (Cout, Cin, 3, 3) -> (3, 3, Cin, Cout), the tap-GEMM's (K, N) weight:
+// a transpose of the (Cout, 9*Cin) matrix through a shared 32 x 32 tile, so
+// that reads run along (cin, tap) and writes along Cout, 64 bytes a warp.
+template <typename T>
+__global__ void __launch_bounds__(256) weight_kn_kernel(const T* __restrict__ w,
+                                                        T* __restrict__ out, int Cout, int Cin) {
+  __shared__ T tile[32][33];
+  const int K = kTaps * Cin;
+  const int k0 = blockIdx.x * 32, n0 = blockIdx.y * 32;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  for (int r = ty; r < 32; r += 8) {
+    const int co = n0 + r, k = k0 + tx;
+    if (co < Cout && k < K) tile[r][tx] = w[int64_t(co) * K + k];
+  }
+  __syncthreads();
+  for (int r = ty; r < 32; r += 8) {
+    const int k = k0 + r, co = n0 + tx;
+    if (co < Cout && k < K) {
+      const int ci = k / kTaps, tap = k - ci * kTaps;
+      out[(int64_t(tap) * Cin + ci) * Cout + co] = tile[tx][r];
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_weight_kn(const void* w, void* out, int Cout, int Cin, cudaStream_t stream) {
+  const dim3 grid((kTaps * Cin + 31) / 32, (Cout + 31) / 32);
+  weight_kn_kernel<T><<<grid, 256, 0, stream>>>(static_cast<const T*>(w), static_cast<T*>(out),
+                                                Cout, Cin);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -237,5 +588,19 @@ extern "C" int ddpo_tap_gemm(const void* x, const void* w, void* out, int dtype,
     return int(dispatch_map<float>(map, x, w, out, B, Cin, H, W, Cout, s));
   if (dtype == ddpo::kBFloat16)
     return int(dispatch_map<__nv_bfloat16>(map, x, w, out, B, Cin, H, W, Cout, s));
+  return int(cudaErrorInvalidValue);
+}
+
+// w: contiguous OIHW (Cout, Cin, 3, 3); out: contiguous (9 * Cin, Cout) in
+// (tap, cin) order, the layout ddpo_tap_gemm reads. Returns cudaGetLastError().
+extern "C" int ddpo_conv_weight_kn(const void* w, void* out, int dtype, int Cout, int Cin,
+                                   void* stream) {
+  if (Cout < 1 || Cin < 1 || (Cout + 31) / 32 > 65535 ||
+      int64_t(kTaps) * Cin * Cout > 0x7fffffff)
+    return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // a copy: moved as raw 4- or 2-byte words
+  if (dtype == ddpo::kFloat32) return int(launch_weight_kn<uint32_t>(w, out, Cout, Cin, s));
+  if (dtype == ddpo::kBFloat16) return int(launch_weight_kn<uint16_t>(w, out, Cout, Cin, s));
   return int(cudaErrorInvalidValue);
 }

@@ -80,6 +80,9 @@ class KernelLibrary:
         # x, w, out, dtype, tap map, B, Cin, H, W, Cout, stream
         lib.ddpo_tap_gemm.argtypes = [p, p, p, i32, i32] + [i32] * 5 + [p]
         lib.ddpo_tap_gemm.restype = i32
+        # w (OIHW), out (9 * Cin, Cout), dtype, Cout, Cin, stream
+        lib.ddpo_conv_weight_kn.argtypes = [p, p, i32, i32, i32, p]
+        lib.ddpo_conv_weight_kn.restype = i32
         lib.ddpo_gn_stats_chunk.argtypes = []
         lib.ddpo_gn_stats_chunk.restype = i32
         lib.ddpo_error_string.argtypes = [i32]

@@ -15,7 +15,9 @@ x's dtype, as JAX adds it. Under autograd the product goes through
 differentiates its XLA conv.
 
 ``tap_gemm`` launches the kernel for ``conv3x3_direct`` and for the conv
-probes of ddpo_torch/bench/conv_probe.py.
+probes of ddpo_torch/bench/conv_probe.py; ``weight_kn`` lays the OIHW weight
+out as the kernel's (9 * Cin, Cout) operand, on the card with a transpose
+kernel of its own.
 """
 
 from __future__ import annotations
@@ -70,6 +72,27 @@ def tap_gemm(x: torch.Tensor, w_kn: torch.Tensor, tap_map: str, counter: str) ->
     return out
 
 
+def weight_kn(weight: torch.Tensor) -> torch.Tensor:
+    """OIHW (Cout, Cin, 3, 3) -> (9 * Cin, Cout) in (dy, dx, cin) order: the
+    tap-GEMM's (K, N) operand, JAX's HWIO. On a CUDA tensor a transpose
+    kernel in csrc/conv3x3.cu does it, faster than torch's strided copy of
+    the permute (chip_smoke.py times both); on a CPU tensor the permute."""
+    if weight.device.type == "cpu":
+        return weight.permute(2, 3, 1, 0).reshape(-1, weight.shape[0]).contiguous()
+    if weight.device.type != "cuda" or weight.dim() != 4 or weight.shape[2:] != (3, 3):
+        raise ValueError(f"weight_kn takes a CUDA OIHW 3x3 weight, got {tuple(weight.shape)} "
+                         f"on {weight.device}")
+    weight = weight.contiguous()
+    cout, cin = weight.shape[:2]
+    out = torch.empty((9 * cin, cout), dtype=weight.dtype, device=weight.device)
+    kl = _build.load_library()
+    kl.check(kl.lib.ddpo_conv_weight_kn(weight.data_ptr(), out.data_ptr(),
+                                        _build.dtype_code(weight.dtype), cout, cin,
+                                        _build.stream_handle(weight.device)),
+             "conv weight layout launch")
+    return out
+
+
 def conv3x3_reference(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """The kernel's plain version, written out as the 9-tap sum: zero-padded
     shifted windows, one product over Cin per tap, summed in (dy, dx)
@@ -98,9 +121,7 @@ def conv3x3_direct(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"no conv3x3 kernel for device {x.device}")
     if weight.shape[1:] != (x.shape[1], 3, 3):
         raise ValueError(f"weight {tuple(weight.shape)} does not fit x {tuple(x.shape)}")
-    # OIHW -> (dy, dx, cin, cout): the kernel's (K, N) operand, JAX's HWIO
-    w_kn = weight.permute(2, 3, 1, 0).contiguous()
-    return tap_gemm(x.contiguous(), w_kn, "shift3x3", "conv3x3")
+    return tap_gemm(x.contiguous(), weight_kn(weight), "shift3x3", "conv3x3")
 
 
 class Conv3x3Direct(torch.autograd.Function):

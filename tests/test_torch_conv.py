@@ -262,3 +262,16 @@ def test_rollout_with_the_switch_on_matches_jax(switch_on, tiny_unets):
     # the port runs the 19 convs once per step (CFG as one 2B call); JAX
     # traces them at least once
     assert switch_on["jax"] >= 19 and switch_on["torch"] == 19 * steps
+
+
+@pytest.mark.parametrize("cin,cout", [(4, 320), (320, 4), (96, 40), (3, 5)])
+def test_weight_kn_is_jax_kfold_layout(cin, cout):
+    """The tap-GEMM's (K, N) weight from an OIHW weight is JAX's HWIO
+    weight reshaped to (9 * Cin, Cout), the K order (dy, dx, cin) of its
+    kfold; on the CPU ``weight_kn`` is the permute the card's transpose
+    kernel repeats."""
+    wt = np.random.default_rng(cin + cout).standard_normal((3, 3, cin, cout)).astype(np.float32)
+    oihw = torch.from_numpy(wt).permute(3, 2, 0, 1).contiguous()
+    w_kn = tconv.weight_kn(oihw)
+    assert w_kn.shape == (9 * cin, cout) and w_kn.is_contiguous()
+    np.testing.assert_array_equal(w_kn.numpy(), np.asarray(jnp.asarray(wt).reshape(9 * cin, cout)))

@@ -1,0 +1,86 @@
+"""The bf16 flash forward's arithmetic, emulated in torch, against JAX's kernel.
+
+csrc/flash_fwd.cu runs bf16 attention on the tensor cores: scores in fp32
+from bf16 Q and K, an online softmax over 64-key tiles in base 2, P rounded
+to bf16 before the P V product (fp32 sums), the row sum l over the fp32 P,
+and out = O / l at the end. ``emulate_mma_forward`` repeats that on the CPU,
+so the rounding choice is pinned here before the card sees it: against
+ddpo_tpu's ``_flash_forward`` (its Pallas kernel in interpret mode, which
+keeps P in fp32) on the same bf16 inputs, made from a numpy seed. Bounds are
+the card's for bf16: out 1e-2, lse 1e-4.
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ddpo_torch.ops.attention import attention_lse_reference, attention_reference
+from ddpo_tpu.ops.attention import _flash_forward
+
+KEY_TILE = 64  # keys per K/V tile in csrc/flash_fwd.cu
+
+
+def emulate_mma_forward(q, k, v, scale):
+    """(out (B, Sq, H, D) bf16, lse (B, H, Sq) fp32) as the bf16 kernel computes them."""
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))  # (B, H, S, D)
+    scale_log2 = torch.tensor(scale * math.log2(math.e), dtype=torch.float32)
+    scores = qf @ kf.transpose(-1, -2)  # fp32 products of bf16 values
+    b, h, sq, _ = qf.shape
+    m = torch.full((b, h, sq), -math.inf)
+    l = torch.zeros((b, h, sq))
+    o = torch.zeros_like(qf)
+    for k0 in range(0, kf.shape[2], KEY_TILE):
+        s = scores[..., k0:k0 + KEY_TILE]
+        m_new = torch.maximum(m, s.amax(-1) * scale_log2)
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s * scale_log2 - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None] + p.bfloat16().float() @ vf[:, :, k0:k0 + KEY_TILE]
+        m = m_new
+    out = (o / l[..., None]).transpose(1, 2).bfloat16()
+    return out, (m + torch.log2(l)) * math.log(2.0)
+
+
+def _bf16_qkv(b, sq, sk, h, d, seed):
+    rng = np.random.default_rng(seed)
+    shapes = ((b, sq, h, d), (b, sk, h, d), (b, sk, h, d))
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).bfloat16()
+            for s in shapes]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d", [
+    (1, 200, 200, 2, 40),   # D = 40: the kernel pads it to 48 in shared memory
+    (1, 130, 300, 2, 40),   # ragged Sk: the last tile is masked
+    (2, 64, 100, 1, 80),
+    (1, 96, 257, 2, 16),    # one key in the last tile
+])
+def test_emulated_bf16_kernel_matches_jax_flash(b, sq, sk, h, d):
+    q, k, v = _bf16_qkv(b, sq, sk, h, d, seed=sq + sk + d)
+    scale = d ** -0.5
+    out, lse = emulate_mma_forward(q, k, v, scale)
+
+    # bf16 -> fp32 -> bf16 is exact, so JAX sees the same values
+    jq, jk, jv = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in (q, k, v))
+    j_out, j_lse = _flash_forward(jq, jk, jv, scale, 128, 128, True, with_lse=True)
+    j_out = np.asarray(j_out.astype(jnp.float32))
+    j_lse = np.asarray(j_lse)[:, :, :sq, 0]  # folded (B, H, Sq_pad, 1) layout
+
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert np.abs(out.float().numpy() - j_out).max() <= 1e-2
+    assert np.abs(lse.numpy() - j_lse).max() <= 1e-4
+    # and the card's own yardstick: the fp32 plain version on the same values
+    ref = attention_reference(q.float(), k.float(), v.float(), scale)
+    assert (out.float() - ref).abs().max().item() <= 1e-2
+    ref_lse = attention_lse_reference(q.float(), k.float(), scale)
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+
+
+def test_emulated_bf16_kernel_is_batch_invariant():
+    """Rows are independent: image 0 alone gives the bits of its slice."""
+    q, k, v = _bf16_qkv(3, 100, 150, 2, 40, seed=7)
+    out, lse = emulate_mma_forward(q, k, v, 40 ** -0.5)
+    out1, lse1 = emulate_mma_forward(q[:1], k[:1], v[:1], 40 ** -0.5)
+    assert torch.equal(out1, out[:1]) and torch.equal(lse1, lse[:1])

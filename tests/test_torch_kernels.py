@@ -30,6 +30,7 @@ from ddpo_torch.ops.conv import (
     conv3x3_direct,
     conv3x3_reference,
     set_conv_kernel_enabled,
+    weight_kn,
 )
 from ddpo_torch.ops.groupnorm import (
     group_norm,
@@ -290,3 +291,73 @@ def test_conv3x3_switch_and_autograd_on_cuda(cuda):
             assert (a.grad - r.grad).abs().max().item() <= 1e-4
     finally:
         set_conv_kernel_enabled(None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h,d", [(2, 1024, 1024, 8, 40), (2, 1024, 1024, 8, 80),
+                                         (2, 256, 256, 8, 160), (2, 300, 300, 2, 256),
+                                         (2, 200, 130, 3, 8), (2, 300, 700, 8, 80)])
+def test_flash_bf16_tensor_core_kernel(cuda, b, sq, sk, h, d):
+    """The bf16 forward on the tensor cores at D = 40/80/160/256, at D = 8
+    (padded to 16 in shared memory) and at ragged Sq != Sk, against the fp32
+    plain version (out 1e-2, lse 1e-4); two calls give the same bits, and so
+    does image 0 alone against its slice of the batch."""
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16)
+               for x in _qkv(b, sq, sk, h, d, seed=8))
+    out, lse = flash_attention_fwd(q, k, v)
+    out2, lse2 = flash_attention_fwd(q, k, v)
+    out1, lse1 = flash_attention_fwd(q[:1], k[:1], v[:1])
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert torch.equal(out1, out[:1]) and torch.equal(lse1, lse[:1])
+    ref = attention_reference(q.float(), k.float(), v.float())
+    assert (out.float() - ref).abs().max().item() <= 1e-2
+    assert (lse - attention_lse_reference(q.float(), k.float())).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,cin,cout,h,w", [(2, 4, 320, 64, 64), (2, 320, 4, 64, 64),
+                                            (1, 1280, 1280, 8, 8), (16, 1280, 1280, 8, 8),
+                                            (2, 96, 40, 13, 17), (4, 8, 16, 1, 1),
+                                            (8, 2560, 1280, 8, 8)])
+def test_conv3x3_bf16_tensor_core_kernel(cuda, b, cin, cout, h, w):
+    """The bf16 tap-GEMM on the tensor cores at conv_in's Cin = 4, conv_out's
+    Cout = 4, the 8x8 bottom at batch 1, 16 and 8 (Cin = 2560), an odd and
+    a 1x1 map, against the fp32 plain version; two calls give the same bits,
+    and so does image 0 alone against its slice of the batch."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn((b, cin, h, w), generator=gen, device=cuda).to(torch.bfloat16)
+    weight = (torch.randn((cout, cin, 3, 3), generator=gen, device=cuda)
+              * (9 * cin) ** -0.5).to(torch.bfloat16)
+    out = conv3x3_direct(x, weight)
+    assert torch.equal(out, conv3x3_direct(x, weight))
+    assert torch.equal(conv3x3_direct(x[:1], weight), out[:1])
+    ref = conv3x3_reference(x.float(), weight.float())
+    assert (out.float() - ref).abs().max().item() <= _bound(torch.bfloat16, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h,d", [(2, 1024, 1024, 8, 40), (2, 300, 700, 8, 80)])
+def test_flash_backward_on_tensor_core_forward(cuda, b, sq, sk, h, d):
+    """The backward kernels fed the bf16 forward's out and lse, against the
+    plain fp32 backward (autograd through attention_reference on the same
+    bf16 values): 1e-2 * max(1, max|ref|)."""
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16)
+               for x in _qkv(b, sq, sk, h, d, seed=10))
+    do = torch.randn(q.shape, device=cuda).to(torch.bfloat16)
+    out, lse = flash_attention_fwd(q, k, v)
+    grads = flash_attention_bwd(q, k, v, out, lse, do)
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    refs = torch.autograd.grad(attention_reference(*leaves), leaves, do.float())
+    for name, g, ref in zip("qkv", grads, refs):
+        assert (g.float() - ref).abs().max().item() <= 1e-2 * max(1.0, ref.abs().max().item()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("cout,cin", [(1280, 2560), (4, 320), (3, 128), (40, 96)])
+def test_conv_weight_layout_kernel(cuda, dtype, cout, cin):
+    """The transpose kernel gives the CPU permute's (9 * Cin, Cout) bit for bit."""
+    weight = torch.randn((cout, cin, 3, 3), device=cuda).to(dtype)
+    w_kn = weight_kn(weight)
+    assert w_kn.shape == (9 * cin, cout) and w_kn.dtype == dtype
+    assert torch.equal(w_kn.cpu(), weight_kn(weight.cpu()))
