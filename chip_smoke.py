@@ -5,14 +5,18 @@ Phases, in order; any failure exits non-zero:
   1. device: the card's name and power limit, torch and CUDA versions.
   2. build: nvcc builds ddpo_torch/csrc/*.cu for sm_90a; cuobjdump -sass on
      the library says which kernel functions hold tensor-core (HMMA)
-     instructions: every bf16 flash forward and tap-GEMM instantiation must.
+     instructions: every instantiation of the bf16 flash forward, the bf16
+     flash backward (dq and dk/dv) and the tap-GEMM must; ptxas's registers
+     and spills of each of those instantiations.
   3. kernels: each forward kernel against its plain PyTorch version at the
      main path's shapes, with the bound stated, plus kernel and plain times;
      the bf16 flash forward on image 0 of each 8-image case alone must give
      the bits of its slice of the batched call (batch invariance).
   3b. backward kernels: flash_bwd_dq and flash_bwd_dkv against the plain
      fp32 backward at the trainer's shapes (2B = 4), ragged lengths and
-     D = 256, in bf16 and fp32; kernel times beside the plain backward's.
+     D = 256, in bf16 and fp32; kernel times beside the plain backward's
+     and SDPA's; in bf16, image 0 of each 4-image case alone must give the
+     bits of its slice.
   4. serving: ddpo_torch.pipelines.generate.main at SD-1.4 width, 512 px,
      50 CFG DDIM steps, 4 images, random weights from a seed; checks the
      images and that the path launched each kernel the expected number of
@@ -22,7 +26,9 @@ Phases, in order; any failure exits non-zero:
   6. on-policy through the training code: ppo_loss on step 0 of that
      rollout, at its batch, with fp32 masters cast to bf16 at use, grad on
      and remat; the recomputed log-probs must equal the sampler's, and one
-     backward must launch the expected kernels.
+     backward must launch the expected kernels. The update runs under
+     torch.profiler (CUDA activity only): device time by kernel family and
+     the device's idle share over the update's wall time.
   3c. gn_silu: the fused GroupNorm+SiLU kernel, through
      group_norm_silu(use_kernel=True), at every GN+SiLU input shape of the
      UNet (2B = 8) and the VAE decoder (batch 4), bf16 and some fp32, and a
@@ -160,7 +166,8 @@ def phase_device():
 
 
 # kernel functions that must run their products on the tensor cores
-TENSOR_CORE_KERNELS = ("flash_fwd_mma_kernel", "tap_gemm_mma_kernel")
+TENSOR_CORE_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
+                       "flash_bwd_dkv_mma_kernel", "tap_gemm_mma_kernel")
 
 
 def kernel_name(mangled: str) -> str:
@@ -170,6 +177,29 @@ def kernel_name(mangled: str) -> str:
 
     return next((m.group(2) for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*?_kernel))", mangled)
                  if int(m.group(1)) == len(m.group(2))), mangled)
+
+
+def ptxas_instantiations(build_log: str, names):
+    """{kernel function: [(template args, registers, spill store bytes, spill
+    load bytes)]} for the named functions, from ptxas -v's "Compiling entry
+    function", spill and "Used N registers" lines."""
+    import re
+
+    table, entry = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, entry = kernel_name(m.group(1)), None
+            if name in names:
+                args = re.search(re.escape(name) + r"I((?:Li\d+E)+)E", m.group(1))
+                entry = [tuple(int(x) for x in re.findall(r"\d+", args.group(1))) if args else (),
+                         0, 0, 0]
+                table.setdefault(name, []).append(entry)
+        elif entry is not None and "spill stores" in line:
+            entry[2], entry[3] = (int(x) for x in re.findall(r"(\d+) bytes spill", line))
+        elif entry is not None and "Used " in line and "registers" in line:
+            entry[1] = int(line.split("Used ")[1].split()[0])
+    return {name: sorted(tuple(e) for e in rows) for name, rows in table.items()}
 
 
 def sass_hmma(path: str):
@@ -215,6 +245,9 @@ def phase_build():
     for name in TENSOR_CORE_KERNELS:
         if name not in hmma or not all(hmma[name]):
             fail(f"{name}: every instantiation must hold HMMA instructions, got {hmma.get(name)}")
+    for name, rows in sorted(ptxas_instantiations(kl.log, TENSOR_CORE_KERNELS).items()):
+        log(f"ptxas {name} <template args>: registers, spill store/load bytes: " + "; ".join(
+            f"<{','.join(map(str, args))}> {regs}, {st}/{ld}" for args, regs, st, ld in rows))
     return kl
 
 
@@ -325,6 +358,13 @@ def check_flash_bwd(results):
             line = (f"flash_bwd {name} B{b} Sq{sq} Sk{sk} H{h} D{d}: max|dq,dk,dv - ref| "
                     f"{errs[0]:.3e} {errs[1]:.3e} {errs[2]:.3e} (bound {bound:.3g}, "
                     f"max|ref| {peak:.3f}); two calls equal: {same}")
+            if b == 4 and dtype == torch.bfloat16:
+                # batch invariance: image 0 alone gives the bits of its slice
+                alone = flash_attention_bwd(q[:1], k[:1], v[:1], out[:1], lse[:1], do[:1])
+                inv = all(torch.equal(g1, g[:1]) for g1, g in zip(alone, grads))
+                line += f"; image 0 alone equals its slice of the batch: {inv}"
+                same = same and inv
+                del alone
             if not (max(errs) <= bound and same):
                 fail(line)
             entry = {"shape": [b, sq, sk, h, d], "dtype": name, "max_abs_err_dq": errs[0],
@@ -693,6 +733,71 @@ def phase_probes(results):
     torch.cuda.empty_cache()
 
 
+# kernel families of the device-time breakdown: the first family whose
+# words a kernel's lower-cased name holds (convs before GEMMs: cuDNN's
+# implicit-GEMM convs and the tap-GEMM name both)
+KERNEL_FAMILIES = (
+    ("flash backward", ("flash_bwd",)),
+    ("flash forward", ("flash_fwd",)),
+    ("GroupNorm kernels", ("gn_stats", "gn_silu")),
+    ("convs", ("conv", "fprop", "dgrad", "wgrad", "tap_gemm", "nchwtonhwc", "nhwctonchw")),
+    ("GEMMs", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk")),
+    ("softmax and layer norm", ("softmax", "layer_norm", "layernorm")),
+    ("elementwise and copies", ("elementwise", "copy", "memcpy", "memset", "reduce", "fill",
+                                "cat", "index", "unroll", "vectorized", "foreach")),
+)
+
+
+def device_breakdown(run):
+    """(run()'s result, a summary): run() once under torch.profiler with CUDA
+    activity only (no host-op recording), then device time by kernel family
+    and the idle share: 1 - (union of the device intervals) / (the host's
+    wall time from the call to the final synchronize)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+    except RuntimeError as exc:  # no CUPTI: the update runs unprofiled
+        prof, why = None, exc
+    start = time.perf_counter()
+    result = run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - start) * 1e3
+    if prof is None:
+        return result, f"torch.profiler did not start ({why}); not measured"
+    prof.stop()
+    spans, by_family, other = [], {}, {}
+    for e in prof.events():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        t0, t1 = e.time_range.start, e.time_range.end  # microseconds
+        spans.append((t0, t1))
+        lower = e.name.lower()
+        family = next((f for f, words in KERNEL_FAMILIES if any(w in lower for w in words)),
+                      "other")
+        by_family[family] = by_family.get(family, 0.0) + (t1 - t0) / 1e3
+        if family == "other":
+            other[e.name[:60]] = other.get(e.name[:60], 0.0) + (t1 - t0) / 1e3
+    if not spans:
+        return result, f"the profiler saw no device time (wall {wall_ms:.1f} ms); not measured"
+    busy, end = 0.0, float("-inf")
+    for t0, t1 in sorted(spans):
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    busy_ms = busy / 1e3
+    total = sum(by_family.values())
+    parts = ", ".join(f"{f} {ms:.2f} ms ({100 * ms / total:.1f}%)"
+                      for f, ms in sorted(by_family.items(), key=lambda kv: -kv[1]))
+    top_other = ", ".join(f"{n} {ms:.2f}" for n, ms in
+                          sorted(other.items(), key=lambda kv: -kv[1])[:3])
+    return result, (f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle share "
+                    f"{100 * (1 - busy_ms / wall_ms):.1f}%; {len(spans)} device events; device "
+                    f"time by family: {parts}; largest 'other': {top_other or 'none'}")
+
+
 def phase_serving(unet_gn, vae_gn, unet_conv=0, vae_conv=0):
     import numpy as np
     import torch
@@ -812,11 +917,14 @@ def phase_onpolicy(rollout, unet_gn, unet_conv=0):
         "advantages": torch.linspace(-1.0, 1.0, batch, device="cuda"),
         "prompt_embeds": embeds, "uncond_embeds": uncond,
     }
+    def update():
+        loss, info = ppo_loss(params, apply, data, models.scheduler, sched, True, 5.0, 1.0,
+                              2e-4, cfg_concat=True)
+        loss.backward()
+        return loss, info
+
     _build.reset_launch_counts()
-    loss, info = ppo_loss(params, apply, data, models.scheduler, sched, True, 5.0, 1.0,
-                          2e-4, cfg_concat=True)
-    loss.backward()
-    torch.cuda.synchronize()
+    (loss, info), breakdown = device_breakdown(update)
     counts = _build.launch_counts()
     # sum of squares = 2 * B * approx_kl bounds the largest |dlogp|
     max_dlogp = (2.0 * batch * info["approx_kl"].item()) ** 0.5
@@ -838,6 +946,7 @@ def phase_onpolicy(rollout, unet_gn, unet_conv=0):
     log(f"on-policy launches {counts}, expected {want}")
     if counts != want:
         fail(f"kernel launches {counts} != expected {want}")
+    log(f"on-policy update at 2B = {2 * batch} under torch.profiler: {breakdown}")
     return {k: p.detach().cpu() for k, p in params.items()}, counts
 
 

@@ -11,23 +11,69 @@
 // H = 8, S = 4096/1024/256, D = 40/80/160) the backward is compute-bound:
 // flash_bwd_dq runs three (S, S, D) products per (batch, head) and
 // flash_bwd_dkv four, against two in the forward, while the inputs are a
-// few MB that sit in the 50 MB L2. Like the forward, this first version runs
-// every product on the CUDA cores in fp32 FMA, so the FMA rate and the
-// shared-memory loads that feed it are the limit.
+// few MB that sit in the 50 MB L2. The exponentials (one per score, in each
+// kernel) weigh less than in the forward, against three or four products.
 //
-// What the design does about it: the forward's scheme. One block owns a tile
-// of rows (queries for dq, keys for dkv) and streams 64-row tiles of the
-// other side; each thread owns a 4x4 tile of scores, so every pair of
-// 16-byte shared-memory loads feeds 16 FMAs, and the S and dP products share
-// one loop over D. The block's output rows stay in fp32 registers, with
-// ceil(D/16) strided columns per thread, so no float atomics are needed and
-// a recompute gives the same bits. Every tile sits in shared memory as fp32;
-// five of them at 64 rows need 191 KB at D = 160, so above D = 160 a block
-// owns 32 rows with 128 threads (222 KB at D = 256). Q, K, V and dO are read
-// through their (B, S, H) strides, so the caller neither pads nor
-// transposes. Tensor-core mma/wgmma and TMA pipelining are later work.
+// bf16, on the tensor cores (mma.sync.m16n8k16, bf16 in, fp32 accumulate),
+// FlashAttention-2's shape, one owner per output row as in the fp32 kernels:
+//   - flash_bwd_dq_mma_kernel: a block of 4 warps owns 64 query rows, 16 per
+//     warp; from Sq = 1024 up and for D <= 80, 128 rows in two m16 tiles a
+//     warp that share every K and V fragment. Q's and dO's A fragments are
+//     loaded once by ldmatrix (kept in registers up to 10 k16 steps a warp,
+//     read from shared memory per use above). K and V tiles of 64 keys are
+//     staged by cp.async into two buffers, [key][d] with D padded to 16*NC
+//     (+8 against bank conflicts) in shared memory only, so tile t+1 loads
+//     while tile t is multiplied. Per 16 keys: S = Q K^T and dP = dO V^T
+//     (B fragments by plain ldmatrix), then P = exp2(s*scale*log2(e) -
+//     lse*log2(e)) and dS = P (dP - delta) in registers, the scale applied to
+//     the fp32 scores and not folded into a bf16 Q; dS is rounded to bf16
+//     straight from its C fragments into the A fragments of dQ += dS K, whose
+//     B fragments come by ldmatrix.trans from the same K tile. The scale
+//     multiplies dQ in fp32 at the end. Keys past Sk give P = 0.
+//   - flash_bwd_dkv_mma_kernel, the transposed form: a warp owns 16 keys, a
+//     block 64 (from Sk = 1024 up and for D <= 48, 32 keys a warp in two m16
+//     tiles that share every Q and dO fragment), and streams Q/dO tiles of
+//     64 queries the same way, with each
+//     tile's lse and delta (64 floats each) staged beside them by 4-byte
+//     cp.async. Per 16 queries: S^T = K Q^T and dP^T = V dO^T from K's and
+//     V's A fragments (in registers up to D = 160); P^T and dS^T then sit in
+//     the C layout that is the A layout of dV += P^T dO and dK += dS^T Q, so
+//     they are rounded to bf16 in registers and never pass through shared
+//     memory; dO's and Q's B fragments come by ldmatrix.trans. Query rows
+//     past Sq give P = 0 by an explicit select, not through a padded lse
+//     (0 * inf and -inf - -inf are NaN). Keys past Sk are never written.
+//   - Registers: a warp's dK and dV for 16 keys are D fp32 a lane, more than
+//     fit above D = 80 beside the fragments. There a block owns 16*NG of the
+//     D columns (NG = ceil(NC / ceil(NC / 5)), a grid dimension over the
+//     column groups) and recomputes S^T and dP^T for each group: at D = 160 two
+//     groups, six products in place of four.
+//   - The only new roundings against the fp32 kernels are P (for dV) and dS
+//     (for dQ and dK) to bf16 as A operands; S and dP are exact bf16
+//     products summed in fp32. tests/test_torch_flash_numerics.py emulates
+//     this arithmetic on the CPU against JAX's kernels.
+// Summation order: each output element has one owner (a lane of the warp
+// that owns its row) and adds its terms in a fixed order: tiles in order, 16
+// rows at a time, the mma's k16 steps in order. No split over keys (dq) or
+// queries (dkv) and no atomics, and nothing depends on the batch or the
+// head, so two calls give the same bits and image i alone gives the bits
+// it gets inside a batch.
+//
+// fp32 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel) stays on the CUDA cores
+// in FMA: TF32 keeps 10 mantissa bits and would break the 1e-4 bounds. The
+// forward's scheme: one block owns a tile of rows (queries for dq, keys for
+// dkv) and streams 64-row tiles of the other side; each thread owns a 4x4
+// tile of scores, so every pair of 16-byte shared-memory loads feeds 16
+// FMAs, and the S and dP products share one loop over D. The block's output
+// rows stay in fp32 registers, with ceil(D/16) strided columns per thread.
+// Every tile sits in shared memory as fp32; five of them at 64 rows need
+// 191 KB at D = 160, so above D = 160 a block owns 32 rows with 128 threads
+// (222 KB at D = 256). All kernels read Q, K, V and dO through their
+// (B, S, H) strides, so the caller neither pads nor transposes.
 
 #include "common.cuh"
+#include "mma.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -336,6 +382,402 @@ __global__ void __launch_bounds__(4 * own_rows<NC>()) flash_bwd_dkv_kernel(
   }
 }
 
+// ---- bf16 on the tensor cores ----
+
+using bf16 = __nv_bfloat16;
+using ddpo::mma_ld;
+using ddpo::stage_rows;
+
+constexpr int kWarps = 4;  // warps per block of the tensor-core kernels
+constexpr int kThreads = 32 * kWarps;
+
+using ddpo::a_frag_off;
+using ddpo::b_frag_off;
+using ddpo::bt_frag_off;
+
+// dq: Q and dO [64 MI][LD] + K and V [2][BS][LD], bf16
+template <int NC, int MI>
+constexpr size_t dq_smem_bytes() {
+  return sizeof(bf16) * size_t(2 * 16 * kWarps * MI + 4 * BS) * mma_ld<NC>();
+}
+
+// dkv: K and V [64 MI][LD] + Q and dO [2][BS][LD], bf16; lse and delta [2][BS], fp32
+template <int NC, int MI>
+constexpr size_t dkv_smem_bytes() {
+  return sizeof(bf16) * size_t(2 * 16 * kWarps * MI + 4 * BS) * mma_ld<NC>() +
+         sizeof(float) * 4 * BS;
+}
+
+// 16-column chunks of dK and dV a dkv block owns: all of them up to D = 80,
+// else an even share of ceil(NC / 5) groups
+template <int NC>
+__host__ __device__ constexpr int dkv_cols() {
+  return NC <= 5 ? NC : (NC + (NC + 4) / 5 - 1) / ((NC + 4) / 5);
+}
+
+// dQ for 64 * MI query rows of one (head, batch): 4 warps of 16 * MI rows
+template <int NC, int MI>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dq, int H, int Sq, int Sk, int D,
+    Strides st, float scale, bool vec) {
+  constexpr int LD = mma_ld<NC>();
+  constexpr int MQ = 16 * MI * kWarps;
+  constexpr bool kRegs = NC * MI <= 10;  // Q's and dO's A fragments in registers
+  extern __shared__ uint4 smem_u4[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_u4);
+  bf16* gs = qs + MQ * LD;
+  bf16* ks = gs + MQ * LD;
+  bf16* vs = ks + 2 * BS * LD;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int q0 = blockIdx.x * MQ, h = blockIdx.y, b = blockIdx.z;
+  const bf16* qb = q + b * st.q_b + h * st.q_h;
+  const bf16* kb = k + b * st.k_b + h * st.k_h;
+  const bf16* vb = v + b * st.v_b + h * st.v_h;
+  const bf16* gb = dout + b * st.do_b + h * st.do_h;
+
+  for (int i = tid; i < (2 * MQ + 4 * BS) * LD / 8; i += kThreads)
+    smem_u4[i] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+  stage_rows(qs, qb, st.q_s, q0, MQ, Sq, D, LD, vec, tid, kThreads);
+  stage_rows(gs, gb, st.do_s, q0, MQ, Sq, D, LD, vec, tid, kThreads);
+  stage_rows(ks, kb, st.k_s, 0, BS, Sk, D, LD, vec, tid, kThreads);
+  stage_rows(vs, vb, st.v_s, 0, BS, Sk, D, LD, vec, tid, kThreads);
+  ddpo::cp_async_commit();
+  ddpo::cp_async_wait<0>();
+  __syncthreads();
+
+  const int a_off = warp * 16 * MI * LD + a_frag_off(lane, LD);
+  const uint32_t q_addr = ddpo::smem_addr(qs + a_off), g_addr = ddpo::smem_addr(gs + a_off);
+  uint32_t qf[kRegs ? MI : 1][kRegs ? NC : 1][4], gf[kRegs ? MI : 1][kRegs ? NC : 1][4];
+  if constexpr (kRegs) {
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int kk = 0; kk < NC; ++kk) {
+        ddpo::ldmatrix_x4(qf[mi][kk], q_addr + (mi * 16 * LD + kk * 16) * 2);
+        ddpo::ldmatrix_x4(gf[mi][kk], g_addr + (mi * 16 * LD + kk * 16) * 2);
+      }
+  }
+  const int b_off = b_frag_off(lane, LD), bt_off = bt_frag_off(lane, LD);
+
+  // lse (base 2) and delta of the lane's rows g and g + 8 of each m16 tile
+  const float scale_log2 = scale * kLog2e;
+  float lse2[MI][2], dl[MI][2];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + (warp * MI + mi) * 16 + g + 8 * r;
+      const int64_t at = (int64_t(b) * H + h) * Sq + row;
+      lse2[mi][r] = row < Sq ? lse[at] * kLog2e : 0.f;
+      dl[mi][r] = row < Sq ? delta[at] : 0.f;
+    }
+
+  float acc[MI][2 * NC][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int n = 0; n < 2 * NC; ++n)
+      acc[mi][n][0] = acc[mi][n][1] = acc[mi][n][2] = acc[mi][n][3] = 0.f;
+
+  const int ntiles = (Sk + BS - 1) / BS;
+  for (int t = 0; t < ntiles; ++t) {
+    const int cur = t & 1;
+    if (t + 1 < ntiles) {  // the other buffer's readers passed the barrier ending tile t-1
+      stage_rows(ks + (cur ^ 1) * BS * LD, kb, st.k_s, (t + 1) * BS, BS, Sk, D, LD, vec, tid,
+                 kThreads);
+      stage_rows(vs + (cur ^ 1) * BS * LD, vb, st.v_s, (t + 1) * BS, BS, Sk, D, LD, vec, tid,
+                 kThreads);
+    }
+    ddpo::cp_async_commit();
+    ddpo::cp_async_wait<1>();  // tile t has landed
+    __syncthreads();
+    const uint32_t k_addr = ddpo::smem_addr(ks + cur * BS * LD + b_off);
+    const uint32_t kt_addr = ddpo::smem_addr(ks + cur * BS * LD + bt_off);
+    const uint32_t v_addr = ddpo::smem_addr(vs + cur * BS * LD + b_off);
+    const int keys_left = Sk - t * BS;  // keys of this tile at or past it are padding
+
+#pragma unroll
+    for (int kc = 0; kc < BS / 16; ++kc) {  // 16 keys at a time
+      // S = Q K^T and dP = dO V^T: 16 MI rows x 16 keys a warp
+      float s[MI][2][4], dp[MI][2][4];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mi][j][e] = dp[mi][j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < NC; ++kk) {
+        uint32_t a[MI][4], ga[MI][4];
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          if constexpr (kRegs) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              a[mi][i] = qf[mi][kk][i];
+              ga[mi][i] = gf[mi][kk][i];
+            }
+          } else {
+            ddpo::ldmatrix_x4(a[mi], q_addr + (mi * 16 * LD + kk * 16) * 2);
+            ddpo::ldmatrix_x4(ga[mi], g_addr + (mi * 16 * LD + kk * 16) * 2);
+          }
+        }
+        uint32_t kf4[4], vf4[4];
+        ddpo::ldmatrix_x4(kf4, k_addr + (kc * 16 * LD + kk * 16) * 2);
+        ddpo::ldmatrix_x4(vf4, v_addr + (kc * 16 * LD + kk * 16) * 2);
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          ddpo::mma_bf16(s[mi][0], a[mi], kf4[0], kf4[1]);
+          ddpo::mma_bf16(s[mi][1], a[mi], kf4[2], kf4[3]);
+          ddpo::mma_bf16(dp[mi][0], ga[mi], vf4[0], vf4[1]);
+          ddpo::mma_bf16(dp[mi][1], ga[mi], vf4[2], vf4[3]);
+        }
+      }
+      // dS = P (dP - delta), rounded to bf16 as the A fragments of dS K; the
+      // lane holds rows g + 8r and keys kc*16 + 8j + 2tq + e
+      uint32_t da[MI][4];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int key = kc * 16 + j * 8 + 2 * tq + e;
+              float p = ddpo::exp2_ftz(fmaf(s[mi][j][2 * r + e], scale_log2, -lse2[mi][r]));
+              if (key >= keys_left) p = 0.f;
+              s[mi][j][2 * r + e] = p * (dp[mi][j][2 * r + e] - dl[mi][r]);
+            }
+        da[mi][0] = ddpo::pack_bf16(s[mi][0][0], s[mi][0][1]);
+        da[mi][1] = ddpo::pack_bf16(s[mi][0][2], s[mi][0][3]);
+        da[mi][2] = ddpo::pack_bf16(s[mi][1][0], s[mi][1][1]);
+        da[mi][3] = ddpo::pack_bf16(s[mi][1][2], s[mi][1][3]);
+      }
+      // dQ += dS K over all D columns, K's B fragments by ldmatrix.trans
+#pragma unroll
+      for (int np = 0; np < NC; ++np) {
+        uint32_t kt4[4];
+        ddpo::ldmatrix_x4_trans(kt4, kt_addr + (kc * 16 * LD + np * 16) * 2);
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          ddpo::mma_bf16(acc[mi][2 * np], da[mi], kt4[0], kt4[1]);
+          ddpo::mma_bf16(acc[mi][2 * np + 1], da[mi], kt4[2], kt4[3]);
+        }
+      }
+    }
+    __syncthreads();  // this tile's buffers may be refilled
+  }
+
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + (warp * MI + mi) * 16 + g + 8 * r;
+      if (row >= Sq) continue;
+      bf16* orow = dq + ((int64_t(b) * Sq + row) * H + h) * D;
+#pragma unroll
+      for (int n = 0; n < 2 * NC; ++n)
+        ddpo::store_pair(orow, n * 8 + 2 * tq, D, acc[mi][n][2 * r] * scale,
+                         acc[mi][n][2 * r + 1] * scale);
+    }
+}
+
+// dK and dV for 64 * MI keys of one (head, batch), columns 16*c0 ..
+// 16*(c0+NG)-1: 4 warps of 16 * MI keys (the MI m16 tiles of a warp share
+// each Q and dO fragment)
+template <int NC, int NG, int MI>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
+    int Sq, int Sk, int D, Strides st, float scale, bool vec, int groups) {
+  constexpr int LD = mma_ld<NC>();
+  constexpr int MK = 16 * kWarps * MI;
+  constexpr bool kRegs = NC * MI <= 10;  // K's and V's A fragments in registers
+  static_assert(kThreads == 2 * BS, "one thread stages each lse and delta value");
+  extern __shared__ uint4 smem_u4[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_u4);
+  bf16* vs = ks + MK * LD;
+  bf16* qs = vs + MK * LD;      // [2][BS][LD]
+  bf16* gs = qs + 2 * BS * LD;  // [2][BS][LD]
+  float* stats = reinterpret_cast<float*>(gs + 2 * BS * LD);  // [2][lse BS, delta BS]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int k0 = blockIdx.x * MK, h = blockIdx.y, b = blockIdx.z / groups;
+  const int c0 = (blockIdx.z - b * groups) * NG;  // first 16-column chunk this block owns
+  const bf16* qb = q + b * st.q_b + h * st.q_h;
+  const bf16* kb = k + b * st.k_b + h * st.k_h;
+  const bf16* vb = v + b * st.v_b + h * st.v_h;
+  const bf16* gb = dout + b * st.do_b + h * st.do_h;
+  // thread tid stages lse (tid < BS) or delta of query row (tid mod BS)
+  const float* stat_src = (tid < BS ? lse : delta) + (int64_t(b) * H + h) * Sq;
+
+  auto stage_q_tile = [&](int buf, int row0) {
+    stage_rows(qs + buf * BS * LD, qb, st.q_s, row0, BS, Sq, D, LD, vec, tid, kThreads);
+    stage_rows(gs + buf * BS * LD, gb, st.do_s, row0, BS, Sq, D, LD, vec, tid, kThreads);
+    const int row = row0 + (tid & (BS - 1));
+    ddpo::cp_async4(ddpo::smem_addr(stats + buf * 2 * BS + tid),
+                    row < Sq ? stat_src + row : stat_src, row < Sq);
+  };
+
+  for (int i = tid; i < (2 * MK + 4 * BS) * LD / 8; i += kThreads)
+    smem_u4[i] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+  stage_rows(ks, kb, st.k_s, k0, MK, Sk, D, LD, vec, tid, kThreads);
+  stage_rows(vs, vb, st.v_s, k0, MK, Sk, D, LD, vec, tid, kThreads);
+  stage_q_tile(0, 0);
+  ddpo::cp_async_commit();
+  ddpo::cp_async_wait<0>();
+  __syncthreads();
+
+  const int a_off = warp * 16 * MI * LD + a_frag_off(lane, LD);
+  const uint32_t k_addr = ddpo::smem_addr(ks + a_off), v_addr = ddpo::smem_addr(vs + a_off);
+  uint32_t kf[kRegs ? MI : 1][kRegs ? NC : 1][4], vf[kRegs ? MI : 1][kRegs ? NC : 1][4];
+  if constexpr (kRegs) {
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int kk = 0; kk < NC; ++kk) {
+        ddpo::ldmatrix_x4(kf[mi][kk], k_addr + (mi * 16 * LD + kk * 16) * 2);
+        ddpo::ldmatrix_x4(vf[mi][kk], v_addr + (mi * 16 * LD + kk * 16) * 2);
+      }
+  }
+  const int b_off = b_frag_off(lane, LD), bt_off = bt_frag_off(lane, LD);
+  const float scale_log2 = scale * kLog2e;
+
+  float adk[MI][2 * NG][4], adv[MI][2 * NG][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int n = 0; n < 2 * NG; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) adk[mi][n][e] = adv[mi][n][e] = 0.f;
+
+  const int ntiles = (Sq + BS - 1) / BS;
+  for (int t = 0; t < ntiles; ++t) {
+    const int cur = t & 1;
+    if (t + 1 < ntiles) stage_q_tile(cur ^ 1, (t + 1) * BS);
+    ddpo::cp_async_commit();
+    ddpo::cp_async_wait<1>();  // tile t has landed
+    __syncthreads();
+    const bf16* qt = qs + cur * BS * LD;
+    const bf16* gt = gs + cur * BS * LD;
+    const uint32_t q_addr = ddpo::smem_addr(qt + b_off), qt_addr = ddpo::smem_addr(qt + bt_off);
+    const uint32_t g_addr = ddpo::smem_addr(gt + b_off), gt_addr = ddpo::smem_addr(gt + bt_off);
+    const float* lse_t = stats + cur * 2 * BS;
+    const float* dl_t = lse_t + BS;
+    const int rows_left = Sq - t * BS;  // query rows of this tile at or past it are padding
+
+#pragma unroll
+    for (int qc = 0; qc < BS / 16; ++qc) {  // 16 queries at a time
+      // S^T = K Q^T and dP^T = V dO^T: 16 MI keys x 16 queries a warp
+      float s[MI][2][4], dp[MI][2][4];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mi][j][e] = dp[mi][j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < NC; ++kk) {
+        uint32_t qf4[4], gf4[4];
+        ddpo::ldmatrix_x4(qf4, q_addr + (qc * 16 * LD + kk * 16) * 2);
+        ddpo::ldmatrix_x4(gf4, g_addr + (qc * 16 * LD + kk * 16) * 2);
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          uint32_t a[4], va[4];
+          if constexpr (kRegs) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              a[i] = kf[mi][kk][i];
+              va[i] = vf[mi][kk][i];
+            }
+          } else {
+            ddpo::ldmatrix_x4(a, k_addr + (mi * 16 * LD + kk * 16) * 2);
+            ddpo::ldmatrix_x4(va, v_addr + (mi * 16 * LD + kk * 16) * 2);
+          }
+          ddpo::mma_bf16(s[mi][0], a, qf4[0], qf4[1]);
+          ddpo::mma_bf16(s[mi][1], a, qf4[2], qf4[3]);
+          ddpo::mma_bf16(dp[mi][0], va, gf4[0], gf4[1]);
+          ddpo::mma_bf16(dp[mi][1], va, gf4[2], gf4[3]);
+        }
+      }
+      // P^T and dS^T = P^T (dP^T - delta); the lane holds keys g + 8r of
+      // each m16 tile and queries qc*16 + 8j + 2tq + e
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = qc * 16 + j * 8 + 2 * tq + e;
+          const float l2 = lse_t[col] * kLog2e, dlv = dl_t[col];
+#pragma unroll
+          for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              float p = ddpo::exp2_ftz(fmaf(s[mi][j][2 * r + e], scale_log2, -l2));
+              if (col >= rows_left) p = 0.f;
+              dp[mi][j][2 * r + e] = p * (dp[mi][j][2 * r + e] - dlv);
+              s[mi][j][2 * r + e] = p;
+            }
+        }
+      uint32_t pa[MI][4], da[MI][4];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        pa[mi][0] = ddpo::pack_bf16(s[mi][0][0], s[mi][0][1]);
+        pa[mi][1] = ddpo::pack_bf16(s[mi][0][2], s[mi][0][3]);
+        pa[mi][2] = ddpo::pack_bf16(s[mi][1][0], s[mi][1][1]);
+        pa[mi][3] = ddpo::pack_bf16(s[mi][1][2], s[mi][1][3]);
+        da[mi][0] = ddpo::pack_bf16(dp[mi][0][0], dp[mi][0][1]);
+        da[mi][1] = ddpo::pack_bf16(dp[mi][0][2], dp[mi][0][3]);
+        da[mi][2] = ddpo::pack_bf16(dp[mi][1][0], dp[mi][1][1]);
+        da[mi][3] = ddpo::pack_bf16(dp[mi][1][2], dp[mi][1][3]);
+      }
+      // dV += P^T dO and dK += dS^T Q over this block's columns
+#pragma unroll
+      for (int np = 0; np < NG; ++np) {
+        if (NG < NC && c0 + np >= NC) break;  // the last group's share may run past D
+        uint32_t t4[4];
+        ddpo::ldmatrix_x4_trans(t4, gt_addr + (qc * 16 * LD + (c0 + np) * 16) * 2);
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          ddpo::mma_bf16(adv[mi][2 * np], pa[mi], t4[0], t4[1]);
+          ddpo::mma_bf16(adv[mi][2 * np + 1], pa[mi], t4[2], t4[3]);
+        }
+        ddpo::ldmatrix_x4_trans(t4, qt_addr + (qc * 16 * LD + (c0 + np) * 16) * 2);
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          ddpo::mma_bf16(adk[mi][2 * np], da[mi], t4[0], t4[1]);
+          ddpo::mma_bf16(adk[mi][2 * np + 1], da[mi], t4[2], t4[3]);
+        }
+      }
+    }
+    __syncthreads();  // this tile's buffers may be refilled
+  }
+
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = k0 + (warp * MI + mi) * 16 + g + 8 * r;
+      if (key >= Sk) continue;
+      const int64_t at = ((int64_t(b) * Sk + key) * H + h) * D;
+#pragma unroll
+      for (int n = 0; n < 2 * NG; ++n) {
+        const int col = (2 * c0 + n) * 8 + 2 * tq;
+        ddpo::store_pair(dk + at, col, D, adk[mi][n][2 * r] * scale,
+                         adk[mi][n][2 * r + 1] * scale);
+        ddpo::store_pair(dv + at, col, D, adv[mi][n][2 * r], adv[mi][n][2 * r + 1]);
+      }
+    }
+}
+
 struct BwdArgs {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
@@ -343,6 +785,7 @@ struct BwdArgs {
   int B, H, Sq, Sk, D;
   Strides st;
   float scale;
+  bool vec;  // the bf16 kernels may stage rows by cp.async
 };
 
 template <typename T, int NC>
@@ -376,12 +819,77 @@ cudaError_t launch_dkv(const BwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int NC, int MI>
+cudaError_t launch_dq_tiles(const BwdArgs& a, cudaStream_t stream) {
+  const size_t smem = dq_smem_bytes<NC, MI>();
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<NC, MI>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return e;
+  constexpr int rows = 16 * kWarps * MI;
+  const dim3 grid((a.Sq + rows - 1) / rows, a.H, a.B);
+  flash_bwd_dq_mma_kernel<NC, MI><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse, a.delta,
+      static_cast<bf16*>(a.dq), a.H, a.Sq, a.Sk, a.D, a.st, a.scale, a.vec);
+  return cudaGetLastError();
+}
+
+// Two m16 tiles a warp (128 rows a block) up to D = 80 from Sq = 1024 up, as
+// in the forward: half the K/V fragment loads per product. Not below
+// Sq = 1024, where 128-row blocks leave SMs idle.
+template <int NC>
+cudaError_t launch_dq_mma(const BwdArgs& a, cudaStream_t stream) {
+  if constexpr (NC <= 5) {
+    if (a.Sq >= 1024) return launch_dq_tiles<NC, 2>(a, stream);
+  }
+  return launch_dq_tiles<NC, 1>(a, stream);
+}
+
+template <int NC, int MI>
+cudaError_t launch_dkv_tiles(const BwdArgs& a, cudaStream_t stream) {
+  constexpr int NG = dkv_cols<NC>();
+  const size_t smem = dkv_smem_bytes<NC, MI>();
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_mma_kernel<NC, NG, MI>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return e;
+  constexpr int groups = (NC + NG - 1) / NG, keys = 16 * kWarps * MI;
+  const dim3 grid((a.Sk + keys - 1) / keys, a.H, a.B * groups);
+  flash_bwd_dkv_mma_kernel<NC, NG, MI><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse, a.delta,
+      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.H, a.Sq, a.Sk, a.D, a.st,
+      a.scale, a.vec, groups);
+  return cudaGetLastError();
+}
+
+// Two m16 key tiles a warp (128 keys a block) up to D = 48 from Sk = 1024
+// up: half the Q/dO fragment loads per product, faster at the UNet's
+// S = 4096 with the same bits. Above D = 48 the dK and dV accumulators of
+// two tiles pass 255 registers; below Sk = 1024, 128-key blocks leave SMs
+// idle.
+template <int NC>
+cudaError_t launch_dkv_mma(const BwdArgs& a, cudaStream_t stream) {
+  if constexpr (NC <= 3) {
+    if (a.Sk >= 1024) return launch_dkv_tiles<NC, 2>(a, stream);
+  }
+  return launch_dkv_tiles<NC, 1>(a, stream);
+}
+
+// bf16 takes the tensor-core kernels, fp32 the FMA kernels
+template <typename T, bool DQ, int NC>
+cudaError_t launch_for(const BwdArgs& a, cudaStream_t stream) {
+  if constexpr (std::is_same_v<T, bf16>)
+    return DQ ? launch_dq_mma<NC>(a, stream) : launch_dkv_mma<NC>(a, stream);
+  else
+    return DQ ? launch_dq<T, NC>(a, stream) : launch_dkv<T, NC>(a, stream);
+}
+
 template <typename T, bool DQ>
 cudaError_t dispatch_nc(const BwdArgs& a, cudaStream_t stream) {
   switch ((a.D + 15) / 16) {
 #define DDPO_NC(n) \
   case n:          \
-    return DQ ? launch_dq<T, n>(a, stream) : launch_dkv<T, n>(a, stream);
+    return launch_for<T, DQ, n>(a, stream);
     DDPO_NC(1) DDPO_NC(2) DDPO_NC(3) DDPO_NC(4) DDPO_NC(5) DDPO_NC(6) DDPO_NC(7)
     DDPO_NC(8) DDPO_NC(9) DDPO_NC(10) DDPO_NC(11) DDPO_NC(12) DDPO_NC(13)
     DDPO_NC(14) DDPO_NC(15) DDPO_NC(16)
@@ -411,6 +919,7 @@ BwdArgs make_args(const void* q, const void* k, const void* v, const void* dout,
   a.st = Strides{strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
                  strides[6], strides[7], strides[8], strides[9], strides[10], strides[11]};
   a.scale = scale;
+  a.vec = ddpo::rows_vectorizable(D, strides, 12, {q, k, v, dout});
   return a;
 }
 

@@ -230,10 +230,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
 
 using bf16 = __nv_bfloat16;
 
-// row stride in elements of the Q/K/V tiles: D padded to 16*NC, plus 8 so
-// that the 16-byte units of eight consecutive rows sit in eight bank groups
-template <int NC>
-__host__ __device__ constexpr int mma_ld() { return 16 * NC + 8; }
+using ddpo::mma_ld;
+using ddpo::stage_rows;
 
 constexpr int kWarps = 4;  // warps per block of the tensor-core kernel
 
@@ -241,28 +239,6 @@ constexpr int kWarps = 4;  // warps per block of the tensor-core kernel
 template <int NC, int MI>
 constexpr size_t mma_smem_bytes() {
   return sizeof(bf16) * size_t(16 * kWarps * MI + 4 * BK) * mma_ld<NC>();
-}
-
-// rows row0 .. row0+n-1 of one (b, h) slice into dst [n][ld], by nt threads.
-// Rows past S are zeros; columns past D are not written (they stay zero
-// from the start).
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, int64_t stride, int row0,
-                                           int n, int S, int D, int ld, bool vec, int tid,
-                                           int nt) {
-  if (vec) {
-    const int cpr = D >> 3;  // 16-byte units per row
-    for (int idx = tid; idx < n * cpr; idx += nt) {
-      const int r = idx / cpr, c = idx - r * cpr;
-      const bool ok = row0 + r < S;
-      ddpo::cp_async16(ddpo::smem_addr(dst + r * ld + c * 8),
-                       ok ? src + (row0 + r) * stride + c * 8 : src, ok);
-    }
-  } else {
-    for (int idx = tid; idx < n * D; idx += nt) {
-      const int r = idx / D, c = idx - r * D;
-      dst[r * ld + c] = row0 + r < S ? src[(row0 + r) * stride + c] : __float2bfloat16(0.f);
-    }
-  }
 }
 
 // 4 warps of 16 * MI query rows each (the MI m16 tiles of a warp share
@@ -296,9 +272,8 @@ __global__ void __launch_bounds__(32 * kWarps) flash_fwd_mma_kernel(
   ddpo::cp_async_wait<0>();
   __syncthreads();
 
-  // A fragments of Q: lane supplies row (lane & 15) of each m16 tile, k half (lane >> 4)
-  const uint32_t q_addr =
-      ddpo::smem_addr(qs + (warp * 16 * MI + (lane & 15)) * LD + (lane >> 4) * 8);
+  // A fragments of Q
+  const uint32_t q_addr = ddpo::smem_addr(qs + warp * 16 * MI * LD + ddpo::a_frag_off(lane, LD));
   uint32_t qf[kQRegs ? MI : 1][kQRegs ? NC : 1][4];
   if constexpr (kQRegs) {
 #pragma unroll
@@ -309,8 +284,7 @@ __global__ void __launch_bounds__(32 * kWarps) flash_fwd_mma_kernel(
   }
   // B fragments: K (non-trans, [key][d]) two key tiles of 8 per x4; V
   // (trans, [key][d]) two d tiles of 8 per x4
-  const int k_off = ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8;
-  const int v_off = ((lane & 7) + (((lane >> 3) & 1) << 3)) * LD + (lane >> 4) * 8;
+  const int k_off = ddpo::b_frag_off(lane, LD), v_off = ddpo::bt_frag_off(lane, LD);
 
   float o[MI][2 * NC][4];
   float m[MI][2], l[MI][2];
@@ -445,13 +419,7 @@ __global__ void __launch_bounds__(32 * kWarps) flash_fwd_mma_kernel(
 #pragma unroll
       for (int n = 0; n < 2 * NC; ++n) {
         const int col = n * 8 + 2 * tq;
-        const float x0 = o[mi][n][2 * r] * inv, x1 = o[mi][n][2 * r + 1] * inv;
-        if ((D & 1) == 0 && col + 1 < D) {
-          *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(x0, x1);
-        } else {
-          if (col < D) orow[col] = __float2bfloat16(x0);
-          if (col + 1 < D) orow[col + 1] = __float2bfloat16(x1);
-        }
+        ddpo::store_pair(orow, col, D, o[mi][n][2 * r] * inv, o[mi][n][2 * r + 1] * inv);
       }
       if (tq == 0) lse[(int64_t(b) * H + h) * Sq + row] = (m[mi][r] + log2f(l[mi][r])) * kLn2;
     }
@@ -465,11 +433,7 @@ cudaError_t launch_tiles(const void* q, const void* k, const void* v, void* out,
   cudaError_t e = cudaFuncSetAttribute(flash_fwd_mma_kernel<NC, MI>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return e;
-  // cp.async moves 16-byte units: D, every stride and every base a multiple of 8 elements
-  bool vec = D % 8 == 0;
-  for (int i = 0; i < 9; ++i) vec = vec && st[i] % 8 == 0;
-  vec = vec && (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                reinterpret_cast<uintptr_t>(v)) % 16 == 0;
+  const bool vec = ddpo::rows_vectorizable(D, st, 9, {q, k, v});
   constexpr int rows = 16 * kWarps * MI;
   const dim3 grid((Sq + rows - 1) / rows, H, B);
   const float kLog2e = 1.4426950408889634f;

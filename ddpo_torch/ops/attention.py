@@ -17,6 +17,9 @@ Kernels (each replaces a Pallas kernel of the JAX package):
     recomputing P from the logsumexp (``_flash_bwd_dq_kernel``,
     ``_flash_bwd_dkv_kernel``).
 
+In bf16 both files run every product on the tensor cores; fp32 runs on the
+CUDA cores, where the fp32 bounds hold.
+
 Under autograd the gate goes through ``FlashAttention``, whose backward
 follows JAX's ``_use_pallas_bwd``: the backward kernels for bf16, autograd
 through ``attention_reference`` for fp32.

@@ -23,6 +23,8 @@ from ddpo_torch.ops.attention import (
     flash_attention_bwd,
     flash_attention_bwd_reference,
     flash_attention_fwd,
+    flash_bwd_dkv,
+    flash_bwd_dq,
 )
 from ddpo_torch.bench import conv_probe
 from ddpo_torch.ops.conv import (
@@ -120,14 +122,20 @@ def test_dispatch_on_cuda(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,sq,sk,h,d", [(4, 1024, 1024, 8, 40), (4, 256, 256, 8, 160),
-                                         (2, 300, 700, 8, 80), (2, 300, 300, 2, 256),
-                                         (1, 200, 130, 3, 16)])
+@pytest.mark.parametrize("b,sq,sk,h,d", [(4, 1024, 1024, 8, 40), (2, 1024, 1024, 8, 80),
+                                         (4, 256, 256, 8, 160), (2, 300, 700, 8, 80),
+                                         (2, 700, 300, 4, 112), (2, 300, 300, 2, 256),
+                                         (1, 200, 130, 3, 16), (2, 200, 130, 3, 8),
+                                         (2, 130, 200, 3, 20)])
 def test_flash_backward_kernels_match_plain(cuda, dtype, b, sq, sk, h, d):
-    """dq, dk, dv against the plain fp32 backward on the same inputs. Bounds:
-    fp32 1e-4; bf16 1e-2 * max(1, max|ref|), the rounding of the bf16
-    outputs (half an ulp is 2^-9 of the value). Two calls give the same
-    bits (each output element has one owner; no atomics)."""
+    """dq, dk, dv against the plain fp32 backward on the same inputs; bf16
+    runs on the tensor cores at D = 8 to 256 (20 takes element-wise
+    staging; 112 and up split dK and dV into column groups) and at ragged
+    Sq != Sk both ways. Bounds: fp32 1e-4; bf16 1e-2 * max(1, max|ref|),
+    the rounding of P and dS and of the bf16 outputs (half an ulp is 2^-9
+    of the value). Two calls give the same bits, and so does image 0 alone
+    against its slice of the batch (each output element has one owner; no
+    atomics)."""
     q, k, v = (torch.from_numpy(x).to(cuda, dtype) for x in _qkv(b, sq, sk, h, d, seed=2))
     do = torch.randn(q.shape, device=cuda).to(dtype)
     out, lse = flash_attention_fwd(q, k, v)
@@ -137,10 +145,11 @@ def test_flash_backward_kernels_match_plain(cuda, dtype, b, sq, sk, h, d):
     assert after["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
     assert after["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
     again = flash_attention_bwd(q, k, v, out, lse, do)
+    alone = flash_attention_bwd(q[:1], k[:1], v[:1], out[:1], lse[:1], do[:1])
     refs = flash_attention_bwd_reference(q, k, v, out, lse, do)
-    for name, g, g2, ref, x in zip("qkv", grads, again, refs, (q, k, v)):
+    for name, g, g2, g1, ref, x in zip("qkv", grads, again, alone, refs, (q, k, v)):
         assert g.dtype == dtype and g.shape == x.shape, name
-        assert torch.equal(g, g2), name
+        assert torch.equal(g, g2) and torch.equal(g1, g[:1]), name
         bound = 1e-4 if dtype == torch.float32 else 1e-2 * max(1.0, ref.abs().max().item())
         assert (g.float() - ref).abs().max().item() <= bound, name
 
@@ -361,3 +370,40 @@ def test_conv_weight_layout_kernel(cuda, dtype, cout, cin):
     w_kn = weight_kn(weight)
     assert w_kn.shape == (9 * cin, cout) and w_kn.dtype == dtype
     assert torch.equal(w_kn.cpu(), weight_kn(weight.cpu()))
+
+
+@pytest.mark.cuda
+def test_flash_backward_bf16_on_fused_qkv_views(cuda):
+    """q, k, v as non-contiguous views of one (B, S, 3, H, D) tensor: the
+    kernels read them through their strides and give the bits of the
+    contiguous copies."""
+    rng = np.random.default_rng(13)
+    qkv = torch.from_numpy(rng.standard_normal((2, 1024, 3, 8, 40)).astype(np.float32))
+    q, k, v = qkv.to(cuda, torch.bfloat16).unbind(2)
+    do = torch.from_numpy(rng.standard_normal((2, 1024, 8, 40)).astype(np.float32))
+    do = do.to(cuda, torch.bfloat16)
+    assert not q.is_contiguous()
+    out, lse = flash_attention_fwd(q, k, v)
+    grads = flash_attention_bwd(q, k, v, out, lse, do)
+    copies = flash_attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(), out, lse, do)
+    refs = flash_attention_bwd_reference(q, k, v, out, lse, do)
+    for name, g, c, ref in zip("qkv", grads, copies, refs):
+        assert torch.equal(g, c), name
+        assert (g.float() - ref).abs().max().item() <= _bound(torch.bfloat16, ref), name
+
+
+@pytest.mark.cuda
+def test_flash_backward_bf16_refuses_rather_than_falls_back(cuda):
+    """A bf16 CUDA call the kernels cannot take raises and launches nothing:
+    D = 272 at the launch wrappers, past the gate that flash_attention_bwd
+    checks first."""
+    q = torch.randn(1, 256, 1, 272, device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 1, 256, device=cuda)
+    before = _build.launch_counts()
+    with pytest.raises(RuntimeError):
+        flash_bwd_dq(q, q, q, q, lse, lse, 272**-0.5)
+    with pytest.raises(RuntimeError):
+        flash_bwd_dkv(q, q, q, q, lse, lse, 272**-0.5)
+    with pytest.raises(ValueError):
+        flash_attention_bwd(q, q, q, q, lse, q)
+    assert _build.launch_counts() == before
