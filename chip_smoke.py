@@ -10,8 +10,11 @@ Phases, in order; any failure exits non-zero:
      and spills of each of those instantiations.
   3. kernels: each forward kernel against its plain PyTorch version at the
      main path's shapes, with the bound stated, plus kernel and plain times;
-     the bf16 flash forward on image 0 of each 8-image case alone must give
-     the bits of its slice of the batched call (batch invariance).
+     the bf16 flash forward and gn_stats on image 0 of each 8-image case
+     alone must give the bits of its slice of the batched call (batch
+     invariance). gn_stats prints each shape's cluster size (blocks a run;
+     the phase fails unless some shape runs with more than one) and the
+     wrapper's host microseconds a call beside var_mean's.
   3b. backward kernels: flash_bwd_dq and flash_bwd_dkv against the plain
      fp32 backward at the trainer's shapes (2B = 4), ragged lengths and
      D = 256, in bf16 and fp32; kernel times beside the plain backward's
@@ -33,7 +36,10 @@ Phases, in order; any failure exits non-zero:
      group_norm_silu(use_kernel=True), at every GN+SiLU input shape of the
      UNet (2B = 8) and the VAE decoder (batch 4), bf16 and some fp32, and a
      gcd-clamped case that must take group_norm; against the fp32 plain
-     version, two calls bit-equal; times beside F.group_norm + F.silu.
+     version, two calls bit-equal, image 0 alone bit-equal to its slice;
+     each shape's cluster size and way through (cached, streamed, scalar);
+     device times and host microseconds a call beside F.group_norm +
+     F.silu's.
   3d. conv3x3: the tap-GEMM kernel at every Conv3x3 input shape of the UNet
      (2B = 8) and the VAE decoder (batch 4), bf16, fp32 cases and an odd
      map; against the fp32 9-tap plain version; times beside F.conv2d; in
@@ -46,9 +52,11 @@ Phases, in order; any failure exits non-zero:
   4-7 launch none of the new kernels.
   7. DDPO: ddpo_torch.pipelines.policy_gradient.main, one epoch at the
      defaults of --dataset compressed-animals (sample batch 8, 50 steps,
-     train batch 2, bf16 over fp32 masters, adamw), a full-state
-     checkpoint, and a --resume call that trains no further epoch; checks
-     the exact launch counts of all four kernels.
+     train batch 2, bf16 over fp32 masters, adamw) with its JPEG reward
+     (the native library built against the libjpeg the build finds, which
+     is logged, with the reward's seconds for the epoch's images), a
+     full-state checkpoint, and a --resume call that trains no further
+     epoch; checks the exact launch counts of all four kernels.
   8. the conv path, with ops.conv.set_conv_kernel_enabled(True) (reset
      after): (a) one UNet forward at 2B = 8 with the switch on against off,
      and the median time of a UNet step each way;
@@ -113,6 +121,23 @@ def median_ms(fn, iters: int) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds a call: `calls` calls after warm-up, timed with
+    time.perf_counter and no synchronize in between (the caller's thread
+    cost: Python, allocation, the launch)."""
+    import torch
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - start) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def roofline(flops: float, nbytes: float, dtype: str = "bfloat16"):
@@ -421,7 +446,12 @@ def check_flash_bwd(results):
 def check_gn_stats(results):
     import torch
 
-    from ddpo_torch.ops.groupnorm import group_stats, group_stats_reference, num_groups_for
+    from ddpo_torch.ops.groupnorm import (
+        gn_stats_cluster_size,
+        group_stats,
+        group_stats_reference,
+        num_groups_for,
+    )
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = [
@@ -434,12 +464,15 @@ def check_gn_stats(results):
         (2, 48, 17, 17),
     ]
     bound = 1e-5  # |err| relative to sum|x| (sums) and sum x^2 (sq_sums)
+    largest_k = 0
     for dtype in (torch.bfloat16, torch.float32):
         for shape in cases:
             if dtype == torch.float32 and shape not in (cases[0], cases[-1], cases[-2]):
                 continue
             x = (torch.randn(shape, generator=gen, device="cuda") + 0.3).to(dtype)
             g = num_groups_for(shape[1], 32)
+            k = gn_stats_cluster_size(x.numel() // (shape[0] * g), dtype)
+            largest_k = max(largest_k, k)
             sums, sq = group_stats(x, g)
             sums2, sq2 = group_stats(x, g)
             torch.cuda.synchronize()
@@ -455,29 +488,39 @@ def check_gn_stats(results):
             rel = max(((sums.double() - ref_s).abs() / abs_s).max().item(),
                       ((sq.double() - ref_sq).abs() / abs_sq).max().item())
             name = str(dtype).replace("torch.", "")
-            line = (f"gn_stats {name} {tuple(shape)} g{g}: max abs err of E[x], E[x^2] "
-                    f"vs float64 {err:.3e}; of the sums relative to sum|x| {rel:.3e} "
+            line = (f"gn_stats {name} {tuple(shape)} g{g} cluster k={k}: max abs err of E[x], "
+                    f"E[x^2] vs float64 {err:.3e}; of the sums relative to sum|x| {rel:.3e} "
                     f"(bound {bound:g}); deterministic")
             if not rel <= bound:
                 fail(line)
             entry = {"shape": list(shape), "dtype": name, "max_abs_err": err,
-                     "max_rel_err": rel}
+                     "max_rel_err": rel, "cluster": k}
             if dtype == torch.bfloat16:
+                view = x.view(shape[0], g, -1)
+                # batch invariance: image 0 alone gives the bits of its slice
+                s1, q1 = group_stats(x[:1], g)
+                if not (torch.equal(s1, sums[:1]) and torch.equal(q1, sq[:1])):
+                    fail(line + "; image 0 alone differs from its slice of the batch")
                 k_ms, p_ms = timed_pair(lambda: group_stats(x, g),
                                         lambda: group_stats_reference(x, g), 20)
-                view = x.view(shape[0], g, -1)
                 lib_ms = median_ms(lambda: torch.var_mean(view, dim=-1), 20)
+                k_us = host_us(lambda: group_stats(x, g))
+                lib_us = host_us(lambda: torch.var_mean(view, dim=-1))
                 nbytes = x.numel() * x.element_size() + 2 * 4 * shape[0] * g
                 bound_ms, bound_by = roofline(3.0 * x.numel(), nbytes, "float32")
                 gbs = x.numel() * x.element_size() / k_ms / 1e6
                 entry.update(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                             bound_by=bound_by)
-                line += (f"; kernel {k_ms:.4f} ms ({gbs:.0f} GB/s), plain {p_ms:.4f} ms, "
-                         f"var_mean {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+                             bound_by=bound_by, host_us=k_us, library_host_us=lib_us)
+                line += (f"; image 0 alone equals its slice; kernel {k_ms:.4f} ms ({gbs:.0f} "
+                         f"GB/s), plain {p_ms:.4f} ms, var_mean {lib_ms:.4f} ms, bound "
+                         f"{bound_ms:.4f} ms ({bound_by}); host {k_us:.1f} us a call, "
+                         f"var_mean's {lib_us:.1f} us")
             log(line)
             results.append(entry)
             del x
             torch.cuda.empty_cache()
+    if largest_k < 2:
+        fail(f"gn_stats ran every shape with one block a run (largest cluster {largest_k})")
 
 
 def count_modules():
@@ -545,7 +588,7 @@ def check_gn_silu(results, model_shapes):
     import torch.nn.functional as F
 
     from ddpo_torch.ops import _build
-    from ddpo_torch.ops.groupnorm import group_norm_silu, group_norm_silu_reference
+    from ddpo_torch.ops.groupnorm import gn_silu_plan, group_norm_silu, group_norm_silu_reference
 
     gen = torch.Generator(device="cuda").manual_seed(8)
     odd, clamped = (2, 64, 17, 17), (2, 48, 17, 17)  # 48 channels -> group_norm, 16 groups
@@ -583,18 +626,27 @@ def check_gn_silu(results, model_shapes):
         entry = {"shape": list(shape), "dtype": name, "max_abs_err": err}
         if dtype == torch.bfloat16 and shape in model_shapes:
             g = 32
+            k, way = gn_silu_plan(shape[1] // g, shape[2] * shape[3], dtype)
+            alone = group_norm_silu(x[:1], scale, bias, use_kernel=True)
+            if not torch.equal(alone, out[:1]):
+                fail(line + "; image 0 alone differs from its slice of the batch")
             iters = 5 if x.numel() > 2**26 else 20
             k_ms, p_ms = timed_pair(
                 lambda: group_norm_silu(x, scale, bias, use_kernel=True),
                 lambda: group_norm_silu_reference(x, scale, bias), iters)
             lib_ms = median_ms(lambda: F.silu(F.group_norm(x, g, scale, bias, 1e-5)), iters)
+            k_us = host_us(lambda: group_norm_silu(x, scale, bias, use_kernel=True))
+            lib_us = host_us(lambda: F.silu(F.group_norm(x, g, scale, bias, 1e-5)))
             nbytes = 2 * x.numel() * x.element_size() + 2 * scale.numel() * scale.element_size()
             bound_ms, bound_by = roofline(8.0 * x.numel(), nbytes, "float32")
             entry.update(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                         bound_by=bound_by)
-            line += (f"; kernel {k_ms:.4f} ms ({nbytes / k_ms / 1e6:.0f} GB/s), plain "
-                     f"{p_ms:.4f} ms, F.group_norm + F.silu {lib_ms:.4f} ms, bound "
-                     f"{bound_ms:.4f} ms ({bound_by})")
+                         bound_by=bound_by, cluster=k, way=way, host_us=k_us,
+                         library_host_us=lib_us)
+            line += (f"; cluster k={k}, {way}; image 0 alone equals its slice; kernel "
+                     f"{k_ms:.4f} ms ({nbytes / k_ms / 1e6:.0f} GB/s), plain {p_ms:.4f} ms, "
+                     f"F.group_norm + F.silu {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                     f"({bound_by}); host {k_us:.1f} us a call, F.group_norm + F.silu's "
+                     f"{lib_us:.1f} us")
         log(line)
         results.append(entry)
         del again, ref
@@ -769,7 +821,7 @@ def device_breakdown(run):
     if prof is None:
         return result, f"torch.profiler did not start ({why}); not measured"
     prof.stop()
-    spans, by_family, other = [], {}, {}
+    spans, by_family, other, group_norm = [], {}, {}, {}
     for e in prof.events():
         if not str(e.device_type).endswith("CUDA"):
             continue
@@ -781,6 +833,11 @@ def device_breakdown(run):
         by_family[family] = by_family.get(family, 0.0) + (t1 - t0) / 1e3
         if family == "other":
             other[e.name[:60]] = other.get(e.name[:60], 0.0) + (t1 - t0) / 1e3
+        elif family == "GroupNorm kernels":
+            short = e.name.replace("(anonymous namespace)::", "").split("(")[0]
+            short = short.removeprefix("void ")[:60]
+            n, ms = group_norm.get(short, (0, 0.0))
+            group_norm[short] = (n + 1, ms + (t1 - t0) / 1e3)
     if not spans:
         return result, f"the profiler saw no device time (wall {wall_ms:.1f} ms); not measured"
     busy, end = 0.0, float("-inf")
@@ -793,9 +850,12 @@ def device_breakdown(run):
                       for f, ms in sorted(by_family.items(), key=lambda kv: -kv[1]))
     top_other = ", ".join(f"{n} {ms:.2f}" for n, ms in
                           sorted(other.items(), key=lambda kv: -kv[1])[:3])
+    gn_parts = ", ".join(f"{name} {n} launches {ms:.2f} ms"
+                         for name, (n, ms) in sorted(group_norm.items()))
     return result, (f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle share "
                     f"{100 * (1 - busy_ms / wall_ms):.1f}%; {len(spans)} device events; device "
-                    f"time by family: {parts}; largest 'other': {top_other or 'none'}")
+                    f"time by family: {parts}; largest 'other': {top_other or 'none'}; "
+                    f"GroupNorm kernels by name: {gn_parts or 'none'}")
 
 
 def phase_serving(unet_gn, vae_gn, unet_conv=0, vae_conv=0):
@@ -955,6 +1015,7 @@ def phase_train(init_params, unet_gn, vae_gn):
     import numpy as np
     import torch
 
+    from ddpo_torch import training
     from ddpo_torch.native import build as native_build
     from ddpo_torch.ops import _build
     from ddpo_torch.pipelines import policy_gradient
@@ -962,15 +1023,30 @@ def phase_train(init_params, unet_gn, vae_gn):
     from ddpo_torch.utils.metrics import read_metrics
 
     argv = ["--dataset", "compressed-animals", "--num_train_epochs", "1", "--seed", "0"]
-    try:
-        native_build.build()
-    except RuntimeError as e:
-        reason = next((l for l in str(e).splitlines() if "error" in l), str(e)[:200])
-        log(f"the JPEG reward's native library does not build here ({reason.strip()}): "
-            "this phase passes --filter_field mirror; the JPEG reward is held by the CPU "
-            "tests only")
-        argv += ["--filter_field", "mirror"]
     args = policy_gradient.Parser().parse_args("pg", list(argv))
+    if args.filter_field != "jpeg":
+        fail(f"compressed-animals trains on {args.filter_field!r}, not the JPEG reward")
+    # the native library first, so that the reward's time below is encoding only
+    start = time.perf_counter()
+    native_build.build()
+    log(f"JPEG reward's library: built or loaded in {time.perf_counter() - start:.2f} s, "
+        f"libjpeg linked: {native_build.linked}")
+    # the reward as policy_gradient.main builds it, timed on its batches (its thread pool
+    # overlaps it with sampling, so the epoch's phase times do not show it)
+    reward_calls = []
+    factory = training.callback_fns["jpeg"]
+
+    def timed_factory(**kwargs):
+        fn = factory(**kwargs)
+
+        def timed(images, prompts, metadata):
+            start = time.perf_counter()
+            result = fn(images, prompts, metadata)
+            reward_calls.append((len(images), time.perf_counter() - start))
+            return result
+
+        return timed
+
     n_sample = args.num_sample_batches_per_epoch
     steps = args.n_inference_steps
     n_updates = (args.sample_batch_size * n_sample // args.train_batch_size) * int(
@@ -987,12 +1063,20 @@ def phase_train(init_params, unet_gn, vae_gn):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
-    start = time.perf_counter()
-    rewards = policy_gradient.main(list(argv))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - start
+    training.callback_fns["jpeg"] = timed_factory
+    try:
+        start = time.perf_counter()
+        rewards = policy_gradient.main(list(argv))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    finally:
+        training.callback_fns["jpeg"] = factory
     counts = _build.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
+    if not reward_calls:
+        fail("the epoch never called the JPEG reward")
+    log(f"JPEG reward: libjpeg linked {native_build.linked}; "
+        + ", ".join(f"{n} images in {sec:.4f} s" for n, sec in reward_calls))
 
     localpath = "logs/" + args.savepath
     events = read_metrics(localpath)
@@ -1000,7 +1084,7 @@ def phase_train(init_params, unet_gn, vae_gn):
     train_ev = next(e for e in events if e.get("phase") == "train")
     infos = np.load(os.path.join(localpath, "train_info", "0_0_0.npy"), allow_pickle=True).item()
     saved = dict(checkpoints.last_save)
-    log(f"ddpo epoch ({args.filter_field} reward): {wall:.1f} s in all (model build "
+    log(f"ddpo epoch (JPEG reward): {wall:.1f} s in all (model build "
         f"included); rollout + decode {sample_ev['sample_time_s']:.2f} s for "
         f"{args.sample_batch_size * n_sample} samples; training {train_ev['train_time_s']:.2f} s "
         f"for {n_updates} (minibatch, timestep) updates = "

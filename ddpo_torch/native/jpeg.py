@@ -18,6 +18,19 @@ _lib = None
 _lock = threading.Lock()
 
 
+def load(path: str):
+    """ctypes handle of a built JPEG library, with ``jpeg_sizes`` bound."""
+    lib = ctypes.CDLL(path)
+    lib.jpeg_sizes.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int64),
+    ]
+    lib.jpeg_sizes.restype = ctypes.c_int
+    return lib
+
+
 def _get_lib():
     """Build (at first use) and load the library; raises if it cannot."""
     global _lib
@@ -25,15 +38,7 @@ def _get_lib():
         if _lib is None:
             from ddpo_torch.native.build import build
 
-            lib = ctypes.CDLL(build())
-            lib.jpeg_sizes.argtypes = [
-                ctypes.POINTER(ctypes.c_uint8),
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int,
-                ctypes.POINTER(ctypes.c_int64),
-            ]
-            lib.jpeg_sizes.restype = ctypes.c_int
-            _lib = lib
+            _lib = load(build())
     return _lib
 
 
@@ -49,7 +54,12 @@ def _to_uint8_batch(images: np.ndarray) -> np.ndarray:
 def jpeg_sizes(images: np.ndarray, quality: int = 95,
                n_threads: Optional[int] = None) -> np.ndarray:
     """(N, H, W, 3) images -> encoded JPEG sizes in bytes (libjpeg)."""
-    lib = _get_lib()
+    return encoded_sizes(_get_lib(), images, quality, n_threads)
+
+
+def encoded_sizes(lib, images: np.ndarray, quality: int = 95,
+                  n_threads: Optional[int] = None) -> np.ndarray:
+    """``jpeg_sizes`` through the library handle ``lib`` (from ``load``)."""
     images = _to_uint8_batch(images)
     if images.ndim != 4 or images.shape[-1] != 3:
         raise ValueError(f"images must be (N, H, W, 3), got {images.shape}")

@@ -72,23 +72,29 @@ class KernelLibrary:
         lib.ddpo_flash_bwd_dq.restype = i32
         lib.ddpo_flash_bwd_dkv.argtypes = [p] * 8 + [i32] * 6 + [p, ctypes.c_float, p]
         lib.ddpo_flash_bwd_dkv.restype = i32
-        lib.ddpo_gn_stats.argtypes = [p, p, p, p, i32, i64, i64, i32, p]
+        # x, out (2, n_runs), dtype, n_runs, run_len, stream
+        lib.ddpo_gn_stats.argtypes = [p, p, i32, i64, i64, p]
         lib.ddpo_gn_stats.restype = i32
-        # x, scale, bias, out, dtype, n_runs, num_groups, cpg, hw, eps, stream
-        lib.ddpo_gn_silu.argtypes = [p, p, p, p, i32, i64, i32, i32, i64, ctypes.c_float, p]
+        lib.ddpo_gn_cluster_size.argtypes = [i64, i32]
+        lib.ddpo_gn_cluster_size.restype = i32
+        # x, scale, bias, out, dtype, scale dtype, bias dtype, n_runs, num_groups,
+        # cpg, hw, eps, stream
+        lib.ddpo_gn_silu.argtypes = [p, p, p, p, i32, i32, i32, i64, i32, i32, i64,
+                                     ctypes.c_float, p]
         lib.ddpo_gn_silu.restype = i32
+        # cpg, hw, dtype, out cluster size, out mode
+        lib.ddpo_gn_silu_plan.argtypes = [i64, i64, i32, ctypes.POINTER(i32),
+                                          ctypes.POINTER(i32)]
+        lib.ddpo_gn_silu_plan.restype = i32
         # x, w, out, dtype, tap map, B, Cin, H, W, Cout, stream
         lib.ddpo_tap_gemm.argtypes = [p, p, p, i32, i32] + [i32] * 5 + [p]
         lib.ddpo_tap_gemm.restype = i32
         # w (OIHW), out (9 * Cin, Cout), dtype, Cout, Cin, stream
         lib.ddpo_conv_weight_kn.argtypes = [p, p, i32, i32, i32, p]
         lib.ddpo_conv_weight_kn.restype = i32
-        lib.ddpo_gn_stats_chunk.argtypes = []
-        lib.ddpo_gn_stats_chunk.restype = i32
         lib.ddpo_error_string.argtypes = [i32]
         lib.ddpo_error_string.restype = ctypes.c_char_p
         self.lib = lib
-        self.gn_chunk = int(lib.ddpo_gn_stats_chunk())
 
     def check(self, err: int, what: str) -> None:
         if err != 0:
@@ -187,14 +193,22 @@ def load_library() -> KernelLibrary:
 
 
 def stream_handle(device) -> int:
-    """The raw cudaStream_t of PyTorch's current stream on ``device``."""
+    """The raw cudaStream_t of PyTorch's current stream on ``device`` (a CUDA
+    device with its index, as a CUDA tensor's ``.device`` has), without
+    building a ``torch.cuda.Stream`` object."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+_codes_by_dtype: Dict = {}  # DTYPE_CODES keyed by the dtype objects met so far
 
 
 def dtype_code(dtype) -> int:
-    code = DTYPE_CODES.get(str(dtype))
+    code = _codes_by_dtype.get(dtype)
     if code is None:
-        raise TypeError(f"the CUDA kernels take float32 or bfloat16, not {dtype}")
+        code = DTYPE_CODES.get(str(dtype))
+        if code is None:
+            raise TypeError(f"the CUDA kernels take float32 or bfloat16, not {dtype}")
+        _codes_by_dtype[dtype] = code
     return code

@@ -9,7 +9,9 @@ they stayed in XLA. The port keeps PyTorch's NCHW layout, where each
 
 Under autograd the statistics go through ``GroupStats``, on both devices:
 its forward is ``group_stats`` and its backward the analytic one of JAX's
-``_moments_bwd``, in plain torch as JAX's is plain XLA.
+``_moments_bwd``, in plain torch as JAX's is plain XLA. Without autograd
+(no grad mode, or an x that needs no gradient) ``group_norm`` calls
+``group_stats`` itself: the same numbers.
 
 ``group_norm_silu`` follows JAX's opt-in: by default it is
 ``group_norm(silu=True)``; with ``use_kernel=True`` a CUDA tensor runs the
@@ -20,6 +22,7 @@ CPU tensor ``group_norm(silu=True)``.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional, Tuple
 
@@ -40,35 +43,57 @@ def group_stats_reference(x: torch.Tensor, g: int) -> Tuple[torch.Tensor, torch.
     return xf.sum(dim=-1), (xf * xf).sum(dim=-1)
 
 
-def group_stats(x: torch.Tensor, g: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-(batch, group) sums and sums of squares of an NCHW map, fp32.
+# the C functions, bound at the first CUDA call
+_gn_stats = None
+_gn_silu = None
 
-    CUDA tensors run the kernel; CPU tensors take the plain version.
+
+def group_stats(x: torch.Tensor, g: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(batch, group) sums and sums of squares of an NCHW map, fp32: the
+    two rows of one (2, n, g) tensor.
+
+    CUDA tensors run the kernel, one launch; CPU tensors take the plain version.
     """
+    global _gn_stats
     if x.dim() < 2 or x.shape[1] % g:
         raise ValueError(f"channels {tuple(x.shape)[1:2]} do not split into {g} groups")
-    if x.device.type == "cpu":
-        return group_stats_reference(x, g)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return torch.stack(group_stats_reference(x, g)).unbind(0)
         raise ValueError(f"no group-stats kernel for device {x.device}")
     code = _build.dtype_code(x.dtype)
     if not x.is_contiguous():
         raise ValueError("group_stats needs a contiguous NCHW map")
     n = x.shape[0]
-    n_runs = n * g
-    run_len = x.numel() // n_runs
-    kl = _build.load_library()
-    nchunks = -(-run_len // kl.gn_chunk)
-    partials = torch.empty(2 * n_runs * nchunks, dtype=torch.float32, device=x.device)
-    sums = torch.empty((n, g), dtype=torch.float32, device=x.device)
-    sq_sums = torch.empty((n, g), dtype=torch.float32, device=x.device)
-    err = kl.lib.ddpo_gn_stats(
-        x.data_ptr(), partials.data_ptr(), sums.data_ptr(), sq_sums.data_ptr(),
-        code, n_runs, run_len, nchunks, _build.stream_handle(x.device),
-    )
-    kl.check(err, "gn_stats launch")
+    out = torch.empty((2, n, g), dtype=torch.float32, device=x.device)
+    if _gn_stats is None:
+        _gn_stats = _build.load_library().lib.ddpo_gn_stats
+    err = _gn_stats(x.data_ptr(), out.data_ptr(), code, n * g, x.numel() // (n * g),
+                    _build.stream_handle(x.device))
+    if err:
+        _build.load_library().check(err, "gn_stats launch")
     _build.launches["gn_stats"] += 1
-    return sums, sq_sums
+    return out.unbind(0)
+
+
+GN_SILU_MODES = ("cached", "streamed", "scalar")  # ddpo_gn_silu_plan's mode codes
+
+
+def gn_stats_cluster_size(run_len: int, dtype) -> int:
+    """The cluster size (blocks a run) ``group_stats`` launches with on a
+    CUDA map whose (n, group) runs are ``run_len`` elements of ``dtype``."""
+    return int(_build.load_library().lib.ddpo_gn_cluster_size(run_len, _build.dtype_code(dtype)))
+
+
+def gn_silu_plan(cpg: int, hw: int, dtype) -> Tuple[int, str]:
+    """(cluster size, way through) of the fused kernel on a 16-byte-aligned
+    map of ``cpg`` channels a group and ``hw`` pixels: "cached" (one read,
+    through shared memory), "streamed" (two reads) or "scalar"."""
+    kl = _build.load_library()
+    k, mode = ctypes.c_int(), ctypes.c_int()
+    kl.check(kl.lib.ddpo_gn_silu_plan(cpg, hw, _build.dtype_code(dtype), ctypes.byref(k),
+                                      ctypes.byref(mode)), "gn_silu plan")
+    return k.value, GN_SILU_MODES[mode.value]
 
 
 class GroupStats(torch.autograd.Function):
@@ -120,7 +145,10 @@ def group_norm(
     var = E[x^2] - E[x]^2 as in the JAX package; the output has x's dtype.
     """
     g = num_groups_for(x.shape[1], num_groups)
-    sums, sq_sums = GroupStats.apply(x, g)
+    if torch.is_grad_enabled() and x.requires_grad:
+        sums, sq_sums = GroupStats.apply(x, g)
+    else:  # the same numbers without autograd's bookkeeping (the sampler's path)
+        sums, sq_sums = group_stats(x, g)
     return _normalize(x, sums, sq_sums, scale, bias, g, eps, silu)
 
 
@@ -135,8 +163,10 @@ def group_norm_silu_reference(x, scale, bias, num_groups: int = 32, eps: float =
 
 def gn_silu_kernel(x, scale, bias, num_groups: int, eps: float) -> torch.Tensor:
     """Launch csrc/gn_silu.cu on a contiguous CUDA map whose channels split
-    into ``num_groups``; the output has x's dtype. No backward: JAX's
+    into ``num_groups``; the output has x's dtype. Scale and bias, on x's
+    device in fp32 or bf16, are read in their own dtype. No backward: JAX's
     kernel has none either."""
+    global _gn_silu
     if torch.is_grad_enabled() and x.requires_grad:
         raise NotImplementedError("the fused GN+SiLU kernel is forward only, as in JAX")
     code = _build.dtype_code(x.dtype)
@@ -146,16 +176,21 @@ def gn_silu_kernel(x, scale, bias, num_groups: int, eps: float) -> torch.Tensor:
     if c % num_groups or scale.shape != (c,) or bias.shape != (c,):
         raise ValueError(f"gn_silu: {c} channels, {num_groups} groups, scale "
                          f"{tuple(scale.shape)}, bias {tuple(bias.shape)}")
-    scale32 = scale.detach().to(x.device, torch.float32).contiguous()
-    bias32 = bias.detach().to(x.device, torch.float32).contiguous()
+    if scale.device != x.device or bias.device != x.device:
+        raise ValueError(f"gn_silu: scale on {scale.device} and bias on {bias.device}, "
+                         f"x on {x.device}")
+    scale, bias = scale.contiguous(), bias.contiguous()
     out = torch.empty_like(x)
-    kl = _build.load_library()
-    err = kl.lib.ddpo_gn_silu(
-        x.data_ptr(), scale32.data_ptr(), bias32.data_ptr(), out.data_ptr(), code,
-        n * num_groups, num_groups, c // num_groups, x.numel() // (n * c), float(eps),
+    if _gn_silu is None:
+        _gn_silu = _build.load_library().lib.ddpo_gn_silu
+    err = _gn_silu(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), code,
+        _build.dtype_code(scale.dtype), _build.dtype_code(bias.dtype), n * num_groups,
+        num_groups, c // num_groups, x.numel() // (n * c), float(eps),
         _build.stream_handle(x.device),
     )
-    kl.check(err, "gn_silu launch")
+    if err:
+        _build.load_library().check(err, "gn_silu launch")
     _build.launches["gn_silu"] += 1
     return out
 

@@ -35,6 +35,8 @@ from ddpo_torch.ops.conv import (
     weight_kn,
 )
 from ddpo_torch.ops.groupnorm import (
+    gn_silu_plan,
+    gn_stats_cluster_size,
     group_norm,
     group_norm_silu,
     group_norm_silu_reference,
@@ -407,3 +409,77 @@ def test_flash_backward_bf16_refuses_rather_than_falls_back(cuda):
     with pytest.raises(ValueError):
         flash_attention_bwd(q, q, q, q, lse, q)
     assert _build.launch_counts() == before
+
+
+def _misaligned(x):
+    """x's values in a contiguous tensor whose data starts one element past a
+    16-byte boundary: the GroupNorm kernels' scalar-load path."""
+    y = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape)
+    y.copy_(x)
+    assert y.data_ptr() % 16 and y.is_contiguous()
+    return y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,k", [
+    ((8, 1280, 8, 8), torch.bfloat16, 1), ((8, 320, 64, 64), torch.bfloat16, 1),
+    ((2, 640, 64, 64), torch.bfloat16, 2), ((2, 128, 512, 512), torch.bfloat16, 2),
+    ((8, 1280, 8, 8), torch.float32, 1), ((8, 320, 64, 64), torch.float32, 2),
+    ((2, 128, 512, 512), torch.float32, 2)])
+def test_gn_stats_cluster_sizes_bit_equal(cuda, shape, dtype, k):
+    """One launch a call with k blocks a run (k = 1, from one to three
+    chunks; k = 2, the largest, from four chunks to the VAE's 1M elements);
+    the sums and sums of squares are the two rows of one tensor; two calls,
+    image 0 alone against its slice, and an unaligned copy of the map
+    (scalar loads, the same element -> thread map) give the same bits; error
+    relative to sum|x| (sum x^2) at most 1e-5 against float64."""
+    g = 32
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = (torch.randn(shape, generator=gen, device=cuda) + 0.3).to(dtype)
+    assert gn_stats_cluster_size(x.numel() // (shape[0] * g), dtype) == k
+    before = _build.launch_counts()["gn_stats"]
+    sums, sq = group_stats(x, g)
+    assert _build.launch_counts()["gn_stats"] == before + 1
+    assert sums.shape == sq.shape == (shape[0], g)
+    assert sq.data_ptr() == sums.data_ptr() + 4 * sums.numel()
+    for s2, q2 in (group_stats(x, g), group_stats(_misaligned(x), g)):
+        assert torch.equal(sums, s2) and torch.equal(sq, q2)
+    s1, q1 = group_stats(x[:1], g)
+    assert torch.equal(s1, sums[:1]) and torch.equal(q1, sq[:1])
+    x64 = x.double().reshape(shape[0], g, -1)
+    assert ((sums.double() - x64.sum(-1)).abs() / x64.abs().sum(-1)).max().item() <= 1e-5
+    assert ((sq.double() - (x64 * x64).sum(-1)).abs() / (x64 * x64).sum(-1)).max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,affine,plans", [
+    ((8, 320, 64, 64), torch.bfloat16, torch.bfloat16, [(1, "cached")]),
+    ((8, 320, 64, 64), torch.float32, torch.float32, [(2, "cached")]),
+    ((2, 960, 64, 64), torch.bfloat16, torch.float32, [(4, "cached")]),
+    ((1, 512, 128, 128), torch.bfloat16, torch.bfloat16, [(8, "cached")]),
+    ((1, 256, 256, 256), torch.bfloat16, torch.bfloat16, [(16, "cached"), (8, "streamed")]),
+    ((1, 128, 512, 512), torch.bfloat16, torch.bfloat16, [(8, "streamed")]),
+    ((2, 64, 17, 17), torch.bfloat16, torch.bfloat16, [(1, "scalar")])])
+def test_gn_silu_cluster_plans_bit_equal(cuda, shape, dtype, affine, plans):
+    """Each way through the fused kernel (shared-memory cache with k = 1, 2,
+    4, 8 and 16 where the card runs 16-block clusters, two reads with k = 8,
+    scalar loads) against the fp32 plain version, scale and bias read in
+    their own dtype; two calls, and image 0 alone against its slice, give
+    the same bits; so do two calls on an unaligned copy of the map."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = (torch.randn(shape, generator=gen, device=cuda) + 0.3).to(dtype)
+    scale = torch.randn(shape[1], generator=gen, device=cuda).to(affine)
+    bias = torch.randn(shape[1], generator=gen, device=cuda).to(affine)
+    hw = shape[2] * shape[3]
+    assert gn_silu_plan(shape[1] // 32, hw, dtype) in plans
+    before = _build.launch_counts()["gn_silu"]
+    out = group_norm_silu(x, scale, bias, use_kernel=True)
+    assert _build.launch_counts()["gn_silu"] == before + 1
+    ref = group_norm_silu_reference(x.float(), scale.float(), bias.float())
+    assert out.dtype == dtype and (out.float() - ref).abs().max().item() <= _bound(dtype, ref)
+    assert torch.equal(out, group_norm_silu(x, scale, bias, use_kernel=True))
+    assert torch.equal(group_norm_silu(x[:1], scale, bias, use_kernel=True), out[:1])
+    odd = _misaligned(x)
+    odd_out = group_norm_silu(odd, scale, bias, use_kernel=True)
+    assert (odd_out.float() - ref).abs().max().item() <= _bound(dtype, ref)
+    assert torch.equal(odd_out, group_norm_silu(odd, scale, bias, use_kernel=True))
