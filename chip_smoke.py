@@ -2,7 +2,9 @@
 """Drive the PyTorch port (ddpo_torch) on one NVIDIA GPU, end to end.
 
 Phases, in order; any failure exits non-zero:
-  1. device: the card's name and power limit, torch and CUDA versions.
+  1. device: the card's name and power limit, torch and CUDA versions; the
+     port's device setup (utils/serialization.py resolve_device) must have
+     turned TF32 off.
   2. build: nvcc builds ddpo_torch/csrc/*.cu for sm_90a; cuobjdump -sass on
      the library says which kernel functions hold tensor-core (HMMA)
      instructions: every instantiation of the bf16 flash forward, the bf16
@@ -32,6 +34,16 @@ Phases, in order; any failure exits non-zero:
      backward must launch the expected kernels. The update runs under
      torch.profiler (CUDA activity only): device time by kernel family and
      the device's idle share over the update's wall time.
+  6b. batch invariance (ddpo_torch/bench/batch_invariance.py): a batch-8
+     rollout (the DDPO sampler's 2B = 16), then each leaf module of the bf16
+     UNet called again on the rows of the trainer's first minibatch
+     (2B = 4, [uncond; cond]) and its bits compared, by family (nn.Linear by
+     M, 3x3, strided and 1x1 convs, LayerNorm, plain and flash attention,
+     GroupNorm); once with the ops as they are (naming the families that
+     differ) and once inside ops.invariance.batch_invariant(), the DDPO
+     driver's setting, where none may differ; the first minibatch's
+     recompute at 2B = 4 against the 2B = 16 rollout must give |dlogp| <=
+     1e-5 and clipfrac 0; the times of both settings.
   3c. gn_silu: the fused GroupNorm+SiLU kernel, through
      group_norm_silu(use_kernel=True), at every GN+SiLU input shape of the
      UNet (2B = 8) and the VAE decoder (batch 4), bf16 and some fp32, and a
@@ -56,14 +68,27 @@ Phases, in order; any failure exits non-zero:
      (the native library built against the libjpeg the build finds, which
      is logged, with the reward's seconds for the epoch's images), a
      full-state checkpoint, and a --resume call that trains no further
-     epoch; checks the exact launch counts of all four kernels.
+     epoch; checks the exact launch counts of all five kernels (conv3x3:
+     the sampler and trainer run inside batch_invariant()), and that the
+     first minibatch, recomputed at the trainer's 2B = 4 against the
+     sampler's 2B = 16, has |dlogp| <= 1e-5 and clipfrac 0.
+  9. LoRA: ddpo_torch.pipelines.policy_gradient.main with --dataset
+     compressed-animals-lora (r 8, lr 1e-3, adamw), one epoch as in 7:
+     1,594,368 trainable parameters in 256 adapter tensors, an adapter-only
+     checkpoint (its bytes printed), the seconds per update beside phase
+     7's and the peak memory, the launch counts; the on-policy recompute
+     through the LoRA trainer's apply with the epoch's adapters at a
+     rollout's own batch (|dlogp| <= 1e-5, clipfrac 0, phase 6's launches);
+     the exported unet_0.pkl loaded at bf16 equal to the merge bit for bit;
+     generate --iteration 1 on it, with the serving launch counts.
   8. the conv path, with ops.conv.set_conv_kernel_enabled(True) (reset
      after): (a) one UNet forward at 2B = 8 with the switch on against off,
      and the median time of a UNet step each way;
      (b) phase 4 again: conv3x3 launches 49 per UNet forward x 50 + 31 in
      the VAE decode; (c) phases 5 and 6 again: the rollout, and the
      on-policy update, which launches conv3x3 twice per module (forward and
-     remat recompute; the backward is the library conv's).
+     remat recompute; the backward is the library conv's); (d) phase 6b
+     with the switch on.
 
 The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}. With no CUDA device, or run
@@ -183,10 +208,14 @@ def phase_device():
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}, "
         f"count {torch.cuda.device_count()}")
-    # numbers are compared below: no TF32 in fp32 matmuls or convolutions
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    log("TF32 off for matmul and cuDNN")
+    # numbers are compared below: the port's device setup keeps fp32
+    # matmuls and convolutions off TF32
+    from ddpo_torch.utils.serialization import resolve_device
+
+    resolve_device("cuda")
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("the port's device setup left TF32 on")
+    log("TF32 off for matmul and cuDNN (resolve_device)")
     return smi
 
 
@@ -1010,7 +1039,43 @@ def phase_onpolicy(rollout, unet_gn, unet_conv=0):
     return {k: p.detach().cpu() for k, p in params.items()}, counts
 
 
-def phase_train(init_params, unet_gn, vae_gn):
+def phase_batch_invariance(models, conv_kernel=False):
+    """6b (and 8d with the conv switch on): which module families give an
+    image other bits at the trainer's 2B = 4 than at the sampler's 2B = 16,
+    with the ops as they are ("library") and inside batch_invariant()
+    ("port"), then the first minibatch's recompute at 2B = 4 against a
+    2B = 16 rollout under the port's setting, and what the setting costs."""
+    from ddpo_torch.bench import batch_invariance as bi
+    from ddpo_torch.ops.conv import set_conv_kernel_enabled
+
+    tag = "8d (conv switch on)" if conv_kernel else "6b"
+    results = {}
+    set_conv_kernel_enabled(True if conv_kernel else None)
+    try:
+        for setting in ("port", "library"):
+            results[setting] = bi.run(models, setting)
+    finally:
+        set_conv_kernel_enabled(None)
+    for setting, result in results.items():
+        differ = {k: v for k, v in result["table"].items() if v["differ"]}
+        log(f"{tag} {setting}: module families whose bits differ at 2B = 4 against 2B = 16: "
+            + (", ".join(f"{k} ({v['differ']} of {v['modules']}, max|d| {v['max_abs']:.3e})"
+                         for k, v in differ.items()) or "none")
+            + f"; first minibatch at 2B = 4: approx_kl {result['approx_kl']:.3e}, clipfrac "
+            f"{result['clipfrac']:.3f}, max|dlogp| {result['max_dlogp']:.3e}; rollout of 8 "
+            f"{result['rollout_s']:.2f} s, UNet forward at 2B = 16 "
+            f"{result['unet_fwd_ms_2B16']:.2f} ms, forward + backward at 2B = 4 "
+            f"{result['unet_fwd_bwd_ms_2B4']:.2f} ms")
+    log(f"{tag} module table ('port'):\n{bi.format_table(results['port']['table'])}")
+    port = results["port"]
+    if any(v["differ"] for v in port["table"].values()):
+        fail(f"{tag}: an image's bits still depend on the batch under the port's setting")
+    if not (port["max_dlogp"] <= 1e-5 and port["clipfrac"] == 0.0):
+        fail(f"{tag}: the first minibatch's recompute is off-policy at the trainer's shapes")
+    return results
+
+
+def phase_train(init_params, unet_gn, vae_gn, unet_conv):
     """One DDPO epoch at the compressed-animals defaults, then a resume."""
     import numpy as np
     import torch
@@ -1053,11 +1118,14 @@ def phase_train(init_params, unet_gn, vae_gn):
         steps * args.train_timestep_ratio)
     want = expected(
         # sampler: one 2B UNet call per step; trainer: forward + remat
-        # recompute + backward per (minibatch, timestep)
+        # recompute + backward per (minibatch, timestep); both inside
+        # batch_invariant(), where the UNet's 3x3 convs take the tap-GEMM
+        # (forward and remat; the backward is the library conv's)
         flash_fwd=FLASH_PER_UNET_FORWARD * (steps * n_sample + 2 * n_updates),
         flash_bwd_dq=FLASH_PER_UNET_FORWARD * n_updates,
         flash_bwd_dkv=FLASH_PER_UNET_FORWARD * n_updates,
         gn_stats=unet_gn * (steps * n_sample + 2 * n_updates) + vae_gn * n_sample,
+        conv3x3=unet_conv * (steps * n_sample + 2 * n_updates),
     )
 
     torch.cuda.empty_cache()
@@ -1089,9 +1157,17 @@ def phase_train(init_params, unet_gn, vae_gn):
         f"{args.sample_batch_size * n_sample} samples; training {train_ev['train_time_s']:.2f} s "
         f"for {n_updates} (minibatch, timestep) updates = "
         f"{train_ev['train_time_s'] / n_updates:.4f} s each; max_memory_allocated {peak:.2f} GiB")
+    # the first minibatch is on-policy: sum of dlogp^2 over its B samples and
+    # T timesteps = 2 B T approx_kl (the mean over T) bounds the largest |dlogp|
+    first_dlogp = (2.0 * args.train_batch_size * int(steps * args.train_timestep_ratio)
+                   * infos["approx_kl"][0]) ** 0.5
     log(f"ddpo epoch: rewards {rewards}; loss {train_ev['loss']:.4e}, approx_kl "
         f"{train_ev['approx_kl']:.3e}, clipfrac {train_ev['clipfrac']:.3f} (epoch means); first "
-        f"minibatch approx_kl {infos['approx_kl'][0]:.3e}, clipfrac {infos['clipfrac'][0]:.3f}")
+        f"minibatch (2B = {2 * args.train_batch_size} against the sampler's "
+        f"2B = {2 * args.sample_batch_size}) approx_kl {infos['approx_kl'][0]:.3e}, clipfrac "
+        f"{infos['clipfrac'][0]:.3f}, max|dlogp| <= {first_dlogp:.3e} (bound 1e-5)")
+    if not (first_dlogp <= 1e-5 and infos["clipfrac"][0] == 0.0):
+        fail("the first minibatch's recompute at the trainer's shapes is off-policy")
     log(f"checkpoint: {saved.get('bytes', 0) / 1e9:.3f} GB, host copy {saved.get('copy_s', 0):.2f} s, "
         f"write {saved.get('write_s', 0):.2f} s, at {saved.get('path')}")
     numbers = [*rewards, train_ev["loss"], train_ev["approx_kl"], train_ev["clipfrac"],
@@ -1120,7 +1196,164 @@ def phase_train(init_params, unet_gn, vae_gn):
     log(f"resume: rewards {resumed}, launches {counts}")
     if resumed != rewards or any(counts.values()):
         fail("the resumed run did not restore the epoch, or trained again")
-    return want
+    return want, train_ev["train_time_s"] / n_updates
+
+
+def phase_lora(unet_gn, vae_gn, unet_conv, full_update_s):
+    """9: one LoRA epoch of --dataset compressed-animals-lora at SD-1.4 width,
+    the on-policy recompute through the LoRA trainer's apply, then generate
+    --iteration 1 on the merged UNet the run exported."""
+    import numpy as np
+    import torch
+
+    from ddpo_torch.models.lora import merge_lora, n_lora_params, target_paths
+    from ddpo_torch.models.tokenizer import make_uncond_ids
+    from ddpo_torch.ops import _build
+    from ddpo_torch.pipelines import generate, policy_gradient
+    from ddpo_torch.sampling import SamplerConfig, sample_trajectories
+    from ddpo_torch.training import make_prompts
+    from ddpo_torch.training.policy_gradient import ppo_loss
+    from ddpo_torch.utils import checkpoints
+    from ddpo_torch.utils.metrics import read_metrics
+    from ddpo_torch.utils.serialization import load_stable_diffusion, load_unet
+
+    argv = ["--dataset", "compressed-animals-lora", "--num_train_epochs", "1", "--seed", "0"]
+    args = policy_gradient.Parser().parse_args("pg", list(argv))
+    if (args.lora_rank, args.learning_rate, args.optimizer) != (8, 1e-3, "adamw"):
+        fail(f"compressed-animals-lora resolves to r {args.lora_rank}, lr "
+             f"{args.learning_rate}, {args.optimizer}")
+    steps, n_sample = args.n_inference_steps, args.num_sample_batches_per_epoch
+    n_updates = (args.sample_batch_size * n_sample // args.train_batch_size) * int(
+        steps * args.train_timestep_ratio)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    start = time.perf_counter()
+    policy_gradient.main(list(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    counts = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = expected(
+        flash_fwd=FLASH_PER_UNET_FORWARD * (steps * n_sample + 2 * n_updates),
+        flash_bwd_dq=FLASH_PER_UNET_FORWARD * n_updates,
+        flash_bwd_dkv=FLASH_PER_UNET_FORWARD * n_updates,
+        gn_stats=unet_gn * (steps * n_sample + 2 * n_updates) + vae_gn * n_sample,
+        conv3x3=unet_conv * (steps * n_sample + 2 * n_updates),
+    )
+    localpath = os.path.abspath("logs/" + args.savepath)
+    train_ev = next(e for e in read_metrics(localpath) if e.get("phase") == "train")
+    infos = np.load(os.path.join(localpath, "train_info", "0_0_0.npy"), allow_pickle=True).item()
+    saved = dict(checkpoints.last_save)
+    restored, _ = checkpoints.restore_train_state(args.savepath)
+    adapters = {k: v.cuda() for k, v in restored["state"]["params"].items()}
+    n_trainable = n_lora_params(adapters)
+    first_dlogp = (2.0 * args.train_batch_size * int(steps * args.train_timestep_ratio)
+                   * infos["approx_kl"][0]) ** 0.5
+    log(f"lora epoch (r {args.lora_rank}, lr {args.learning_rate:g}, {args.optimizer}, all "
+        f"{steps} timesteps): {wall:.1f} s in all (model build included); {n_trainable} "
+        f"trainable in {len(adapters)} tensors (expected 1594368 in 256); training "
+        f"{train_ev['train_time_s']:.2f} s for {n_updates} updates = "
+        f"{train_ev['train_time_s'] / n_updates:.4f} s each (full finetune, phase 7: "
+        f"{full_update_s:.4f}); max_memory_allocated {peak:.2f} GiB; checkpoint "
+        f"{saved.get('bytes', 0)} bytes ({saved.get('bytes', 0) / 1e6:.2f} MB), host copy "
+        f"{saved.get('copy_s', 0):.3f} s, write {saved.get('write_s', 0):.3f} s; first minibatch "
+        f"approx_kl {infos['approx_kl'][0]:.3e}, clipfrac {infos['clipfrac'][0]:.3f}, "
+        f"max|dlogp| <= {first_dlogp:.3e}")
+    log(f"lora launches {counts}, expected {want}")
+    if n_trainable != 1594368 or len(adapters) != 256:
+        fail("the LoRA run does not train 1,594,368 parameters in 256 adapter tensors")
+    if any(not k.endswith((".a", ".b")) for k in adapters):
+        fail("the LoRA checkpoint holds more than the adapters")
+    if not (first_dlogp <= 1e-5 and infos["clipfrac"][0] == 0.0):
+        fail("the LoRA run's first minibatch is off-policy")
+    if counts != want:
+        fail(f"kernel launches {counts} != expected {want}")
+    del restored
+
+    # the on-policy recompute through the LoRA trainer's apply, at the
+    # rollout's own shape, with the trained adapters
+    models = load_stable_diffusion(model_preset="sd14", device="cuda", dtype=torch.bfloat16,
+                                   seed=0)
+    base = dict(models.unet.named_parameters())
+    own = [path + ".weight" for path in target_paths(base)]
+    sampler = policy_gradient.sampler_unet(models.unet, torch.bfloat16, own)
+    with torch.no_grad():
+        merged = merge_lora(base, adapters)
+        policy_gradient.refresh_sampler(sampler, merged)
+    batch = 4
+    prompts, _, _ = make_prompts("imagenet_animals", batch)
+    with torch.no_grad():
+        embeds = models.text_encoder(torch.as_tensor(models.tokenizer(prompts), device="cuda"))
+        uncond = models.text_encoder(
+            torch.as_tensor(make_uncond_ids(models.tokenizer, batch), device="cuda"))
+    config = SamplerConfig(num_inference_steps=steps, guidance_scale=5.0, eta=1.0)
+    sched = models.scheduler.set_timesteps(models.scheduler.create_state("cuda"), steps)
+    traj = sample_trajectories(sampler, models.scheduler, models.scheduler.create_state("cuda"),
+                               embeds, uncond, config,
+                               generator=torch.Generator(device="cuda").manual_seed(0))
+    params = {k: v.clone().requires_grad_(True) for k, v in adapters.items()}
+    apply = policy_gradient.make_train_apply(models.unet, torch.bfloat16, remat=True, base=base)
+    data = {
+        "latents": traj["latents"][:, 0], "next_latents": traj["next_latents"][:, 0],
+        "ts": traj["ts"][:, 0], "log_probs": traj["log_probs"][:, 0],
+        "advantages": torch.linspace(-1.0, 1.0, batch, device="cuda"),
+        "prompt_embeds": embeds, "uncond_embeds": uncond,
+    }
+    _build.reset_launch_counts()
+    loss, info = ppo_loss(params, apply, data, models.scheduler, sched, True, 5.0, 1.0, 2e-4,
+                          cfg_concat=True)
+    loss.backward()
+    counts = _build.launch_counts()
+    max_dlogp = (2.0 * batch * info["approx_kl"].item()) ** 0.5
+    finite = all(p.grad is not None and bool(p.grad.isfinite().all()) for p in params.values())
+    want = expected(flash_fwd=2 * FLASH_PER_UNET_FORWARD, flash_bwd_dq=FLASH_PER_UNET_FORWARD,
+                    flash_bwd_dkv=FLASH_PER_UNET_FORWARD, gn_stats=2 * unet_gn)
+    log(f"lora on-policy (the LoRA trainer's apply at the rollout's batch {batch}, 2B = "
+        f"{2 * batch}, merged adapters of the epoch): max|dlogp| <= {max_dlogp:.3e} (bound "
+        f"1e-5), clipfrac {info['clipfrac'].item()}; every adapter got a finite gradient: "
+        f"{finite}; launches {counts}, expected {want} (phase 6's)")
+    if not (max_dlogp <= 1e-5 and info["clipfrac"].item() == 0.0 and finite):
+        fail("the LoRA trainer's recompute is off-policy or its gradient is not finite")
+    if counts != want:
+        fail(f"kernel launches {counts} != expected {want}")
+    del traj, params, loss, sampler
+    torch.cuda.empty_cache()
+
+    # serve the export
+    export = os.path.join(localpath, f"unet_{args.num_train_epochs - 1}.pkl")
+    log(f"lora export: {export}, {os.path.getsize(export)} bytes")
+    loaded = load_unet(localpath, epoch=0, device="cuda", dtype=torch.bfloat16, seed=0)
+    loaded_params = dict(loaded.unet.named_parameters())
+    same = sum(torch.equal(loaded_params[k], merged[k]) for k in own)
+    rest = sum(torch.equal(loaded_params[k], base[k]) for k in base if k not in own)
+    changed = sum(not torch.equal(merged[k], base[k]) for k in own)
+    log(f"lora export loaded at bf16: {same} of {len(own)} targeted weights equal the merge "
+        f"bitwise ({changed} differ from the base), {rest} of {len(base) - len(own)} others "
+        f"equal the base")
+    if same != len(own) or rest != len(base) - len(own) or changed == 0:
+        fail("the exported UNet does not load as the merged one")
+    del models, loaded, base, merged, adapters
+    torch.cuda.empty_cache()
+    n_images = 4
+    _build.reset_launch_counts()
+    result = generate.main([
+        "--dataset", "compressed-animals", "--n_samples", str(n_images),
+        "--n_samples_per_device", str(n_images), "--seed", "0", "--iteration", "1",
+        "--loadpath", localpath, "--load_epoch", "0",
+    ])
+    counts = _build.launch_counts()
+    want = expected(flash_fwd=FLASH_PER_UNET_FORWARD * steps, gn_stats=unet_gn * steps + vae_gn)
+    ips = [e["images_per_sec"] for e in read_metrics(result.outdir)
+           if e.get("phase") == "generate"][-1:]
+    images = result.images
+    log(f"generate --iteration 1: {images.shape} images, images/s {ips}; launches {counts}, "
+        f"expected {want}")
+    if images.shape != (n_images, 512, 512, 3) or not np.isfinite(images).all():
+        fail("generate on the export made no finite 512 px images")
+    if counts != want:
+        fail(f"kernel launches {counts} != expected {want}")
+    shutil.rmtree(localpath, ignore_errors=True)  # the 3.4 GB export
 
 
 def phase_conv_path(unet_gn, vae_gn, unet_conv, vae_conv):
@@ -1166,6 +1399,8 @@ def phase_conv_path(unet_gn, vae_gn, unet_conv, vae_conv):
         # (c) rollout and the on-policy update
         rollout = phase_rollout()
         _, update_counts = phase_onpolicy(rollout, unet_gn, unet_conv)
+        # (d) 6b with the switch on
+        phase_batch_invariance(rollout[0], conv_kernel=True)
         del rollout
         torch.cuda.empty_cache()
     finally:
@@ -1201,8 +1436,10 @@ def main() -> None:
     phase_serving(unet_gn, vae_gn)
     rollout = phase_rollout()
     init_params, _ = phase_onpolicy(rollout, unet_gn)
+    phase_batch_invariance(rollout[0])
     del rollout
-    counts = phase_train(init_params, unet_gn, vae_gn)
+    counts, full_update_s = phase_train(init_params, unet_gn, vae_gn, unet_conv)
+    phase_lora(unet_gn, vae_gn, unet_conv, full_update_s)
     conv_counts, _ = phase_conv_path(unet_gn, vae_gn, unet_conv, vae_conv)
     shutil.rmtree(bucket, ignore_errors=True)
 

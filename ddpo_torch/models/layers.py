@@ -20,7 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ddpo_torch.ops.attention import attention
-from ddpo_torch.ops.conv import conv3x3
+from ddpo_torch.ops.conv import conv3x3, library_conv
 from ddpo_torch.ops.groupnorm import group_norm
 
 
@@ -219,12 +219,22 @@ class Transformer2D(nn.Module):
         return self.proj_out(x) + residual
 
 
+class StridedConv3x3(nn.Conv2d):
+    """3x3 stride-2 conv, padding 1, through ops/conv.py's library_conv."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, channels, 3, stride=2, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return library_conv(x, self.weight, self.bias, stride=2, padding=1)
+
+
 class Downsample2D(nn.Module):
     """3x3 stride-2 conv with symmetric padding 1 (the UNet variant)."""
 
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+        self.conv = StridedConv3x3(channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x)

@@ -22,7 +22,9 @@ CUDA cores, where the fp32 bounds hold.
 
 Under autograd the gate goes through ``FlashAttention``, whose backward
 follows JAX's ``_use_pallas_bwd``: the backward kernels for bf16, autograd
-through ``attention_reference`` for fp32.
+through ``attention_reference`` for fp32. Inside
+``invariance.batch_invariant()`` the plain version runs in pieces of
+``invariance.ATTENTION_PIECE`` samples on the card.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ddpo_torch.ops import _build
+from ddpo_torch.ops import _build, invariance
 
 
 def attention_reference(
@@ -242,6 +244,10 @@ def attention(
         and q.shape[-1] <= 256
     )
     if not use_flash:
+        if q.is_cuda and invariance.enabled():
+            return invariance.in_pieces(
+                lambda *qkv: attention_reference(*qkv, scale), [q, k, v],
+                invariance.ATTENTION_PIECE)
         return attention_reference(q, k, v, scale)
     if scale is None:
         scale = q.shape[-1] ** -0.5

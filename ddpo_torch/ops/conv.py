@@ -18,6 +18,17 @@ differentiates its XLA conv.
 probes of ddpo_torch/bench/conv_probe.py; ``weight_kn`` lays the OIHW weight
 out as the kernel's (9 * Cin, Cout) operand, on the card with a transpose
 kernel of its own.
+
+``library_conv`` is the library branch of every 3x3 conv of the models,
+stride 1 and 2. cuDNN gives an image other bits in another batch: on the
+H100, 38 of the UNet's 49 stride-1 3x3 convs and one of its 3 stride-2 ones
+differ between N = 16 (the DDPO sampler's 2B) and N = 4 (the trainer's),
+and at one N, 22 of them with the image's position in the batch
+(ddpo_torch/bench/batch_invariance.py, ``--variants``). So inside
+``invariance.batch_invariant()`` a stride-1 conv on the card takes the
+tap-GEMM kernel, which computes each image alone, and ``library_conv``'s
+forward makes one cuDNN call an image (its backward stays one call over the
+batch, as ``Conv3x3Direct``'s).
 """
 
 from __future__ import annotations
@@ -27,7 +38,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ddpo_torch.ops import _build
+from ddpo_torch.ops import _build, invariance
 
 # offsets of the 9 taps in csrc/conv3x3.cu: (dy - 1, dx - 1), (dy - 1, 0), (0, 0)
 TAP_MAPS = {"shift3x3": 0, "rows": 1, "none": 2}
@@ -124,6 +135,16 @@ def conv3x3_direct(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return tap_gemm(x.contiguous(), weight_kn(weight), "shift3x3", "conv3x3")
 
 
+def _library_grads(ctx, x, weight, g, stride: int, padding: int):
+    """The library conv's input and weight gradients, where asked for."""
+    gx = gw = None
+    if ctx.needs_input_grad[0]:
+        gx = torch.nn.grad.conv2d_input(x.shape, weight, g, stride=stride, padding=padding)
+    if ctx.needs_input_grad[1]:
+        gw = torch.nn.grad.conv2d_weight(x, weight.shape, g, stride=stride, padding=padding)
+    return gx, gw
+
+
 class Conv3x3Direct(torch.autograd.Function):
     """``conv3x3_direct`` under autograd (JAX's ``_conv3x3_pallas_op``): the
     backward is the library conv's input and weight gradients."""
@@ -137,20 +158,46 @@ class Conv3x3Direct(torch.autograd.Function):
     def backward(ctx, g):
         # read once: under a non-reentrant checkpoint a second read raises
         x, weight = ctx.saved_tensors
-        gx = gw = None
-        if ctx.needs_input_grad[0]:
-            gx = torch.nn.grad.conv2d_input(x.shape, weight, g, padding=1)
-        if ctx.needs_input_grad[1]:
-            gw = torch.nn.grad.conv2d_weight(x, weight.shape, g, padding=1)
-        return gx, gw
+        return _library_grads(ctx, x, weight, g, 1, 1)
+
+
+def library_conv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                 stride: int = 1, padding: int = 1) -> torch.Tensor:
+    """``F.conv2d``; inside ``batch_invariant()`` on the card its forward
+    makes one cuDNN call an image."""
+    if x.is_cuda and invariance.enabled() and x.shape[0] > 1:
+        return ConvPerImage.apply(x, weight, bias, stride, padding)
+    return F.conv2d(x, weight, bias, stride=stride, padding=padding)
+
+
+class ConvPerImage(torch.autograd.Function):
+    """``F.conv2d`` one image a call; the backward is the library conv's
+    gradients over the whole batch, one call each."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, padding):
+        ctx.save_for_backward(x, weight)
+        ctx.conv = (stride, padding, bias is not None)
+        return invariance.in_pieces(
+            lambda part: F.conv2d(part, weight, bias, stride=stride, padding=padding), [x], 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors  # read once, as in Conv3x3Direct
+        stride, padding, has_bias = ctx.conv
+        gx, gw = _library_grads(ctx, x, weight, g, stride, padding)
+        gb = g.sum((0, 2, 3)) if has_bias and ctx.needs_input_grad[2] else None
+        return gx, gw, gb, None, None
 
 
 def conv3x3(
     x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
     """x (N, Cin, H, W), weight (Cout, Cin, 3, 3) -> (N, Cout, H, W)."""
-    if not _CONV_OVERRIDE:
-        return F.conv2d(x, weight, bias, stride=1, padding=1)
+    use_kernel = _CONV_OVERRIDE or (
+        _CONV_OVERRIDE is None and x.is_cuda and invariance.enabled())
+    if not use_kernel:
+        return library_conv(x, weight, bias)
     out = Conv3x3Direct.apply(x, weight.to(x.dtype))
     if bias is not None:
         out = out + bias.to(out.dtype)[:, None, None]

@@ -8,8 +8,11 @@ ddpo_torch/csrc) and raises at once when there is none, unless
 ``--device cpu`` asks for the CPU. With ``ops.conv.set_conv_kernel_enabled(True)``
 every 3x3 conv of the UNet and the VAE decoder runs the direct kernel too.
 
-``--scheduler dpm++``, ``--quant int8`` and loading a finetuned UNet
-(``--iteration`` > 0) are not ported yet and raise.
+``--iteration`` > 0 serves a finetuned UNet: ``load_unet`` overlays
+``unet_{load_epoch}.pkl`` from ``--loadpath`` (the Flax-layout export of
+either package, e.g. the merged UNet a LoRA run of
+pipelines/policy_gradient.py writes) on the stack built from ``--seed``.
+``--scheduler dpm++`` and ``--quant int8`` are not ported yet and raise.
 
 Run: python -m ddpo_torch.pipelines.generate --dataset compressed-animals \
          --prompts "['a dog', 'a cheetah']" --n_samples 8
@@ -31,7 +34,7 @@ from ddpo_torch.utils import Timer
 from ddpo_torch.utils.images import save_image, save_images
 from ddpo_torch.utils.metrics import MetricsLogger, run_dir
 from ddpo_torch.utils.parser import Parser as BaseParser
-from ddpo_torch.utils.serialization import load_stable_diffusion, resolve_device
+from ddpo_torch.utils.serialization import load_unet, resolve_device
 
 
 class Parser(BaseParser):
@@ -58,8 +61,6 @@ def main(argv=None) -> GenerateResult:
         )
     if args.quant != "none":
         raise NotImplementedError(f"--quant {args.quant!r} is not ported yet")
-    if args.iteration != 0:
-        raise NotImplementedError("loading a finetuned UNet is not ported yet")
     if args.guidance_scale == "auto":
         from ddpo_torch.utils.loaders import load_guidance_scale
 
@@ -68,8 +69,10 @@ def main(argv=None) -> GenerateResult:
 
     print(f"[ generate ] device: {device}")
     batch_size = args.n_samples_per_device
-    models = load_stable_diffusion(
-        args.pretrained_model,
+    models = load_unet(
+        None if args.iteration == 0 else args.loadpath,
+        epoch=args.load_epoch,
+        pretrained_model=args.pretrained_model,
         model_preset=args.model_preset,
         device=device,
         dtype=_dtype(args.dtype),

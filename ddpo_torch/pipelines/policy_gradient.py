@@ -15,6 +15,20 @@ unless ``--device cpu`` asks for the CPU:
     is one 2B apply (``cfg_concat``) when ``train_dtype`` is bf16;
   - the fused loop trains all timesteps of a minibatch and then updates
     once; the non-fused loop updates on each minibatch's last timestep;
+  - the sampler's and the trainer's UNet calls run inside
+    ``ops.invariance.batch_invariant()``, so the trainer's recompute at its
+    own batch shape gives the sampler's bits (on the card; on the CPU it
+    changes nothing);
+  - with ``--lora_rank r > 0`` the UNet is frozen and rank-r adapters on
+    its attention projections train instead (models/lora.py): the base is
+    stored once, in ``train_dtype`` when it equals ``sample_dtype`` (no fp32
+    master), the train state, the optimizer and the checkpoints hold only
+    the fp32 adapters, the trainer merges them onto the base at each apply
+    (outside the remat boundary), and the sampler's UNet gets the same merge
+    once per epoch, so both run the same bits. The run ends by exporting the
+    merged UNet as ``unet_{num_train_epochs - 1}.pkl`` under logs/<savepath>
+    (utils/checkpoints.py ``save_unet``), which ``generate --iteration``
+    reads;
   - full-state checkpoints (params, optimizer, RNGs, reward history, stat
     buffers) give a true resume; SIGTERM checkpoints at the epoch boundary
     and exits;
@@ -22,9 +36,9 @@ unless ``--device cpu`` asks for the CPU:
     train_info/, samples/, per_prompt_stats/, metrics.jsonl,
     reward_curve.json, and log_0.png where matplotlib imports.
 
-Not ported yet, each raising: lora_rank > 0, resident_inner_loop,
-mesh_tp/mesh_sp > 1, more than one process, grad_reduce_dtype other than
-none, a remote savepath, profile_dir, and optimizer adafactor.
+Not ported yet, each raising: resident_inner_loop, mesh_tp/mesh_sp > 1,
+more than one process, grad_reduce_dtype other than none, a remote
+savepath, and profile_dir.
 
 Run: python -m ddpo_torch.pipelines.policy_gradient --dataset compressed-animals
 """
@@ -37,7 +51,7 @@ import os
 import random
 import signal
 from concurrent import futures
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -45,7 +59,9 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from ddpo_torch import training
+from ddpo_torch.models.lora import init_lora, merge_lora, n_lora_params, target_paths
 from ddpo_torch.models.tokenizer import make_uncond_ids
+from ddpo_torch.ops.invariance import batch_invariant
 from ddpo_torch.sampling import SamplerConfig, sample_trajectories, vae_decode
 from ddpo_torch.training.optim import build_optimizer
 from ddpo_torch.training.policy_gradient import (
@@ -59,6 +75,7 @@ from ddpo_torch.utils.checkpoints import (
     prune_checkpoints,
     restore_train_state,
     save_train_state,
+    save_unet,
     wait_for_pending_saves,
 )
 from ddpo_torch.utils.images import save_image
@@ -78,7 +95,6 @@ def _dtype(name: str) -> torch.dtype:
 
 def _check_ported(args) -> None:
     not_ported = {
-        "--lora_rank > 0": args.lora_rank > 0,
         "--resident_inner_loop": args.resident_inner_loop,
         "--mesh_tp/--mesh_sp > 1": args.mesh_tp > 1 or args.mesh_sp > 1,
         "more than one process": int(os.environ.get("WORLD_SIZE", "1")) > 1,
@@ -92,7 +108,7 @@ def _check_ported(args) -> None:
 
 
 def make_train_apply(unet: torch.nn.Module, compute_dtype: torch.dtype,
-                     remat: bool) -> Callable:
+                     remat: bool, base: Optional[Dict[str, torch.Tensor]] = None) -> Callable:
     """The trainer's UNet apply over a dict of master parameters.
 
     Each master is cast to ``compute_dtype`` at use, inside the call (as
@@ -100,6 +116,10 @@ def make_train_apply(unet: torch.nn.Module, compute_dtype: torch.dtype,
     values the sampler's once-per-epoch cast gives, and it is differentiable,
     so the gradients reach the masters in their own dtype. With ``remat``
     the whole call is checkpointed and recomputed in the backward.
+
+    With ``base`` (LoRA) the params are the adapters: ``merge_lora`` puts
+    them onto the frozen base first, outside the checkpoint, so the
+    backward recomputes the UNet but not the merge.
     """
 
     def run(params, latents, t, context):
@@ -107,11 +127,45 @@ def make_train_apply(unet: torch.nn.Module, compute_dtype: torch.dtype,
         return functional_call(unet, cast, (latents, t, context))
 
     def apply(params: Dict[str, torch.Tensor], latents, t, context):
+        if base is not None:
+            params = merge_lora(base, params)
         if remat:
             return checkpoint(run, params, latents, t, context, use_reentrant=False)
         return run(params, latents, t, context)
 
     return apply
+
+
+def sampler_unet(unet: torch.nn.Module, sample_dtype: torch.dtype,
+                 own=()) -> torch.nn.Module:
+    """The UNet the sampler calls, in ``sample_dtype``; ``refresh_sampler``
+    writes the trained values into it.
+
+    Where ``unet``'s parameters are already in ``sample_dtype`` it shares
+    them, except those named in ``own`` (LoRA's merged targets), which get
+    copies of their own; with nothing of its own it is ``unet`` itself.
+    Otherwise it is a full copy at ``sample_dtype``.
+    """
+    if next(unet.parameters()).dtype != sample_dtype:
+        return copy.deepcopy(unet).to(sample_dtype).requires_grad_(False)
+    if not own:
+        return unet
+    shared = copy.deepcopy(unet, {id(p): p for p in unet.parameters()})
+    for name in own:
+        path, _, leaf = name.rpartition(".")
+        module = shared.get_submodule(path)
+        setattr(module, leaf, torch.nn.Parameter(getattr(module, leaf).detach().clone(),
+                                                 requires_grad=False))
+    return shared
+
+
+@torch.no_grad()
+def refresh_sampler(sample_unet: torch.nn.Module, params: Dict[str, torch.Tensor]) -> None:
+    """Copy (casting) every entry of ``params`` into the sampler's UNet,
+    skipping the tensors the two share."""
+    for name, ps in sample_unet.named_parameters():
+        if ps is not params[name]:
+            ps.copy_(params[name])
 
 
 def main(argv=None):
@@ -148,17 +202,34 @@ def main(argv=None):
         dtype=master_dtype,
         seed=args.base_seed,
     )
-    # the text encoder and the VAE compute in the sampling dtype; the UNet
-    # holds the master parameters (the optimizer's), trained in place
+    # the text encoder and the VAE compute in the sampling dtype
     models.text_encoder.to(sample_dtype)
     models.vae.to(sample_dtype)
-    unet = models.unet.requires_grad_(True)
+    unet = models.unet
     print(f"[ pg ] unet params: {sum(p.numel() for p in unet.parameters()) / 1e6:.1f}M")
-    # the sampler's copy at the sampling dtype, refreshed from the masters
-    # once per epoch (the masters themselves when the dtypes agree)
-    sample_unet = unet
-    if sample_dtype != master_dtype:
-        sample_unet = copy.deepcopy(unet).to(sample_dtype).requires_grad_(False)
+    lora_base = None
+    if args.lora_rank > 0:
+        # frozen weights take no optimizer update, so they need no fp32
+        # master: stored once, at train_dtype when sampling computes in it
+        # too (the default bf16: 1.72 GB at SD-1.4), else at the master
+        # dtype and cast at use
+        unet.to(train_dtype if train_dtype == sample_dtype else master_dtype)
+        lora_base = dict(unet.named_parameters())
+        params = init_lora(lora_base, args.lora_rank,
+                           torch.Generator(device=device).manual_seed(args.base_seed))
+        for p in params.values():
+            p.requires_grad_(True)
+        print(f"[ pg ] lora: rank {args.lora_rank}, {n_lora_params(params)} trainable "
+              f"in {len(params)} tensors (base frozen)")
+        own = [path + ".weight" for path in target_paths(lora_base)]
+    else:
+        # the UNet holds the master parameters (the optimizer's), trained
+        # in place
+        params = dict(unet.requires_grad_(True).named_parameters())
+        own = ()
+    # the sampler's UNet at the sampling dtype, refreshed from the trained
+    # values once per epoch
+    sample_unet = sampler_unet(unet, sample_dtype, own)
 
     scheduler = models.scheduler
     sched_state = scheduler.set_timesteps(
@@ -171,8 +242,8 @@ def main(argv=None):
     # ------------------------------- train state ------------------------------ #
     fused = args.fused_train_loop
     state = AccumulatingTrainState(
-        apply_fn=make_train_apply(unet, train_dtype, args.remat),
-        params=dict(unet.named_parameters()),
+        apply_fn=make_train_apply(unet, train_dtype, args.remat, lora_base),
+        params=params,
         tx=build_optimizer(args),
         # the fp32 accumulation buffer (3.4 GB at SD-1.4 scale) exists only
         # when something accumulates: explicit accumulation steps, or the
@@ -277,10 +348,9 @@ def main(argv=None):
     timer = Timer()
     for epoch in range(start_epoch, args.num_train_epochs):
         # ============================ sampling phase =========================== #
-        if sample_unet is not unet:
-            with torch.no_grad():
-                for ps, pm in zip(sample_unet.parameters(), unet.parameters()):
-                    ps.copy_(pm)
+        with torch.no_grad():
+            refresh_sampler(sample_unet, state.params if lora_base is None
+                            else merge_lora(lora_base, state.params))
         samples = []
         sample_phase_time = 0.0
         for i in range(args.num_sample_batches_per_epoch):
@@ -290,10 +360,11 @@ def main(argv=None):
             )
             prompt_embeds = text_encode(models.tokenizer(list(sample_prompts)))
             timer()
-            traj = sample_trajectories(
-                sample_unet, scheduler, sched_state, prompt_embeds, sample_uncond,
-                sampler_config, generator=sample_gen,
-            )
+            with batch_invariant():
+                traj = sample_trajectories(
+                    sample_unet, scheduler, sched_state, prompt_embeds, sample_uncond,
+                    sampler_config, generator=sample_gen,
+                )
             images = vae_decode(models.vae, traj["final_latents"]).cpu().numpy()
             sample_time = timer()
             sample_phase_time += sample_time
@@ -388,31 +459,32 @@ def main(argv=None):
             num_train_ts = int(num_timesteps * args.train_timestep_ratio)
             infos = []
             timer()
-            for i in range(n_batches):
-                base = {
-                    "prompt_embeds": batched["embeds"][i],
-                    "uncond_embeds": train_uncond,
-                    "advantages": batched["advantages"][i],
-                }
-                do_opt_update = (i + 1) % args.train_accumulation_steps == 0
-                if fused:
-                    batch = dict(base, **{
-                        k: batched[k][i][:, :num_train_ts].transpose(0, 1)
-                        for k in ("latents", "next_latents", "log_probs", "ts")
-                    })
-                    state, info = step_fn(state, batch, do_opt_update=do_opt_update,
-                                          **step_kwargs)
-                    infos.append({k: float(v) for k, v in info.items()})
-                else:
-                    for j in range(num_train_ts):
+            with batch_invariant():
+                for i in range(n_batches):
+                    base = {
+                        "prompt_embeds": batched["embeds"][i],
+                        "uncond_embeds": train_uncond,
+                        "advantages": batched["advantages"][i],
+                    }
+                    do_opt_update = (i + 1) % args.train_accumulation_steps == 0
+                    if fused:
                         batch = dict(base, **{
-                            k: batched[k][i][:, j]
+                            k: batched[k][i][:, :num_train_ts].transpose(0, 1)
                             for k in ("latents", "next_latents", "log_probs", "ts")
                         })
-                        upd = do_opt_update and (j == num_train_ts - 1)
-                        state, info = step_fn(state, batch, do_opt_update=upd,
+                        state, info = step_fn(state, batch, do_opt_update=do_opt_update,
                                               **step_kwargs)
                         infos.append({k: float(v) for k, v in info.items()})
+                    else:
+                        for j in range(num_train_ts):
+                            batch = dict(base, **{
+                                k: batched[k][i][:, j]
+                                for k in ("latents", "next_latents", "log_probs", "ts")
+                            })
+                            upd = do_opt_update and (j == num_train_ts - 1)
+                            state, info = step_fn(state, batch, do_opt_update=upd,
+                                                  **step_kwargs)
+                            infos.append({k: float(v) for k, v in info.items()})
             train_time = timer()
             infos = {k: np.stack([i[k] for i in infos]) for k in infos[0]}
             print(
@@ -459,6 +531,13 @@ def main(argv=None):
 
     if prev_sigterm is not None:
         signal.signal(signal.SIGTERM, prev_sigterm)
+    if lora_base is not None:
+        # the merged UNet in the reference format, for generate --iteration
+        # (the adapters alone stay in the full-state checkpoints)
+        with torch.no_grad():
+            merged = merge_lora(lora_base, state.params)
+        path = save_unet(localpath, unet, epoch=args.num_train_epochs - 1, params=merged)
+        print(f"[ pg ] lora: merged unet exported to {path}")
     executor.shutdown()
     wait_for_pending_saves()
     return mean_rewards

@@ -1,7 +1,10 @@
-"""Learning-rate schedules and the clip + adamw optimizer, with optax semantics.
+"""Learning-rate schedules and the clip + adamw / adafactor optimizers, with
+optax semantics.
 
 Port of ddpo_tpu/training/optim.py. The JAX package chains optax's
-``clip_by_global_norm(max_grad_norm)`` with ``adamw(..., mu_dtype=bfloat16)``;
+``clip_by_global_norm(max_grad_norm)`` with ``adamw(..., mu_dtype=bfloat16)``
+or with ``adafactor(learning_rate=schedule, weight_decay_rate=weight_decay)``
+(``ClipAdafactor`` below);
 ``torch.optim.AdamW`` keeps its first moment in the parameters' dtype and
 orders the weight decay differently, so the same steps are written out here
 over plain tensors:
@@ -26,7 +29,7 @@ float32, as optax's are.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterable
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -147,10 +150,132 @@ class ClipAdamW:
         state["count"] = count
 
 
-def build_optimizer(args) -> ClipAdamW:
-    """Global-norm clip + adamw (bf16 mu), on the schedule."""
+# optax 0.2.6's adafactor defaults
+FACTOR_MIN_DIM = 128
+DECAY_RATE = 0.8
+ADAFACTOR_EPS = 1e-30
+BLOCK_RMS_CLIP = 1.0
+PARAM_SCALE_MIN = 1e-3
+
+
+def flax_axes(name: str, shape: Sequence[int]) -> list:
+    """For each axis of the Flax layout, the port's axis holding it.
+
+    A parameter whose name ends in "weight" is in torch's layout: 2-D is a
+    Dense kernel transposed ((out, in) for Flax's (in, out)), 4-D a conv
+    kernel as OIHW (Flax's HWIO). Everything else (biases, norm scales,
+    LoRA's A and B) has Flax's layout. The models train no nn.Embedding,
+    whose 2-D weight this rule would take for a Dense kernel.
+    """
+    if name.endswith("weight") and len(shape) == 2:
+        return [1, 0]
+    if name.endswith("weight") and len(shape) == 4:
+        return [2, 3, 1, 0]
+    return list(range(len(shape)))
+
+
+def factored_axes(name: str, shape: Sequence[int]) -> Optional[Tuple[int, int]]:
+    """optax's ``_factored_dims`` in the port's axes: (d1, d0), the port's
+    axes of the second-largest and the largest dimension of the Flax
+    layout, or None when there are fewer than two axes or the
+    second-largest is below 128.
+
+    The ranking is a stable sort of the Flax shape, as numpy's argsort is
+    for so few axes: of two equal dimensions the later Flax axis counts as
+    the larger. For a conv kernel with Cin = Cout that is HWIO's O, so d0 is
+    the port's axis 0 (Cout) and d1 its axis 1 (Cin); for a square Dense
+    kernel d0 is Flax's out, the port's axis 0.
+    """
+    if len(shape) < 2:
+        return None
+    axes = flax_axes(name, shape)
+    flax_shape = [shape[a] for a in axes]
+    order = np.argsort(flax_shape, kind="stable")
+    if flax_shape[order[-2]] < FACTOR_MIN_DIM:
+        return None
+    return axes[order[-2]], axes[order[-1]]
+
+
+class ClipAdafactor:
+    """clip_by_global_norm(max_grad_norm) then optax's adafactor at its
+    defaults, with ``weight_decay_rate = weight_decay``:
+
+      1. v = decay_t v + (1 - decay_t)(g^2 + 1e-30), decay_t = 1 - (count + 1)^-0.8;
+         factored (``factored_axes``) as a row statistic (the mean over d0)
+         and a column one (the mean over d1), the update
+         g * (v_row / mean(v_row))^-1/2 * v_col^-1/2; else g * v^-1/2;
+      2. the update divided by max(1, its rms) (clip_by_block_rms(1.0));
+      3. times lr(count), then times max(rms(param), 1e-3);
+      4. plus weight_decay * param (after the learning rate, as optax
+         chains it), and subtracted from the param.
+
+    State: {"count", "v_row", "v_col", "v"}, the last three {name: fp32},
+    v_row and v_col for the factored parameters and v for the others.
+    """
+
+    def __init__(self, schedule: Schedule, weight_decay: float, max_grad_norm: float):
+        self.schedule = schedule
+        self.weight_decay = weight_decay
+        self.max_grad_norm = max_grad_norm
+        self.axes: Dict[str, Optional[Tuple[int, int]]] = {}
+
+    def init(self, params: Dict[str, torch.Tensor]) -> dict:
+        state = {"count": 0, "v_row": {}, "v_col": {}, "v": {}}
+        for name, p in params.items():
+            axes = self.axes[name] = factored_axes(name, p.shape)
+            if axes is None:
+                state["v"][name] = torch.zeros_like(p, dtype=torch.float32)
+            else:
+                d1, d0 = axes
+                shape = list(p.shape)
+                state["v_row"][name] = p.new_zeros(shape[:d0] + shape[d0 + 1:], dtype=torch.float32)
+                state["v_col"][name] = p.new_zeros(shape[:d1] + shape[d1 + 1:], dtype=torch.float32)
+        return state
+
+    @torch.no_grad()
+    def step(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
+             state: dict) -> None:
+        """One update of ``params`` and ``state``, in place."""
+        names = list(params)
+        g = [grads[n].float() for n in names]
+        g_norm = ClipAdamW.global_norm(g)
+        if bool(g_norm >= self.max_grad_norm):
+            g = torch._foreach_div(g, g_norm)
+            torch._foreach_mul_(g, self.max_grad_norm)
+        f32 = np.float32
+        decay = float(f32(1) - f32(state["count"] + 1) ** f32(-DECAY_RATE))
+        keep = float(f32(1) - f32(decay))
+        lr = self.schedule(state["count"])
+        updates = []
+        for name, grad in zip(names, g):
+            p = params[name]
+            sq = grad * grad + ADAFACTOR_EPS
+            axes = self.axes[name]
+            if axes is None:
+                v = state["v"][name].mul_(decay).add_(sq, alpha=keep)
+                u = grad * v.rsqrt()
+            else:
+                d1, d0 = axes
+                v_row = state["v_row"][name].mul_(decay).add_(sq.mean(d0), alpha=keep)
+                v_col = state["v_col"][name].mul_(decay).add_(sq.mean(d1), alpha=keep)
+                row_mean = v_row.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)
+                u = (grad * (v_row / row_mean).rsqrt().unsqueeze(d0)
+                     * v_col.rsqrt().unsqueeze(d1))
+            u = u / torch.clamp(u.square().mean().sqrt() / BLOCK_RMS_CLIP, min=1.0)
+            p_rms = p.float().square().mean().sqrt()
+            u = u * lr * torch.clamp(p_rms, min=PARAM_SCALE_MIN)
+            updates.append((u + self.weight_decay * p.float()).to(p.dtype))
+        torch._foreach_sub_([params[n] for n in names], updates)
+        state["count"] += 1
+
+
+def build_optimizer(args):
+    """Global-norm clip + adamw (bf16 mu) | adafactor, on the schedule."""
+    if args.optimizer == "adafactor":
+        return ClipAdafactor(build_lr_schedule(args), weight_decay=args.weight_decay,
+                             max_grad_norm=args.max_grad_norm)
     if args.optimizer != "adamw":
-        raise NotImplementedError(f"--optimizer {args.optimizer!r} is not ported yet (adamw only)")
+        raise ValueError(f"unknown --optimizer {args.optimizer!r} (adamw | adafactor)")
     return ClipAdamW(
         build_lr_schedule(args), b1=args.beta1, b2=args.beta2, eps=args.epsilon,
         weight_decay=args.weight_decay, max_grad_norm=args.max_grad_norm,

@@ -29,7 +29,6 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from ddpo_torch.core.scheduler import DDIMScheduler, DDIMState
-from ddpo_torch.training.optim import ClipAdamW
 
 ADV_CLIP_MAX = 10.0
 
@@ -44,7 +43,7 @@ class AccumulatingTrainState:
     scale) exists only when ``accumulate`` is set, as in the JAX package.
     """
 
-    def __init__(self, apply_fn: Callable, params: Tensors, tx: ClipAdamW,
+    def __init__(self, apply_fn: Callable, params: Tensors, tx,
                  accumulate: bool = True):
         self.apply_fn = apply_fn
         self.params = params
@@ -93,9 +92,10 @@ class AccumulatingTrainState:
             p.copy_(state["params"][k])
         opt = state["opt_state"]
         self.opt_state["count"] = int(opt["count"])
-        for moment in ("mu", "nu"):
-            for k, m in self.opt_state[moment].items():
-                m.copy_(opt[moment][k])
+        for moment, tensors in self.opt_state.items():
+            if moment != "count":
+                for k, m in tensors.items():
+                    m.copy_(opt[moment][k])
         self.step = int(state["step"])
         if self.grad_acc is not None and state.get("grad_acc") is not None:
             for k, ga in self.grad_acc.items():

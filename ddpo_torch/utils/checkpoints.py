@@ -1,8 +1,14 @@
-"""Full-train-state checkpoints with torch.save.
+"""Full-train-state checkpoints with torch.save, and the UNet export.
 
 Port of ddpo_tpu/utils/checkpoints.py (save_train_state, restore_train_state,
 latest_checkpoint_step, prune_checkpoints, wait_for_pending_saves), with
 ``torch.save``/``torch.load`` in place of Orbax. Single process.
+
+``save_unet``, ``get_latest_epoch`` and ``load_unet_pickle`` keep the JAX
+package's (and the reference's) export format: ``unet_{epoch}.pkl``, a
+pickled Flax-layout tree of numpy arrays, written through
+``models.convert.to_flax``. So ddpo_tpu's ``load_unet_pickle`` reads the
+port's export, and the port reads the JAX package's.
 
 Layout under ``savepath/checkpoints/``:
   <step>/state.pt     the device state (params, optimizer state, counters),
@@ -27,9 +33,11 @@ import pickle
 import shutil
 import threading
 import time
-from typing import Any, Optional
+from typing import Any, Mapping, Optional
 
 import torch
+
+from ddpo_torch.utils import filesystem as fs
 
 STATE_FILE = "state.pt"
 
@@ -155,3 +163,37 @@ def restore_train_state(savepath: str, step: Optional[int] = None,
         with open(f"{path}_host.pkl", "rb") as f:
             restored = dict(restored, host=pickle.load(f))
     return restored, step
+
+
+# ---------------- reference-format UNet artifacts ---------------- #
+
+
+def save_unet(savepath: str, unet: torch.nn.Module, epoch: int = 0,
+              params: Optional[Mapping[str, torch.Tensor]] = None) -> str:
+    """Pickle the UNet's parameters as savepath/unet_{epoch}.pkl in the Flax
+    layout; ``params`` (a state mapping of ``unet``, e.g. a LoRA merge)
+    defaults to ``unet.state_dict()``. Returns the file's path."""
+    from ddpo_torch.models.convert import to_flax
+
+    os.makedirs(savepath, exist_ok=True)
+    fullpath = os.path.join(savepath, f"unet_{epoch}.pkl")
+    tree = to_flax(unet.state_dict() if params is None else params, unet)
+    with open(fullpath + ".tmp", "wb") as f:
+        pickle.dump(tree, f)
+    os.replace(fullpath + ".tmp", fullpath)
+    return fullpath
+
+
+def get_latest_epoch(loadpath: str) -> int:
+    """Largest N among unet_N.pkl files under loadpath."""
+    fnames = [f for f in fs.ls(loadpath) if f.startswith("unet_") and f.endswith(".pkl")]
+    if not fnames:
+        raise FileNotFoundError(f"no unet_*.pkl under {loadpath}")
+    return max(int(f.split("_")[-1].split(".pkl")[0]) for f in fnames)
+
+
+def load_unet_pickle(loadpath: str, epoch="latest") -> dict:
+    """The Flax-layout UNet tree of loadpath/unet_{epoch}.pkl."""
+    if epoch == "latest":
+        epoch = get_latest_epoch(loadpath)
+    return fs.unpickle(os.path.join(loadpath, f"unet_{epoch}.pkl"))

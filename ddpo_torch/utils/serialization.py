@@ -1,11 +1,11 @@
-"""Model-stack construction with random weights.
+"""Model-stack construction with random weights, and the finetuned-UNet overlay.
 
 Port of ddpo_tpu/utils/serialization.py's ``load_stable_diffusion`` for the
 random-init case: the SD-1.4 weights are not in the repository, so the stack
 is built at the full SD-1.4 geometry (``sd14``) or the CPU fixture's
 (``tiny``) with random weights drawn from a seeded ``torch.Generator``.
-Loading a local diffusers checkpoint, and overlaying a finetuned UNet, are
-not ported yet.
+``load_unet`` overlays a finetuned UNet on that stack, as the JAX package's
+does. Loading a local diffusers checkpoint is not ported yet.
 
 The initialisation mirrors Flax's defaults, which the JAX package's random
 model uses: lecun-normal (truncated) kernels, zero biases, ones and zeros
@@ -73,13 +73,21 @@ def tiny_configs():
 
 def resolve_device(device: Any) -> torch.device:
     """``device`` as a torch.device; "cuda" raises at once when torch finds
-    no card, so nothing meant for the card runs on the CPU unasked."""
+    no card, so nothing meant for the card runs on the CPU unasked.
+
+    For "cuda" it is also the port's device setup: fp32 matmuls and
+    convolutions stay IEEE fp32 (PyTorch lets cuDNN run them in TF32 by
+    default), so every entry point computes what chip_smoke.py checks.
+    """
     device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device 'cuda' was asked for, but torch finds no CUDA device; "
-            "pass --device cpu (device='cpu') to run on the CPU"
-        )
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device 'cuda' was asked for, but torch finds no CUDA device; "
+                "pass --device cpu (device='cpu') to run on the CPU"
+            )
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     return device
 
 
@@ -154,3 +162,53 @@ def load_stable_diffusion(
         unet=unet,
         scheduler=sd_scheduler(),
     )
+
+
+def load_unet(
+    loadpath: Optional[str],
+    epoch="latest",
+    pretrained_model: Optional[str] = None,
+    model_preset: str = "sd14",
+    device: Any = "cuda",
+    dtype: torch.dtype = torch.float32,
+    seed: int = 0,
+) -> StableModels:
+    """The stack of ``load_stable_diffusion``, with a finetuned UNet over it.
+
+    loadpath formats (as the JAX package's ``load_unet``):
+      - None or "": the random stack only;
+      - a directory holding unet_{epoch}.pkl (the Flax-layout export of
+        ``utils.checkpoints.save_unet``, of either package), read with
+        ``epoch`` ("latest" or an int);
+      - "orbax:<savepath>": the params of the newest full-state checkpoint
+        under <savepath>/checkpoints. The port writes no Orbax: this reads
+        its own ``state.pt``. A LoRA run's checkpoint holds adapters only;
+        they are merged onto this stack's UNet, the frozen base of a run
+        with the same seed and preset.
+    """
+    from ddpo_torch.models.convert import flax_tree_to_state_dict
+    from ddpo_torch.utils.checkpoints import load_unet_pickle, restore_train_state
+
+    models = load_stable_diffusion(pretrained_model, model_preset=model_preset,
+                                   device=device, dtype=dtype, seed=seed)
+    if not loadpath:
+        return models
+    if loadpath.startswith("orbax:"):
+        restored, step = restore_train_state(loadpath[len("orbax:"):])
+        if restored is None:
+            raise FileNotFoundError(f"no checkpoint under {loadpath}")
+        print(f"[ serialization ] restored checkpoint of epoch {step}")
+        state = restored["state"]["params"] if "state" in restored else restored["params"]
+        if any(k.endswith(".a") for k in state):
+            from ddpo_torch.models.lora import merge_lora
+
+            base = dict(models.unet.named_parameters())
+            adapters = {k: v.to(device) for k, v in state.items()}
+            with torch.no_grad():
+                state = merge_lora(base, adapters)
+    else:
+        print(f"[ serialization ] loading finetuned unet from {loadpath}")
+        state = flax_tree_to_state_dict(load_unet_pickle(loadpath, epoch=epoch))
+    with torch.no_grad():
+        models.unet.load_state_dict(state, strict=True)  # copies, cast to dtype
+    return models

@@ -275,3 +275,65 @@ def test_weight_kn_is_jax_kfold_layout(cin, cout):
     w_kn = tconv.weight_kn(oihw)
     assert w_kn.shape == (9 * cin, cout) and w_kn.is_contiguous()
     np.testing.assert_array_equal(w_kn.numpy(), np.asarray(jnp.asarray(wt).reshape(9 * cin, cout)))
+
+
+@pytest.mark.parametrize("n", [1, 6])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_conv_per_image_matches_one_call(n, stride):
+    """The library conv one image a call (inside batch_invariant() on the
+    card) gives the one-call conv's values, and its backward (one call over
+    the whole batch) the same input, weight and bias gradients (fp32, atol
+    1e-5: another summation order at most)."""
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.standard_normal((n, 8, 9, 9)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((6, 8, 3, 3)).astype(np.float32) * 0.2)
+    b = torch.from_numpy(rng.standard_normal(6).astype(np.float32))
+    ins = [[t.clone().requires_grad_(True) for t in (x, w, b)] for _ in range(2)]
+    out = tconv.ConvPerImage.apply(*ins[0], stride, 1)
+    ref = F.conv2d(*ins[1], stride=stride, padding=1)
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out.detach().numpy(), ref.detach().numpy(), atol=1e-5)
+    g = torch.from_numpy(rng.standard_normal(tuple(ref.shape)).astype(np.float32))
+    out.backward(g)
+    ref.backward(g)
+    for a, r in zip(ins[0], ins[1]):
+        np.testing.assert_allclose(a.grad.numpy(), r.grad.numpy(), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("n, piece", [(1, 4), (4, 4), (6, 4), (16, 4), (3, 1)])
+def test_in_pieces_pads_and_drops(n, piece):
+    """invariance.in_pieces calls fn with exactly ``piece`` rows each time and
+    returns fn's rows in order, the padding's dropped."""
+    from ddpo_torch.ops import invariance
+
+    x = torch.arange(n * 3, dtype=torch.float32).reshape(n, 3)
+    y = -x
+    sizes = []
+
+    def fn(a, b):
+        sizes.append(a.shape[0])
+        return a * 2 + b
+
+    out = invariance.in_pieces(fn, [x, y], piece)
+    assert torch.equal(out, x * 2 + y)
+    assert set(sizes) == {piece} and len(sizes) == -(-n // piece)
+
+
+def test_batch_invariant_changes_nothing_on_the_cpu():
+    """On CPU tensors the mode keeps the library conv and the plain
+    attention as they are (the kernel runs only on the card)."""
+    from ddpo_torch.ops import attention, invariance
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((6, 4, 8, 8)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((5, 4, 3, 3)).astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((6, 16, 2, 8)).astype(np.float32))
+    before = _build.launch_counts()
+    with invariance.batch_invariant():
+        assert invariance.enabled()
+        conv_out = tconv.conv3x3(x, w)
+        att_out = attention(q, q, q)
+    assert not invariance.enabled()
+    assert _build.launch_counts() == before
+    assert torch.equal(conv_out, F.conv2d(x, w, padding=1))
+    assert torch.equal(att_out, attention(q, q, q))

@@ -483,3 +483,29 @@ def test_gn_silu_cluster_plans_bit_equal(cuda, shape, dtype, affine, plans):
     odd_out = group_norm_silu(odd, scale, bias, use_kernel=True)
     assert (odd_out.float() - ref).abs().max().item() <= _bound(dtype, ref)
     assert torch.equal(odd_out, group_norm_silu(odd, scale, bias, use_kernel=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,stride", [((16, 320, 64, 64), 1), ((16, 1280, 8, 8), 1),
+                                          ((16, 640, 32, 32), 2), ((16, 4, 64, 64), 1)])
+def test_convs_are_batch_invariant_inside_the_mode(cuda, shape, stride):
+    """Inside batch_invariant() a 3x3 conv (the tap-GEMM at stride 1, cuDNN
+    one image a call at stride 2) gives an image the same bits at N = 16
+    as in the trainer's N = 4 call ([uncond; cond] rows of two samples, in
+    that order), and alone, in bf16."""
+    from ddpo_torch.ops.conv import conv3x3, library_conv
+    from ddpo_torch.ops.invariance import batch_invariant
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((320, shape[1], 3, 3), generator=gen, device=cuda) * 0.05).to(torch.bfloat16)
+    b = torch.randn((320,), generator=gen, device=cuda).to(torch.bfloat16)
+    rows = torch.tensor([5, 2, 13, 10], device=cuda)
+
+    def conv(t):
+        return conv3x3(t, w, b) if stride == 1 else library_conv(t, w, b, stride=2)
+
+    with batch_invariant():
+        full = conv(x)
+        assert torch.equal(full[rows], conv(x[rows]))
+        assert torch.equal(full[:1], conv(x[:1]))

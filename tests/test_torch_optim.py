@@ -5,6 +5,9 @@ Tolerances, each measured first:
 
   - optimizer (fp32 params, bf16 mu, fp32 nu after 3 steps, one of them
     clipped): params and nu rtol 1e-6, mu within one bf16 ulp;
+  - adafactor (fp32, 5 steps, one clipped, a factored Dense kernel, a
+    factored 3x3 conv kernel with Cin = Cout and unfactored biases, carried
+    across with from_flax / to_flax): params and second moments rtol 1e-6;
   - schedules: rtol 1e-6 (float32 on both sides);
   - stat tracker and the dependency-free rewards: rtol 1e-12 (numpy on both
     sides); JPEG sizes exact (the same libjpeg through the same C++).
@@ -19,8 +22,15 @@ import optax
 import pytest
 import torch
 
+from ddpo_torch.models.convert import flax_tree_to_state_dict, to_flax
 from ddpo_torch.training import callbacks as t_callbacks
-from ddpo_torch.training.optim import ClipAdamW, build_lr_schedule, build_optimizer
+from ddpo_torch.training.optim import (
+    ClipAdafactor,
+    ClipAdamW,
+    build_lr_schedule,
+    build_optimizer,
+    factored_axes,
+)
 from ddpo_torch.training.stat_tracking import PerPromptStatTracker
 from ddpo_tpu.training import callbacks as j_callbacks
 from ddpo_tpu.training import optim as j_optim
@@ -86,9 +96,91 @@ def test_lr_schedules_match_optax(kw):
         np.testing.assert_allclose(t_sched(count), float(j_sched(count)), rtol=1e-6, atol=0)
 
 
-def test_adafactor_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_optimizer(_opt_args(optimizer="adafactor"))
+class _Layers(torch.nn.Module):
+    """The modules the adafactor tree's Flax names come from."""
+
+    def __init__(self):
+        super().__init__()
+        self.dense = torch.nn.Linear(256, 130)
+        self.conv = torch.nn.Conv2d(128, 128, 3)
+
+
+def test_adafactor_matches_optax():
+    """5 steps of clip + adafactor on a Flax tree and on its from_flax copy:
+    a (256, 130) Dense kernel and a 3x3 conv kernel with Cin = Cout = 128,
+    both factored, and unfactored biases; the second step is clipped."""
+    rng = np.random.default_rng(5)
+    shapes = {"dense": {"kernel": (256, 130), "bias": (130,)},
+              "conv": {"kernel": (3, 3, 128, 128), "bias": (128,)}}
+
+    def tree(scale):
+        return {m: {k: (rng.standard_normal(s) * scale).astype(np.float32)
+                    for k, s in leaves.items()} for m, leaves in shapes.items()}
+
+    params = tree(0.05)
+    grads = [tree(g) for g in (1e-4, 0.5, 2e-4, 1e-3, 5e-5)]
+    args = _opt_args(optimizer="adafactor", learning_rate=1e-2)
+
+    tx = j_optim.build_optimizer(args)
+    j_params = jax.tree_util.tree_map(jnp.asarray, params)
+    j_state = tx.init(j_params)
+    for g in grads:
+        updates, j_state = tx.update(jax.tree_util.tree_map(jnp.asarray, g), j_state, j_params)
+        j_params = optax.apply_updates(j_params, updates)
+    factored = next(x for x in jax.tree_util.tree_leaves(
+        j_state, is_leaf=lambda x: isinstance(x, optax._src.factorized.FactoredState))
+        if isinstance(x, optax._src.factorized.FactoredState))
+
+    opt = build_optimizer(args)
+    assert isinstance(opt, ClipAdafactor)
+    t_params = flax_tree_to_state_dict(params)
+    t_state = opt.init(t_params)
+    # the tie Cin = Cout: HWIO's O (the port's axis 0) ranks as the larger
+    assert opt.axes == {"dense.weight": (0, 1), "dense.bias": None,
+                        "conv.weight": (1, 0), "conv.bias": None}
+    norms = [float(ClipAdamW.global_norm([torch.from_numpy(x) for m in g.values()
+                                          for x in m.values()])) for g in grads]
+    assert norms[1] > 1.0 > max(norms[:1] + norms[2:])
+    for g in grads:
+        opt.step(t_params, flax_tree_to_state_dict(g), t_state)
+    assert t_state["count"] == int(factored.count) == 5
+    out = to_flax(t_params, _Layers())
+    for m, leaves in shapes.items():
+        for k in leaves:
+            np.testing.assert_allclose(out[m][k], np.asarray(j_params[m][k]), rtol=1e-6,
+                                       atol=1e-7, err_msg=f"{m}.{k}")
+    # the second moments, in the port's axes: the dense row statistic is
+    # Flax's (256,) over out; the conv's are (3, 3, 128) over Cout and Cin
+    np.testing.assert_allclose(t_state["v_row"]["dense.weight"].numpy(),
+                               np.asarray(factored.v_row["dense"]["kernel"]), rtol=1e-6)
+    np.testing.assert_allclose(t_state["v_col"]["conv.weight"].permute(1, 2, 0).numpy(),
+                               np.asarray(factored.v_col["conv"]["kernel"]), rtol=1e-6)
+    np.testing.assert_allclose(t_state["v"]["conv.bias"].numpy(),
+                               np.asarray(factored.v["conv"]["bias"]), rtol=1e-6)
+
+
+@pytest.mark.parametrize("name, shape, axes", [
+    ("x.weight", (130, 256), (0, 1)),      # Dense (in 256, out 130)
+    ("x.weight", (256, 256), (1, 0)),      # square Dense: Flax's out is d0
+    ("x.weight", (320, 640, 3, 3), (0, 1)),  # conv Cin 640 > Cout 320
+    ("x.weight", (1280, 4, 3, 3), None),   # Cin below 128
+    ("x.a", (320, 8), None),               # LoRA A: r = 8
+    ("x.b", (128, 640), (0, 1)),           # Flax layout as it is
+])
+def test_factored_axes_follow_optax(name, shape, axes):
+    from optax._src.factorized import _factored_dims
+
+    assert factored_axes(name, shape) == axes
+    flax_shape = shape[::-1] if len(shape) == 2 and name.endswith("weight") else (
+        (shape[2], shape[3], shape[1], shape[0]) if len(shape) == 4 else shape)
+    dims = _factored_dims(flax_shape, True, 128)
+    if axes is None:
+        assert dims is None
+    else:
+        from ddpo_torch.training.optim import flax_axes
+
+        to_port = flax_axes(name, shape)
+        assert (to_port[dims[0]], to_port[dims[1]]) == axes
 
 
 def test_stat_tracker_matches_jax():

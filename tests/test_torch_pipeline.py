@@ -151,9 +151,9 @@ def test_sigterm_checkpoints_and_exits(workdir, monkeypatch):
 def test_unported_options_raise(workdir):
     from ddpo_torch.pipelines import policy_gradient
 
-    for flags in (["--lora_rank", "4"], ["--resident_inner_loop", "True"],
+    for flags in (["--resident_inner_loop", "True"],
                   ["--mesh_sp", "2"], ["--grad_reduce_dtype", "bfloat16"],
-                  ["--profile_dir", "prof"], ["--optimizer", "adafactor"]):
+                  ["--profile_dir", "prof"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             policy_gradient.main(COMMON + ["--num_train_epochs", "1"] + flags)
 
