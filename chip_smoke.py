@@ -89,6 +89,24 @@ Phases, in order; any failure exits non-zero:
      on-policy update, which launches conv3x3 twice per module (forward and
      remat recompute; the backward is the library conv's); (d) phase 6b
      with the switch on.
+  10. RWR: one iteration of --dataset compressed-animals-rwr. It prints
+     whether h5py imports; without it (the card's machine) the HDF5 write,
+     save_sizes and the HDF5 reader cannot run, and the same collection and
+     finetune functions the drivers call run over an in-memory writer.
+     (a) the vae reward (the VAE encoder) at fp32 on 8 decoded 512 px
+     images, on the kernels against plain ops (``plain_ops``), with the conv
+     switch off and on: 22 gn_stats and 20 conv3x3 launches (conv_in and
+     conv_out stay cuDNN), ms an encode; (b) the collection of 8 samples
+     (batch 4, 50 steps, CFG 5, bf16): seconds by stage and images/s a
+     batch, launch counts; (c) the fp32 finetune at the preset's settings
+     (train_cfg, batch 1, weighted_dataset at temperature 1/5, remat), cut
+     to 8 steps with save_freq 1: s a step, peak memory, the export's bytes
+     and seconds, launch counts, then one step from the same params and
+     draws on the kernels against plain ops (loss, gradients, params after
+     a fresh adamw step, each within its stated bound); (d) two steps at
+     --dtype bfloat16 (cfg_concat; fp32 compute as JAX's, so no flash
+     backward launch); (e) sample --iteration 1 loads the export bit for
+     bit at bf16 and collects one batch.
 
 The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}. With no CUDA device, or run
@@ -99,6 +117,7 @@ Run from the repository root: python3 chip_smoke.py
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -1408,6 +1427,426 @@ def phase_conv_path(unet_gn, vae_gn, unet_conv, vae_conv):
     return counts, update_counts
 
 
+@contextlib.contextmanager
+def plain_ops():
+    """Route the ops that have kernels to their plain versions, on the card
+    too: the flash forward to attention_reference (fp32 softmax), the
+    GroupNorm sums to group_stats_reference, the direct conv to the 9-tap
+    conv3x3_reference. The kernel-vs-plain checks of phase 10 run a whole
+    module or step both ways."""
+    import importlib
+
+    # the module, not the package's re-exported attention() function
+    attn_ops = importlib.import_module("ddpo_torch.ops.attention")
+    from ddpo_torch.ops import conv as conv_ops
+    from ddpo_torch.ops import groupnorm as gn_ops
+
+    saved = (attn_ops.flash_attention_fwd, gn_ops.group_stats, conv_ops.conv3x3_direct)
+    attn_ops.flash_attention_fwd = lambda q, k, v, scale=None: (
+        attn_ops.attention_reference(q, k, v, scale), attn_ops.attention_lse_reference(q, k, scale))
+    gn_ops.group_stats = lambda x, g: gn_ops.group_stats_reference(x, g)
+    conv_ops.conv3x3_direct = conv_ops.conv3x3_reference
+    try:
+        yield
+    finally:
+        attn_ops.flash_attention_fwd, gn_ops.group_stats, conv_ops.conv3x3_direct = saved
+
+
+class MemoryWriter:
+    """The HDF5 writer's interface over lists in memory, for a machine
+    without h5py: each field's values encoded with its codec, as
+    H5Writer.add stores them, and read back through MemoryReader."""
+
+    def __init__(self):
+        self.fields, self.encode_fns, self.decode_fns = {}, {}, {}
+
+    def configure(self, field, encode_fn=None, decode_fn=None, vlen=False):
+        self.fields[field] = []
+        self.encode_fns[field], self.decode_fns[field] = encode_fn, decode_fn
+
+    def add_batch(self, batch, mask=None):
+        import numpy as np
+
+        indices = range(len(next(iter(batch.values())))) if mask is None else np.where(mask)[0]
+        for i in indices:
+            for key, values in batch.items():
+                x = values[i]
+                if self.encode_fns[key] is not None:
+                    x = self.encode_fns[key](x)
+                self.fields[key].append(x.encode() if isinstance(x, str) else x)
+        return len(indices)
+
+    def close(self):
+        pass
+
+    def reader(self):
+        from ddpo_torch.data.hdf5 import _MultiFileReader
+
+        writer = self
+
+        class MemoryReader(_MultiFileReader):
+            def __init__(self):
+                self.weighted = False
+                self.fields = list(writer.fields)
+                self.decode_fns, self.encode_fns = writer.decode_fns, writer.encode_fns
+                self._build_index([len(next(iter(writer.fields.values())))])
+
+            def _get_file(self, fid):
+                return writer.fields
+
+        return MemoryReader()
+
+
+def rwr_launches(unet_gn, vae_gn, enc_gn, batches, steps):
+    """Kernel launches of ``batches`` collection batches: the sampler's
+    UNet each step, one decode and one VAE encode (the vae reward)."""
+    return expected(flash_fwd=FLASH_PER_UNET_FORWARD * steps * batches,
+                    gn_stats=(unet_gn * steps + vae_gn + enc_gn) * batches)
+
+
+def phase_rwr_encoder(enc_gn, enc_conv):
+    """10a: the vae reward on 8 decoded 512 px images at fp32, kernels
+    against plain ops; gn_stats and (switch on) conv3x3 launches."""
+    import numpy as np
+    import torch
+
+    from ddpo_torch.models import AutoencoderKL
+    from ddpo_torch.ops import _build
+    from ddpo_torch.ops.conv import set_conv_kernel_enabled
+    from ddpo_torch.sampling import vae_decode
+    from ddpo_torch.training import callback_fns
+    from ddpo_torch.utils.serialization import init_weights_
+
+    with torch.device("meta"):
+        vae = AutoencoderKL()
+    vae = vae.to_empty(device="cuda").eval().requires_grad_(False)
+    init_weights_(vae, torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    latents = torch.randn((8, 4, 64, 64), generator=gen, device="cuda")
+    images = vae_decode(vae, latents).cpu().numpy()
+    reward = callback_fns["vae"](vae=vae)
+    bound = 1e-4
+    try:
+        for switch in (None, True):
+            set_conv_kernel_enabled(switch)
+            _build.reset_launch_counts()
+            start = time.perf_counter()
+            moments, _ = reward(images, [], [])
+            reward_s = time.perf_counter() - start
+            counts = _build.launch_counts()
+            want = expected(gn_stats=enc_gn, conv3x3=enc_conv if switch else 0)
+            with plain_ops():
+                plain, _ = reward(images, [], [])
+            x = torch.as_tensor(images, device="cuda").permute(0, 3, 1, 2) * 2 - 1
+            with torch.no_grad():
+                k_ms = median_ms(lambda: vae.encode(x), 3)
+                with plain_ops():
+                    p_ms = median_ms(lambda: vae.encode(x), 3)
+            rel = float(np.abs(moments - plain).max() / np.abs(plain).max())
+            tag = "on" if switch else "off"
+            log(f"10a encoder (vae reward, 8 images 512 px, fp32, conv switch {tag}): moments "
+                f"{moments.shape}; max|kernels - plain| / max|plain| = {rel:.3e} (bound {bound:g}: "
+                f"fp32 sums in another order through the encoder); launches {counts}, expected "
+                f"{want}; encode {k_ms:.2f} ms a call on the kernels, {p_ms:.2f} ms plain; the "
+                f"reward (host copies included) {reward_s:.3f} s")
+            if moments.shape != (8, 64, 64, 8) or not np.isfinite(moments).all():
+                fail("the vae reward gave no finite (8, 64, 64, 8) moments")
+            if not rel <= bound:
+                fail(f"the encoder on its kernels differs from the plain ops by {rel:.3e}")
+            if counts != want:
+                fail(f"kernel launches {counts} != expected {want}")
+    finally:
+        set_conv_kernel_enabled(None)
+    del vae, latents, x
+    torch.cuda.empty_cache()
+
+
+def phase_rwr_collect(unet_gn, vae_gn, enc_gn, has_h5py):
+    """10b: the collection driver for compressed-animals-rwr, 8 samples."""
+    import torch
+
+    from ddpo_torch.ops import _build
+    from ddpo_torch.pipelines import sample, save_sizes
+    from ddpo_torch.utils.metrics import read_metrics, run_dir
+
+    argv = ["--dataset", "compressed-animals-rwr", "--max_samples", "8", "--seed", "0"]
+    args = sample.Parser().parse_args("sample", list(argv))
+    if (args.n_samples_per_device, args.n_inference_steps, args.guidance_scale, args.dtype,
+            args.filter_field) != (4, 50, 5.0, "bfloat16", "jpeg"):
+        fail("compressed-animals-rwr does not resolve to batch 4, 50 steps, CFG 5, bf16, jpeg")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    start = time.perf_counter()
+    writer = None
+    if has_h5py:
+        n = sample.main(list(argv))
+        manifest = save_sizes.main(["--dataset", "compressed-animals-rwr"])
+        stored = sum(manifest.values())
+        how = "sample.main (HDF5 split files) and save_sizes.main: manifest counts"
+    else:
+        c = sample.build_collector(args)
+        writer = MemoryWriter()
+        sample.configure_writer(writer, c.callback_fns)
+        n = sample.collect(c, writer)
+        stored = len(writer.reader())
+        how = ("h5py absent: sample.build_collector + sample.collect on an in-memory writer "
+               "(the HDF5 write and save_sizes.main did not run); rows stored")
+        del c
+    wall = time.perf_counter() - start
+    counts = _build.launch_counts()
+    events = [e for e in read_metrics(run_dir(args.savepath)) if e.get("phase") == "sample"]
+    want = rwr_launches(unet_gn, vae_gn, enc_gn, len(events), args.n_inference_steps)
+    keys = ("sample_s", "decode_s", "reward_jpeg_s", "reward_vae_s", "write_s")
+    split = "; ".join(f"batch {e['step']}: " + ", ".join(f"{k} {e[k]:.3f}" for k in keys)
+                      + f", images/s {e['images_per_sec']:.3f}" for e in events)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"10b collection: {how} {stored} (expected 8); {n} samples in {wall:.1f} s (model "
+        f"build included); {split}; max_memory_allocated {peak:.2f} GiB")
+    log(f"10b launches {counts}, expected {want} (UNet {unet_gn}, decoder {vae_gn}, encoder "
+        f"{enc_gn} GroupNorms; {len(events)} batches)")
+    if n != 8 or stored != 8:
+        fail(f"the collection stored {stored} of {n} samples, expected 8")
+    if counts != want:
+        fail(f"kernel launches {counts} != expected {want}")
+    torch.cuda.empty_cache()
+    return writer
+
+
+def finetune_data(args, ft, writer):
+    """The finetune's (dataset, loader): the HDF5 bucket loader, or the same
+    loader over the in-memory collection."""
+    from ddpo_torch.data import bucket_loader, get_bucket_loader
+
+    if writer is None:
+        return get_bucket_loader(args.loadpath, ft.models.tokenizer,
+                                 batch_size=args.train_batch_size,
+                                 max_train_samples=args.max_train_samples)
+    return bucket_loader(writer.reader(), ft.models.tokenizer, args.train_batch_size,
+                         args.max_train_samples, args.num_workers)
+
+
+def one_step(ft, batch, draws):
+    """finetune_step from a fresh optimizer state; (loss, grads, params after)."""
+    from ddpo_torch.pipelines import finetune
+
+    ft.state.opt_state = ft.state.tx.init(ft.state.params)
+    loss = finetune.finetune_step(ft, batch, 1, draws=draws)
+    return (float(loss), {k: p.grad.detach().clone() for k, p in ft.state.params.items()},
+            {k: p.detach().clone() for k, p in ft.state.params.items()})
+
+
+def phase_rwr_finetune(unet_gn, writer, has_h5py):
+    """10c: the fp32 finetune at the preset's settings, cut to 8 steps; then
+    one step from the same params and draws on the kernels and on plain ops."""
+    import numpy as np
+    import torch
+
+    from ddpo_torch.ops import _build
+    from ddpo_torch.pipelines import finetune
+    from ddpo_torch.training import diffusion
+    from ddpo_torch.utils.metrics import read_metrics, run_dir
+
+    argv = ["--dataset", "compressed-animals-rwr", "--max_train_steps", "8", "--save_freq", "1",
+            "--seed", "0"]
+    args = finetune.Parser().parse_args("train", list(argv))
+    if (args.dtype, args.train_cfg, args.train_batch_size, args.weighted_dataset,
+            args.temperature, args.remat) != ("float32", True, 1, True, 0.2, True):
+        fail("compressed-animals-rwr's train block is not fp32, train_cfg, batch 1, "
+             "weighted_dataset at temperature 1/5, remat")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    start = time.perf_counter()
+    if has_h5py:
+        ft = finetune.main(list(argv))
+    else:
+        ft = finetune.build_finetuner(args)
+        finetune.train(ft, *finetune_data(args, ft, writer))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    counts = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ev = [e for e in read_metrics(run_dir(args.savepath)) if e.get("phase") == "finetune"][-1]
+    steps = ev["global_step"]
+    # fp32: each of the two CFG applies runs the UNet forward and its remat
+    # recompute through the kernels; the fp32 backward recomputes attention
+    # in plain torch (JAX's XLA VJP) and GroupNorm's backward is analytic
+    want = expected(flash_fwd=4 * FLASH_PER_UNET_FORWARD * steps, gn_stats=4 * unet_gn * steps)
+    log(f"10c finetune (fp32, train_cfg, batch 1, weighted_dataset at 1/5, remat; "
+        f"{'finetune.main' if has_h5py else 'build_finetuner + train over the in-memory data'}):"
+        f" {steps} steps in {wall:.1f} s (model build included), loss {ev['loss']:.5f}; first "
+        f"step {ev['first_step_s']:.3f} s, then {ev['step_s']:.4f} s a step; "
+        f"max_memory_allocated {peak:.2f} GiB; unet_1.pkl {ev.get('save_bytes', 0)} bytes "
+        f"written in {ev.get('save_s', 0):.2f} s")
+    log(f"10c launches {counts}, expected {want}")
+    if steps != 8 or not np.isfinite(ev["loss"]) or "save_bytes" not in ev:
+        fail("the finetune did not take 8 finite steps and export the UNet")
+    if counts != want:
+        fail(f"kernel launches {counts} != expected {want}")
+    # what unet_1.pkl holds, at the sampler's dtype (10e loads it)
+    exported_bf16 = {k: p.detach().to(torch.bfloat16) for k, p in ft.state.params.items()}
+
+    # one step from the same params and draws: kernels, then plain ops
+    dataset, loader = finetune_data(args, ft, writer)
+    dataset.make_weights(args.filter_field, args.temperature, args.per_prompt_weights)
+    batch = next(iter(loader))
+    moments = torch.as_tensor(batch["vae"], device="cuda")
+    draws = diffusion.draw(moments, 1000, torch.Generator(device="cuda").manual_seed(1))
+    start_params = {k: p.detach().clone() for k, p in ft.state.params.items()}
+    _build.reset_launch_counts()
+    k_loss, k_grads, k_after = one_step(ft, batch, draws)
+    k_counts = _build.launch_counts()
+    with torch.no_grad():
+        for k, p in ft.state.params.items():
+            p.copy_(start_params[k])
+    with plain_ops():
+        p_loss, p_grads, p_after = one_step(ft, batch, draws)
+    if any(_build.launch_counts()[k] != v for k, v in k_counts.items()):
+        fail("the plain step launched a kernel")
+    lr, eps = args.learning_rate, args.epsilon
+    grad_rel, exceed, dparam = 0.0, 0, 0.0
+    gk_norm = torch.sqrt(sum(g.square().sum() for g in k_grads.values()))
+    gp_norm = torch.sqrt(sum(g.square().sum() for g in p_grads.values()))
+    ck, cp = (min(1.0, args.max_grad_norm / float(n)) for n in (gk_norm, gp_norm))
+    for k in k_grads:
+        gk, gp = k_grads[k], p_grads[k]
+        grad_rel = max(grad_rel, float((gk - gp).abs().max() / gp.abs().max().clamp_min(1e-30)))
+        # the first adamw step: p -= lr * (g/(|g| + eps) + wd * p), g clipped
+        uk, up = gk * ck, gp * cp
+        uk, up = uk / (uk.abs() + eps), up / (up.abs() + eps)
+        p0 = start_params[k]
+        bound = lr * (uk - up).abs() + 2 * torch.finfo(p0.dtype).eps * p0.abs() + 1e-5 * lr
+        diff = (k_after[k] - p_after[k]).abs()
+        exceed += int((diff > bound).sum())
+        dparam = max(dparam, float(diff.max()))
+    loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+    log(f"10c one step, kernels against plain ops (same params, same draws, fresh adamw): loss "
+        f"{k_loss:.6f} / {p_loss:.6f}, rel {loss_rel:.3e} (bound 1e-4); max per-leaf "
+        f"|dgrad| / max|grad| {grad_rel:.3e} (bound 1e-3); max|dparam| {dparam:.3e}, bound "
+        f"elementwise lr |u_k - u_p| + 2 ulp(p) + 1e-5 lr (at most 2 lr = {2 * lr:g}), u = "
+        f"g/(|g| + eps) of each side's clipped gradient (the first adamw step): {exceed} "
+        f"elements over it; launches {k_counts}")
+    if not (loss_rel <= 1e-4 and grad_rel <= 1e-3 and exceed == 0):
+        fail("the finetune step on its kernels differs from the plain ops")
+    del ft, k_grads, p_grads, k_after, p_after, start_params
+    torch.cuda.empty_cache()
+    return exported_bf16, args.savepath
+
+
+def phase_rwr_bf16(unet_gn, writer):
+    """10d: two finetune steps at --dtype bfloat16 (cfg_concat)."""
+    import numpy as np
+    import torch
+
+    from ddpo_torch.ops import _build
+    from ddpo_torch.pipelines import finetune
+
+    argv = ["--dataset", "compressed-animals-rwr", "--dtype", "bfloat16", "--seed", "0",
+            "--savepath", "models/bf16"]
+    args = finetune.Parser().parse_args("train", list(argv))
+    ft = finetune.build_finetuner(args)
+    dataset, loader = finetune_data(args, ft, writer)
+    dataset.make_weights(args.filter_field, args.temperature, args.per_prompt_weights)
+    batches = iter(loader)
+    _build.reset_launch_counts()
+    losses, secs = [], []
+    for _ in range(2):
+        start = time.perf_counter()
+        losses.append(float(finetune.finetune_step(ft, next(batches), 1)))
+        secs.append(time.perf_counter() - start)
+    counts = _build.launch_counts()
+    # one 2B apply a step, forward + remat recompute; JAX's finetune
+    # computes in fp32 over bf16 weights, so no bf16 flash backward runs
+    want = expected(flash_fwd=2 * 2 * FLASH_PER_UNET_FORWARD, gn_stats=2 * 2 * unet_gn)
+    dtypes = {p.dtype for p in ft.state.params.values()}
+    log(f"10d finetune at --dtype bfloat16 (params {dtypes}, compute fp32 as JAX's, cfg_concat): "
+        f"losses {losses}, {secs[0]:.3f} s then {secs[1]:.3f} s a step; flash_bwd_dq "
+        f"{counts['flash_bwd_dq']}, flash_bwd_dkv {counts['flash_bwd_dkv']} launches (expected 0:"
+        f" the backward's attention is fp32); launches {counts}, expected {want}")
+    if not np.isfinite(losses).all() or dtypes != {torch.bfloat16}:
+        fail("the bf16 finetune steps gave a non-finite loss or other parameter dtypes")
+    if counts != want:
+        fail(f"kernel launches {counts} != expected {want}")
+    del ft
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_rwr_iteration1(unet_gn, vae_gn, enc_gn, exported_bf16, has_h5py):
+    """10e: sample --iteration 1 on the finetune's export."""
+    import numpy as np
+    import torch
+
+    from ddpo_torch.ops import _build
+    from ddpo_torch.pipelines import sample
+    from ddpo_torch.utils.metrics import read_metrics, run_dir
+
+    argv = ["--dataset", "compressed-animals-rwr", "--iteration", "1", "--seed", "0",
+            "--max_steps", "1", "--savepath", "samples/1"]
+    args = sample.Parser().parse_args("sample", list(argv))
+    c = sample.build_collector(args)
+    same = sum(torch.equal(p, exported_bf16[k]) for k, p in c.models.unet.named_parameters())
+    log(f"10e iteration 1: {args.loadpath} loaded at {args.dtype}: {same} of {len(exported_bf16)} "
+        f"UNet tensors equal the finetuned params (after the 8 steps) cast to bf16, bit for bit")
+    if same != len(exported_bf16):
+        fail("sample --iteration 1 did not load the finetune's export bit for bit")
+    _build.reset_launch_counts()
+    if has_h5py:
+        del c
+        n = sample.main(list(argv))
+    else:
+        writer = MemoryWriter()
+        sample.configure_writer(writer, c.callback_fns)
+        n = sample.collect(c, writer)
+        del c
+    counts = _build.launch_counts()
+    ev = [e for e in read_metrics(run_dir(args.savepath)) if e.get("phase") == "sample"][-1]
+    want = rwr_launches(unet_gn, vae_gn, enc_gn, 1, args.n_inference_steps)
+    log(f"10e iteration 1: {n} samples, images/s {ev['images_per_sec']:.3f} (sample "
+        f"{ev['sample_s']:.3f} s, decode {ev['decode_s']:.3f}, jpeg {ev['reward_jpeg_s']:.3f}, "
+        f"vae {ev['reward_vae_s']:.3f}, write {ev['write_s']:.3f}); launches {counts}, "
+        f"expected {want}")
+    if n != args.n_samples_per_device or not np.isfinite(ev["mean_reward"]):
+        fail("iteration 1 did not collect one batch with finite rewards")
+    if counts != want:
+        fail(f"kernel launches {counts} != expected {want}")
+    torch.cuda.empty_cache()
+    return ev["images_per_sec"]
+
+
+def phase_rwr(unet_gn, vae_gn):
+    """10: one RWR iteration of compressed-animals-rwr at SD-1.4 width."""
+    import importlib.util
+
+    from ddpo_torch.models.layers import Conv3x3, GroupNorm
+    from ddpo_torch.utils.serialization import build_models
+
+    has_h5py = importlib.util.find_spec("h5py") is not None
+    log(f"h5py: {'present' if has_h5py else 'absent'}")
+    encoder = build_models("sd14", "meta")[1].encoder
+    enc_gn = sum(isinstance(m, GroupNorm) for m in encoder.modules())
+    enc_conv = sum(isinstance(m, Conv3x3) for m in encoder.modules())
+    # 4 blocks x 2 resnets x 2 + mid (2 resnets x 2 + attention) + conv_norm_out;
+    # the ResnetBlock convs: 4 x 2 x 2 + 2 x 2
+    if (enc_gn, enc_conv) != (22, 20):
+        fail(f"VAE encoder: {enc_gn} GroupNorms and {enc_conv} Conv3x3s, expected 22 and 20")
+    marks = [("start", time.perf_counter())]
+    phase_rwr_encoder(enc_gn, enc_conv)
+    marks.append(("10a", time.perf_counter()))
+    writer = phase_rwr_collect(unet_gn, vae_gn, enc_gn, has_h5py)
+    marks.append(("10b", time.perf_counter()))
+    exported_bf16, export_dir = phase_rwr_finetune(unet_gn, writer, has_h5py)
+    marks.append(("10c", time.perf_counter()))
+    phase_rwr_bf16(unet_gn, writer)
+    marks.append(("10d", time.perf_counter()))
+    phase_rwr_iteration1(unet_gn, vae_gn, enc_gn, exported_bf16, has_h5py)
+    marks.append(("10e", time.perf_counter()))
+    shutil.rmtree(export_dir, ignore_errors=True)  # the 3.4 GB export
+    log("phase 10 wall: " + ", ".join(f"{name} {t - marks[i][1]:.1f} s"
+                                      for i, (name, t) in enumerate(marks[1:])))
+
+
 def main() -> None:
     try:
         import torch
@@ -1441,6 +1880,7 @@ def main() -> None:
     counts, full_update_s = phase_train(init_params, unet_gn, vae_gn, unet_conv)
     phase_lora(unet_gn, vae_gn, unet_conv, full_update_s)
     conv_counts, _ = phase_conv_path(unet_gn, vae_gn, unet_conv, vae_conv)
+    phase_rwr(unet_gn, vae_gn)
     shutil.rmtree(bucket, ignore_errors=True)
 
     def headline(results, shape):

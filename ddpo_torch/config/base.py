@@ -14,7 +14,8 @@ chain ("f:models/{iteration+1}").
 
 This is the PyTorch port's copy of ddpo_tpu/config/base.py: every preset and
 value is unchanged, so one command line means the same run in both packages.
-One key is the port's own: ``device`` in the generate and pg blocks.
+One key is the port's own: ``device`` in the sample, train, generate and pg
+blocks.
 Every measurement a comment below cites was taken by the JAX package on a
 TPU v5e; none of them describes this port's speed.
 """
@@ -58,6 +59,7 @@ base = {
         "seed": None,
         "dtype": "bfloat16",
         "model_preset": "sd14",  # TPU-native default (reference used float32)
+        "device": "cuda",  # or "cpu"; "cuda" raises when there is no card
     },
     # guidance-scale calibration sweep (pipelines/calibrate.py). Completes
     # the loop the reference left external: it only *consumes* a calibrated
@@ -158,6 +160,7 @@ base = {
         "model_preset": "sd14",
         "num_workers": 2,  # prefetch threads in the data loader
         "remat": True,  # rematerialize UNet activations in the backward
+        "device": "cuda",  # or "cpu"; "cuda" raises when there is no card
     },
     # DDPO policy-gradient training (pipelines/policy_gradient.py)
     "pg": {

@@ -1,3 +1,3 @@
-from ddpo_torch.core.scheduler import DDIMScheduler, DDIMState, make_betas
+from ddpo_torch.core.scheduler import DDIMScheduler, DDIMState, DDPMScheduler, make_betas
 
-__all__ = ["DDIMScheduler", "DDIMState", "make_betas"]
+__all__ = ["DDIMScheduler", "DDIMState", "DDPMScheduler", "make_betas"]

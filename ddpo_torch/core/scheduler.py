@@ -1,10 +1,14 @@
-"""DDIM scheduler with differentiable per-step Gaussian log-probs.
+"""DDIM scheduler with differentiable per-step Gaussian log-probs, and the
+DDPM forward-noising schedule of RWR.
 
-Port of ddpo_tpu/core/scheduler.py (DDIM only; DPMSolverPlusPlus and
-DDPMScheduler are not ported yet). The DDIM reverse step doubles as the DDPO
-policy: ``step`` in sample mode draws x_{t-1} and returns its log-density; in
-score mode it takes a stored ``prev_sample`` and scores that transition under
-the current model, with gradients flowing through the mean only.
+Port of ddpo_tpu/core/scheduler.py (DDIM and DDPM; DPMSolverPlusPlus is not
+ported yet). The DDIM reverse step doubles as the DDPO policy: ``step`` in
+sample mode draws x_{t-1} and returns its log-density; in score mode it takes
+a stored ``prev_sample`` and scores that transition under the current model,
+with gradients flowing through the mean only. ``add_noise`` is the forward
+process q(x_t | x_0) at per-sample timesteps (diffusers' add_noise_common),
+which the RWR finetune step (training/diffusion.py) draws its inputs from
+through ``DDPMScheduler``.
 
 Scheduler math is float32 whatever the model's activation dtype. Sample mode
 draws its noise from an explicit ``torch.Generator`` or takes it injected
@@ -234,3 +238,59 @@ class DDIMScheduler:
         )
         log_prob = log_prob.mean(dim=tuple(range(1, log_prob.dim())))
         return prev_sample, log_prob
+
+    def add_noise(
+        self,
+        state: DDIMState,
+        original_samples: torch.Tensor,
+        noise: torch.Tensor,
+        timesteps: torch.Tensor,
+    ) -> torch.Tensor:
+        """Forward process q(x_t | x_0) (diffusers add_noise_common)."""
+        alphas = state.alphas_cumprod[timesteps.long()]
+        sqrt_alpha = _left_broadcast(alphas**0.5, original_samples.shape)
+        sqrt_one_minus = _left_broadcast((1.0 - alphas) ** 0.5, original_samples.shape)
+        return sqrt_alpha * original_samples + sqrt_one_minus * noise
+
+    def get_velocity(
+        self,
+        state: DDIMState,
+        sample: torch.Tensor,
+        noise: torch.Tensor,
+        timesteps: torch.Tensor,
+    ) -> torch.Tensor:
+        alphas = state.alphas_cumprod[timesteps.long()]
+        sqrt_alpha = _left_broadcast(alphas**0.5, sample.shape)
+        sqrt_one_minus = _left_broadcast((1.0 - alphas) ** 0.5, sample.shape)
+        return sqrt_alpha * noise - sqrt_one_minus * sample
+
+
+@dataclasses.dataclass(frozen=True)
+class DDPMScheduler:
+    """Forward-noising schedule for RWR supervised finetuning.
+
+    Only the pieces the finetune trainer needs: ``create_state`` and
+    ``add_noise``. It shares ``DDIMState``, so both trainers use one state
+    type.
+    """
+
+    num_train_timesteps: int = 1000
+    beta_start: float = 0.00085
+    beta_end: float = 0.012
+    beta_schedule: str = "scaled_linear"
+    dtype: torch.dtype = torch.float32
+
+    def _ddim(self) -> DDIMScheduler:
+        return DDIMScheduler(
+            num_train_timesteps=self.num_train_timesteps,
+            beta_start=self.beta_start,
+            beta_end=self.beta_end,
+            beta_schedule=self.beta_schedule,
+            dtype=self.dtype,
+        )
+
+    def create_state(self, device=None) -> DDIMState:
+        return self._ddim().create_state(device)
+
+    def add_noise(self, state, original_samples, noise, timesteps):
+        return self._ddim().add_noise(state, original_samples, noise, timesteps)

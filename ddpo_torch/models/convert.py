@@ -20,8 +20,8 @@ VAE attention: the JAX tree and the port both use diffusers' older names
 ``_alias_vae_attention`` maps newer torch checkpoints (to_q/to_k/to_v/
 to_out.0) onto those names when loading them into JAX.
 
-The VAE encoder and quant_conv are not ported yet: ``from_flax`` leaves
-those entries of the VAE tree out (``VAE_NOT_PORTED``).
+Every model of the stack converts whole, the VAE's encoder and quant_conv
+included, so the export of a VAE round-trips too.
 """
 
 from __future__ import annotations
@@ -36,8 +36,6 @@ from ddpo_torch.models.layers import GroupNorm
 
 # flax names ending in _<digit> that are literal module names in torch
 _LITERAL_UNDERSCORE_STEMS = ("linear",)  # time_embedding.linear_1/linear_2
-
-VAE_NOT_PORTED = ("encoder", "quant_conv")
 
 
 def flax_path_to_torch_key(path: Tuple[str, ...]) -> str:
@@ -75,12 +73,10 @@ def iter_flax_leaves(tree: dict, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple
             yield prefix + (str(key),), node
 
 
-def flax_tree_to_state_dict(tree: dict, skip: Tuple[str, ...] = ()) -> Dict[str, torch.Tensor]:
+def flax_tree_to_state_dict(tree: dict) -> Dict[str, torch.Tensor]:
     """One model's nested Flax tree -> its torch state_dict (fp32 CPU tensors)."""
     state = {}
     for path, x in iter_flax_leaves(tree):
-        if path[0] in skip:
-            continue
         arr = convert_flax_tensor(path, np.asarray(x, dtype=np.float32))
         state[flax_path_to_torch_key(path)] = torch.tensor(arr)  # a copy: jax's arrays are read-only
     return state
@@ -88,11 +84,7 @@ def flax_tree_to_state_dict(tree: dict, skip: Tuple[str, ...] = ()) -> Dict[str,
 
 def from_flax(params: dict) -> Dict[str, Dict[str, torch.Tensor]]:
     """{"unet", "vae", "text_encoder"} Flax trees -> the port's state_dicts."""
-    skips = {"vae": VAE_NOT_PORTED}
-    return {
-        name: flax_tree_to_state_dict(tree, skips.get(name, ()))
-        for name, tree in params.items()
-    }
+    return {name: flax_tree_to_state_dict(tree) for name, tree in params.items()}
 
 
 def lora_from_flax(tree: dict) -> Dict[str, torch.Tensor]:
@@ -128,8 +120,8 @@ def torch_key_to_flax_path(key: str, module: nn.Module) -> Tuple[str, ...]:
 
 
 def to_flax(state: Mapping[str, torch.Tensor], model: nn.Module) -> dict:
-    """The UNet's (or the VAE decoder's) torch state_dict -> its nested Flax
-    tree of numpy arrays.
+    """The UNet's (or the VAE's) torch state_dict -> its nested Flax tree of
+    numpy arrays.
 
     ``model`` is the module the state belongs to (its module types name the
     leaves). The CLIP text tree nests its layers under digit keys of their

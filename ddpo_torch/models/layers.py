@@ -220,23 +220,28 @@ class Transformer2D(nn.Module):
 
 
 class StridedConv3x3(nn.Conv2d):
-    """3x3 stride-2 conv, padding 1, through ops/conv.py's library_conv."""
+    """3x3 stride-2 conv (padding 1 or 0) through ops/conv.py's library_conv."""
 
-    def __init__(self, channels: int):
-        super().__init__(channels, channels, 3, stride=2, padding=1)
+    def __init__(self, channels: int, padding: int = 1):
+        super().__init__(channels, channels, 3, stride=2, padding=padding)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return library_conv(x, self.weight, self.bias, stride=2, padding=1)
+        return library_conv(x, self.weight, self.bias, stride=2, padding=self.padding[0])
 
 
 class Downsample2D(nn.Module):
-    """3x3 stride-2 conv with symmetric padding 1 (the UNet variant)."""
+    """3x3 stride-2 conv: symmetric padding 1 (the UNet variant), or with
+    ``asymmetric_pad`` one zero row and column on the bottom and right and
+    no conv padding (the VAE encoder's, diffusers' pad (0, 1))."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, asymmetric_pad: bool = False):
         super().__init__()
-        self.conv = StridedConv3x3(channels)
+        self.asymmetric_pad = asymmetric_pad
+        self.conv = StridedConv3x3(channels, padding=0 if asymmetric_pad else 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.asymmetric_pad:
+            x = F.pad(x, (0, 1, 0, 1))
         return self.conv(x)
 
 

@@ -6,10 +6,10 @@ info), where images are (N, H, W, 3) float in [0, 1]. ``evaluate_callbacks``
 runs every registered fn, choosing a random training prompt per sample when
 prompts are lists.
 
-Ported: jpeg, neg_jpeg, arange, mirror, mirror_corr, rotational_corr. The
-model-based and server-based rewards (vae, aesthetic, consistency,
-rotational, thumbnail, vqa, llava_vqa, llava_bertscore) are in the registry
-and raise "not ported yet" when built.
+Ported: jpeg, neg_jpeg, arange, mirror, mirror_corr, rotational_corr, and
+vae (the RWR posterior moments). The other model-based and server-based
+rewards (aesthetic, consistency, rotational, thumbnail, vqa, llava_vqa,
+llava_bertscore) are in the registry and raise "not ported yet" when built.
 """
 
 from __future__ import annotations
@@ -104,6 +104,30 @@ def rotational_correlation_fn(**kwargs) -> RewardFn:
     return _fn
 
 
+def vae_fn(vae=None, **kwargs) -> RewardFn:
+    """Encode images to VAE posterior moments, stored for RWR training.
+
+    The layout is the reference's: channel-last concat of (mean, logvar),
+    (N, h, w, 8) fp32. The encoder runs on the VAE's device, in its dtype.
+    """
+    if vae is None:
+        raise RuntimeError("VAE unavailable: pass vae= to the callback factory")
+    import torch
+
+    device = next(vae.parameters()).device
+
+    def _fn(images, prompts, metadata):
+        del prompts, metadata
+        x = torch.as_tensor(np.asarray(images, dtype=np.float32), device=device)
+        x = (x.permute(0, 3, 1, 2).contiguous() - 0.5) / 0.5
+        with torch.no_grad():
+            mean, logvar = vae.encode(x).chunk(2, dim=1)
+            moments = torch.cat([mean.permute(0, 2, 3, 1), logvar.permute(0, 2, 3, 1)], -1)
+        return moments.cpu().numpy(), {}
+
+    return _fn
+
+
 def _not_ported(name: str) -> Callable[..., RewardFn]:
     def factory(*args, **kwargs) -> RewardFn:
         raise NotImplementedError(f"the {name!r} reward is not ported yet")
@@ -120,7 +144,7 @@ def evaluate_callbacks(fns: Dict[str, RewardFn], images, prompts, metadata):
 
 
 callback_fns: Dict[str, Callable[..., RewardFn]] = {
-    "vae": _not_ported("vae"),
+    "vae": vae_fn,
     "aesthetic": _not_ported("aesthetic"),
     "consistency": _not_ported("consistency"),
     "jpeg": jpeg_fn,

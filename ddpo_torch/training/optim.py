@@ -270,12 +270,14 @@ class ClipAdafactor:
 
 
 def build_optimizer(args):
-    """Global-norm clip + adamw (bf16 mu) | adafactor, on the schedule."""
-    if args.optimizer == "adafactor":
+    """Global-norm clip + adamw (bf16 mu) | adafactor, on the schedule;
+    ``args.optimizer`` defaults to adamw (the RWR train block has no key)."""
+    optimizer = getattr(args, "optimizer", "adamw")
+    if optimizer == "adafactor":
         return ClipAdafactor(build_lr_schedule(args), weight_decay=args.weight_decay,
                              max_grad_norm=args.max_grad_norm)
-    if args.optimizer != "adamw":
-        raise ValueError(f"unknown --optimizer {args.optimizer!r} (adamw | adafactor)")
+    if optimizer != "adamw":
+        raise ValueError(f"unknown --optimizer {optimizer!r} (adamw | adafactor)")
     return ClipAdamW(
         build_lr_schedule(args), b1=args.beta1, b2=args.beta2, eps=args.epsilon,
         weight_decay=args.weight_decay, max_grad_norm=args.max_grad_norm,

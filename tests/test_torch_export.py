@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from ddpo_torch.models.convert import VAE_NOT_PORTED, from_flax, to_flax
+from ddpo_torch.models.convert import from_flax, to_flax
 from ddpo_torch.models.lora import init_lora, merge_lora
 from ddpo_torch.utils import checkpoints
 from ddpo_torch.utils.serialization import build_models, load_stable_diffusion, load_unet
@@ -56,10 +56,7 @@ def test_to_flax_inverts_from_flax(jax_params, name):
     model = {"unet": unet, "vae": vae}[name]
     state = from_flax(jax_params)[name]
     model.load_state_dict(state)
-    tree = jax_params[name]
-    if name == "vae":  # the encoder is not ported: from_flax leaves it out
-        tree = {k: v for k, v in tree.items() if k not in VAE_NOT_PORTED}
-    _assert_trees_equal(to_flax(state, model), tree)
+    _assert_trees_equal(to_flax(state, model), jax_params[name])
     # bf16 weights are written as float32, exactly
     half = {k: v.to(torch.bfloat16) for k, v in state.items()}
     back = from_flax({name: to_flax(half, model)})[name]

@@ -509,3 +509,47 @@ def test_convs_are_batch_invariant_inside_the_mode(cuda, shape, stride):
         full = conv(x)
         assert torch.equal(full[rows], conv(x[rows]))
         assert torch.equal(full[:1], conv(x[:1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("conv_switch", [None, True])
+def test_vae_encoder_on_kernels_matches_plain(cuda, monkeypatch, conv_switch):
+    """The SD-1.4 VAE encoder at fp32 on its kernels against the same module
+    on the plain versions (group_stats_reference and, with the conv switch
+    on, conv3x3_reference): one gn_stats launch per GroupNorm (22) and one
+    conv3x3 per ResnetBlock conv (20) with the switch on, conv_in, conv_out
+    and the stride-2 convs on cuDNN; moments within 1e-4 of max|moments|
+    (fp32 sums in another order through 34 layers)."""
+    from ddpo_torch.models import AutoencoderKL
+    from ddpo_torch.models.layers import Conv3x3, GroupNorm
+    from ddpo_torch.ops import conv as conv_ops
+    from ddpo_torch.ops import groupnorm as gn_ops
+    from ddpo_torch.utils.serialization import init_weights_
+
+    with torch.device("meta"):
+        vae = AutoencoderKL()
+    vae = vae.to_empty(device=cuda).eval()
+    init_weights_(vae, torch.Generator(device=cuda).manual_seed(0))
+    n_gn = sum(isinstance(m, GroupNorm) for m in vae.encoder.modules())
+    n_conv = sum(isinstance(m, Conv3x3) for m in vae.encoder.modules())
+    assert (n_gn, n_conv) == (22, 20)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.rand((2, 3, 128, 128), generator=gen, device=cuda) * 2 - 1
+    try:
+        set_conv_kernel_enabled(conv_switch)
+        before = _build.launch_counts()
+        with torch.no_grad():
+            out = vae.encode(x)
+        after = _build.launch_counts()
+        assert after["gn_stats"] - before["gn_stats"] == n_gn
+        assert after["conv3x3"] - before["conv3x3"] == (n_conv if conv_switch else 0)
+        monkeypatch.setattr(gn_ops, "group_stats",
+                            lambda t, g: gn_ops.group_stats_reference(t, g))
+        monkeypatch.setattr(conv_ops, "conv3x3_direct", conv_ops.conv3x3_reference)
+        with torch.no_grad():
+            ref = vae.encode(x)
+        assert _build.launch_counts() == after
+    finally:
+        set_conv_kernel_enabled(None)
+    assert out.shape == (2, 8, 16, 16) and torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()

@@ -17,7 +17,6 @@ import pytest
 import torch
 
 from ddpo_torch.models.convert import (
-    VAE_NOT_PORTED,
     convert_flax_tensor,
     flax_path_to_torch_key,
     from_flax,
@@ -102,8 +101,6 @@ def test_sd14_manifest_maps_onto_the_port(name):
     mapped = {}
     for path, shape in manifest.items():
         parts = tuple(path.split("/"))
-        if name == "vae" and parts[0] in VAE_NOT_PORTED:
-            continue
         key = flax_path_to_torch_key(parts)
         assert torch_key_to_flax_path(key)[0] == parts  # inverse of JAX's rule
         want = convert_flax_tensor(parts, np.empty(shape, np.uint8)).shape

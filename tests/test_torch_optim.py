@@ -216,8 +216,11 @@ def test_rewards_match_jax(name):
 
 
 def test_unported_rewards_raise():
-    for name in ("vae", "aesthetic", "consistency", "rotational", "thumbnail", "vqa",
+    for name in ("aesthetic", "consistency", "rotational", "thumbnail", "vqa",
                  "llava_vqa", "llava_bertscore"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             t_callbacks.callback_fns[name]()
+    # the vae reward is ported (tests/test_torch_rwr.py) and needs its model
+    with pytest.raises(RuntimeError, match="pass vae="):
+        t_callbacks.callback_fns["vae"]()
     assert set(t_callbacks.callback_fns) == set(j_callbacks.callback_fns)
