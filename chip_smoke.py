@@ -107,6 +107,24 @@ Phases, in order; any failure exits non-zero:
      --dtype bfloat16 (cfg_concat; fp32 compute as JAX's, so no flash
      backward launch); (e) sample --iteration 1 loads the export bit for
      bit at bf16 and collects one batch.
+  11. checkpoints and the CLIP rewards: (a) phase 4's stack (seed 0, bf16)
+     written by save_stable_diffusion_export (the diffusers-Flax msgpack
+     layout) and loaded back by load_stable_diffusion(pretrained_model=
+     <dir>), every tensor bit for bit; bytes, write seconds, the reader's
+     and the whole load's seconds and GB/s; (b) the same weights at fp16 in
+     the torch-safetensors layout (written by ``write_safetensors``, the
+     card's machine has no safetensors), the VAE attention under the newer
+     to_q/to_k/to_v/to_out.0 names and a position_ids buffer, loaded as the
+     fp16 cast (max|d| 0); (c) generate --pretrained_model <(a)'s dir>: the
+     images of phase 4 bit for bit (else within two in-memory calls'
+     spread) and phase 4's launches; (d) a random ViT-L/14 (seed 0) written
+     as a CLIP directory and a random aesthetic MLP as
+     <cache>/sac+logos+ava1-l14-linearMSE.pth, loaded by
+     load_clip_checkpoint and load_weights; the ViT-L/14 tower's ms for a
+     batch of 4 at fp32; the aesthetic, rotational, thumbnail and (random
+     ViT-B/32 and B/32 text, hash tokenizer) consistency rewards at fp32
+     on (c)'s images, ms a batch on the card, each within 1e-4 of the same
+     function with device="cpu" (max|d| over the batch's largest |score|).
 
 The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}. With no CUDA device, or run
@@ -918,10 +936,7 @@ def phase_serving(unet_gn, vae_gn, unet_conv=0, vae_conv=0):
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     start = time.perf_counter()
-    result = generate.main([
-        "--dataset", "compressed-animals", "--n_samples", str(n_images),
-        "--n_samples_per_device", str(n_images), "--seed", "0",
-    ])
+    result = generate.main(list(SERVING_ARGV))
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
     counts = _build.launch_counts()
@@ -946,7 +961,7 @@ def phase_serving(unet_gn, vae_gn, unet_conv=0, vae_conv=0):
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"images/s (sampling + decode, per batch): {ips}; "
         f"max_memory_allocated {peak:.2f} GiB")
-    return counts, ips, peak
+    return counts, ips, peak, images
 
 
 def phase_rollout():
@@ -1414,7 +1429,7 @@ def phase_conv_path(unet_gn, vae_gn, unet_conv, vae_conv):
         del models, latents, context, off, on
         torch.cuda.empty_cache()
         # (b) serving
-        counts, ips, peak = phase_serving(unet_gn, vae_gn, unet_conv, vae_conv)
+        counts, ips, peak, _ = phase_serving(unet_gn, vae_gn, unet_conv, vae_conv)
         # (c) rollout and the on-policy update
         rollout = phase_rollout()
         _, update_counts = phase_onpolicy(rollout, unet_gn, unet_conv)
@@ -1847,6 +1862,274 @@ def phase_rwr(unet_gn, vae_gn):
                                       for i, (name, t) in enumerate(marks[1:])))
 
 
+def write_safetensors(path, tensors) -> int:
+    """A .safetensors file of ``tensors`` (the card's machine has no
+    safetensors package); its size in bytes."""
+    import torch
+
+    names = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16",
+             torch.int64: "I64"}
+    header, offset, blobs = {}, 0, []
+    for name, t in tensors.items():
+        t = t.detach().cpu().contiguous().reshape(-1)
+        nbytes = t.numel() * t.element_size()
+        header[name] = {"dtype": names[t.dtype], "shape": list(tensors[name].shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+        blobs.append(t)
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little") + raw)
+        for t in blobs:
+            f.write(t.view(torch.uint8).numpy())
+        return f.tell()
+
+
+def dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def stack_state(models):
+    return {f"{sub}.{k}": v for sub in ("unet", "vae", "text_encoder")
+            for k, v in getattr(models, sub).state_dict().items()}
+
+
+def phase_checkpoint_export(workdir):
+    """11a: the serving stack written in the diffusers-Flax layout and
+    loaded back through load_stable_diffusion(pretrained_model=<dir>)."""
+    import torch
+
+    from ddpo_torch.models.convert import load_sd_checkpoint
+    from ddpo_torch.utils.serialization import (load_stable_diffusion,
+                                                save_stable_diffusion_export)
+
+    models = load_stable_diffusion(model_preset="sd14", device="cuda", dtype=torch.bfloat16, seed=0)
+    want = stack_state(models)
+    export = os.path.join(workdir, "sd14-export")
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    save_stable_diffusion_export(export, models)
+    write_s = time.perf_counter() - start
+    nbytes = dir_bytes(export)
+    del models
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    host = load_sd_checkpoint(export)  # the reader alone, into host tensors
+    read_s = time.perf_counter() - start
+    del host
+    start = time.perf_counter()
+    loaded = load_stable_diffusion(pretrained_model=export, model_preset="sd14", device="cuda",
+                                   dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - start
+    got = stack_state(loaded)
+    same = sum(k in got and got[k].dtype == v.dtype and torch.equal(got[k], v)
+               for k, v in want.items())
+    log(f"11a export (diffusers-Flax msgpack, bf16): {nbytes} bytes in {len(want)} tensors, "
+        f"written in {write_s:.2f} s ({nbytes / write_s / 1e9:.2f} GB/s); read to host "
+        f"tensors in {read_s:.2f} s ({nbytes / read_s / 1e9:.2f} GB/s); "
+        f"load_stable_diffusion onto the card in {load_s:.2f} s ({nbytes / load_s / 1e9:.2f} "
+        f"GB/s); {same} of {len(want)} tensors equal bit for bit")
+    if same != len(want) or set(got) != set(want):
+        fail("the exported stack did not load back bit for bit")
+    del loaded, got
+    torch.cuda.empty_cache()
+    return export, want
+
+
+def phase_checkpoint_safetensors(workdir, want):
+    """11b: the same weights at fp16 in the torch-safetensors layout, with
+    a newer diffusers VAE's attention names and the text encoder's
+    position_ids buffer."""
+    import torch
+
+    from ddpo_torch.utils.serialization import load_stable_diffusion
+
+    root = os.path.join(workdir, "sd14-safetensors")
+    fp16 = {k: v.to(torch.float16) for k, v in want.items()}
+    nbytes = 0
+    start = time.perf_counter()
+    for sub, fname in (("unet", "diffusion_pytorch_model.safetensors"),
+                       ("vae", "diffusion_pytorch_model.safetensors"),
+                       ("text_encoder", "model.safetensors")):
+        state = {k[len(sub) + 1:]: v.cpu() for k, v in fp16.items() if k.startswith(sub + ".")}
+        if sub == "vae":
+            renamed = {}
+            for key, value in state.items():
+                for old, new in ((".query.", ".to_q."), (".key.", ".to_k."),
+                                 (".value.", ".to_v."), (".proj_attn.", ".to_out.0.")):
+                    key = key.replace(old, new)
+                renamed[key] = value
+            if not any(".to_out.0." in k for k in renamed):
+                fail("the VAE has no mid-block attention to rename")
+            state = renamed
+        if sub == "text_encoder":
+            state["text_model.embeddings.position_ids"] = torch.arange(77)[None]
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        nbytes += write_safetensors(os.path.join(root, sub, fname), state)
+    write_s = time.perf_counter() - start
+    start = time.perf_counter()
+    loaded = load_stable_diffusion(pretrained_model=root, model_preset="sd14", device="cuda",
+                                   dtype=torch.float16)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - start
+    got = stack_state(loaded)
+    if set(got) != set(fp16):
+        fail(f"the safetensors stack has other keys: {sorted(set(got) ^ set(fp16))[:5]}")
+    delta = max((got[k].float() - v.float()).abs().max().item() for k, v in fp16.items())
+    log(f"11b torch-safetensors layout, fp16 (VAE attention as to_q/to_k/to_v/to_out.0, "
+        f"text_model.embeddings.position_ids present): {nbytes} bytes written in {write_s:.2f} s; "
+        f"load_stable_diffusion onto the card in {load_s:.2f} s ({nbytes / load_s / 1e9:.2f} "
+        f"GB/s); max|loaded - fp16 cast| = {delta:g} over {len(fp16)} tensors")
+    if delta != 0 or any(got[k].dtype != torch.float16 for k in got):
+        fail("the safetensors stack did not load as the fp16 cast")
+    del loaded, got, fp16
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+
+
+SERVING_ARGV = ["--dataset", "compressed-animals", "--n_samples", "4",
+                "--n_samples_per_device", "4", "--seed", "0"]
+
+
+def phase_checkpoint_generate(export, serving_images, serving_counts):
+    """11c: generate --pretrained_model <the export> gives the in-memory
+    stack's images, through the same kernels."""
+    import numpy as np
+
+    from ddpo_torch.ops import _build
+    from ddpo_torch.pipelines import generate
+
+    _build.reset_launch_counts()
+    start = time.perf_counter()
+    result = generate.main(SERVING_ARGV + ["--pretrained_model", export])
+    wall = time.perf_counter() - start
+    counts = _build.launch_counts()
+    delta = float(np.abs(result.images - serving_images).max())
+    log(f"11c generate --pretrained_model <export>: {result.images.shape[0]} images in "
+        f"{wall:.1f} s (the load included); max|images - phase 4's| = {delta:g}; launches "
+        f"{counts} (phase 4: {serving_counts})")
+    if counts != serving_counts or counts["flash_fwd"] <= 0 or counts["gn_stats"] <= 0:
+        fail("generate on the loaded stack launched other kernels than phase 4")
+    if delta != 0:
+        again = generate.main(list(SERVING_ARGV)).images
+        spread = float(np.abs(again - serving_images).max())
+        log(f"11c two calls of the in-memory stack differ by max|d| = {spread:g}")
+        if delta > spread:
+            fail(f"the loaded stack's images differ by {delta}, beyond the in-memory spread")
+    return result
+
+
+def phase_clip_rewards(workdir, images, prompts):
+    """11d: the CLIP rewards at fp32 on 11c's images, on the card against
+    the same functions on the CPU."""
+    import numpy as np
+    import torch
+
+    from ddpo_torch.models.aesthetic import WEIGHTS_FNAME, AestheticClassifier
+    from ddpo_torch.models.clip import B32_TEXT, VIT_B_32, VIT_L_14, CLIPImageEncoder, CLIPTextModel
+    from ddpo_torch.models.convert import load_clip_checkpoint
+    from ddpo_torch.models.tokenizer import get_tokenizer
+    from ddpo_torch.training import callbacks
+    from ddpo_torch.utils.serialization import init_weights_
+
+    def random_module(make, seed):
+        with torch.device("meta"):
+            module = make()
+        module = module.to_empty(device="cpu")
+        init_weights_(module, torch.Generator().manual_seed(seed))
+        return module
+
+    clip_dir = os.path.join(workdir, "clip-vit-large-patch14")
+    cache = os.path.join(workdir, "cache")
+    os.makedirs(clip_dir)
+    os.makedirs(cache)
+    start = time.perf_counter()
+    tower = random_module(CLIPImageEncoder, 0)
+    nbytes = write_safetensors(os.path.join(clip_dir, "model.safetensors"), tower.state_dict())
+    torch.save(random_module(AestheticClassifier, 0).state_dict(), os.path.join(cache, WEIGHTS_FNAME))
+    clip_params = load_clip_checkpoint(clip_dir)
+    if any(not torch.equal(clip_params[k], v) for k, v in tower.state_dict().items()):
+        fail("load_clip_checkpoint did not give back the ViT-L/14 written")
+    log(f"11d random ViT-L/14 (seed 0): {sum(p.numel() for p in tower.parameters())} "
+        f"parameters, model.safetensors {nbytes} bytes, written and loaded in "
+        f"{time.perf_counter() - start:.1f} s")
+
+    # the tower alone: ms for a batch of 4 at 224 px, fp32
+    gpu_tower = tower.to("cuda")
+    pixels = torch.as_tensor(callbacks.clip_preprocess(images), device="cuda")
+    with torch.no_grad():
+        tower_ms = median_ms(lambda: gpu_tower(pixels), 10)
+    tokens = (VIT_L_14.image_size // VIT_L_14.patch_size) ** 2 + 1
+    flops = 4 * (2 * sum(p.numel() for p in tower.parameters()) * tokens
+                 + 4 * tokens * tokens * VIT_L_14.hidden_size * VIT_L_14.num_layers)
+    bound_ms, bound_by = roofline(flops, 4 * sum(p.numel() for p in tower.parameters()), "float32")
+    log(f"11d ViT-L/14 tower, batch 4, fp32: {tower_ms:.2f} ms ({flops / 1e9:.0f} GFLOP, "
+        f"{flops / tower_ms / 1e9:.1f} TFLOP/s; bound {bound_ms:.2f} ms by {bound_by})")
+    del gpu_tower, tower
+
+    b32 = {**random_module(lambda: CLIPImageEncoder(VIT_B_32), 1).state_dict(),
+           **random_module(lambda: CLIPTextModel(B32_TEXT), 2).state_dict()}
+    g = torch.Generator().manual_seed(3)
+    b32["text_projection.weight"] = torch.randn((512, 512), generator=g) / 512 ** 0.5
+    b32["logit_scale"] = torch.tensor(float(np.log(1 / 0.07)))
+    tokenizer = get_tokenizer(None)
+    rewards = {
+        "aesthetic": lambda device: callbacks.aesthetic_fn(
+            clip_params=clip_params, cache=cache, device=device),
+        "rotational": lambda device: callbacks.rotational_symmetry_fn(
+            clip_params=clip_params, device=device),
+        "thumbnail": lambda device: callbacks.thumbnail_fn(clip_params=clip_params, device=device),
+        "consistency": lambda device: callbacks.consistency_fn(
+            clip_model_params=b32, tokenizer=tokenizer, device=device),
+    }
+    bound = 1e-4
+    for name, make in rewards.items():
+        fn = make("cuda")
+        fn(images, prompts, None)  # warm-up
+        times = []
+        for _ in range(3):
+            start = time.perf_counter()
+            scores, _ = fn(images, prompts, None)
+            times.append((time.perf_counter() - start) * 1e3)
+        del fn
+        torch.cuda.empty_cache()
+        start = time.perf_counter()
+        cpu_scores, _ = make("cpu")(images, prompts, None)
+        cpu_s = time.perf_counter() - start
+        scores, cpu_scores = np.asarray(scores, np.float64), np.asarray(cpu_scores, np.float64)
+        rel = float(np.abs(scores - cpu_scores).max() / np.abs(cpu_scores).max())
+        log(f"11d {name}: scores {np.round(scores.ravel(), 6).tolist()}; "
+            f"{statistics.median(times):.1f} ms a batch of {len(images)} on the card (median of 3, "
+            f"preprocessing included), {cpu_s:.1f} s on the CPU; max|cuda - cpu| / max|cpu| = "
+            f"{rel:.3e} (bound {bound:g})")
+        if scores.shape != cpu_scores.shape or not np.isfinite(scores).all() or not rel <= bound:
+            fail(f"the {name} reward on the card differs from the CPU's")
+    shutil.rmtree(clip_dir, ignore_errors=True)
+
+
+def phase_checkpoints(serving_images, serving_counts):
+    """11: local checkpoints and the CLIP rewards at SD-1.4 width."""
+    import torch
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    marks = [("start", time.perf_counter())]
+    export, want = phase_checkpoint_export(workdir)
+    marks.append(("11a", time.perf_counter()))
+    phase_checkpoint_safetensors(workdir, want)
+    del want
+    torch.cuda.empty_cache()
+    marks.append(("11b", time.perf_counter()))
+    result = phase_checkpoint_generate(export, serving_images, serving_counts)
+    marks.append(("11c", time.perf_counter()))
+    phase_clip_rewards(workdir, result.images, result.prompts)
+    marks.append(("11d", time.perf_counter()))
+    shutil.rmtree(workdir, ignore_errors=True)
+    log("phase 11 wall: " + ", ".join(f"{name} {t - marks[i][1]:.1f} s"
+                                      for i, (name, t) in enumerate(marks[1:])))
+
+
 def main() -> None:
     try:
         import torch
@@ -1872,7 +2155,7 @@ def main() -> None:
     silu_launches = check_gn_silu(silu_results, gn_shapes)
     check_conv3x3(conv_results, conv_shapes)
     phase_probes(probe_results)
-    phase_serving(unet_gn, vae_gn)
+    serving_counts, _, _, serving_images = phase_serving(unet_gn, vae_gn)
     rollout = phase_rollout()
     init_params, _ = phase_onpolicy(rollout, unet_gn)
     phase_batch_invariance(rollout[0])
@@ -1881,6 +2164,7 @@ def main() -> None:
     phase_lora(unet_gn, vae_gn, unet_conv, full_update_s)
     conv_counts, _ = phase_conv_path(unet_gn, vae_gn, unet_conv, vae_conv)
     phase_rwr(unet_gn, vae_gn)
+    phase_checkpoints(serving_images, serving_counts)
     shutil.rmtree(bucket, ignore_errors=True)
 
     def headline(results, shape):

@@ -16,17 +16,24 @@ flattens JAX's LoRA tree into the port's adapter dict (models/lora.py); A
 and B keep their orientation in both packages.
 
 VAE attention: the JAX tree and the port both use diffusers' older names
-(query/key/value/proj_attn), so no alias is needed here; ddpo_tpu's
-``_alias_vae_attention`` maps newer torch checkpoints (to_q/to_k/to_v/
-to_out.0) onto those names when loading them into JAX.
+(query/key/value/proj_attn); ``_alias_vae_attention`` maps a newer torch
+checkpoint's (to_q/to_k/to_v/to_out.0) onto them, as ddpo_tpu's does.
 
 Every model of the stack converts whole, the VAE's encoder and quant_conv
-included, so the export of a VAE round-trips too.
+included, so the export of a VAE round-trips too. CLIP trees keep their
+encoder layers under a digit key of their own ("layers" / "0"), as JAX's
+text and vision encoders do, in both directions.
+
+``load_sd_checkpoint`` and ``load_clip_checkpoint`` read a local diffusers
+(or transformers) checkpoint directory, in the diffusers-Flax msgpack
+layout or the torch-safetensors one, through the port's own readers
+(utils/tensor_files.py), into the port's state_dicts.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Mapping, Tuple
+import os
+from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,11 +81,18 @@ def iter_flax_leaves(tree: dict, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple
 
 
 def flax_tree_to_state_dict(tree: dict) -> Dict[str, torch.Tensor]:
-    """One model's nested Flax tree -> its torch state_dict (fp32 CPU tensors)."""
+    """One model's nested Flax tree -> its torch state_dict of CPU tensors:
+    numpy leaves (of any float type) become fp32, torch leaves (the file
+    readers') keep their dtype."""
     state = {}
     for path, x in iter_flax_leaves(tree):
-        arr = convert_flax_tensor(path, np.asarray(x, dtype=np.float32))
-        state[flax_path_to_torch_key(path)] = torch.tensor(arr)  # a copy: jax's arrays are read-only
+        if isinstance(x, torch.Tensor):
+            if path[-1] == "kernel" and x.ndim in (2, 4):
+                x = (x.permute(3, 2, 0, 1) if x.ndim == 4 else x.t()).contiguous()
+        else:
+            arr = convert_flax_tensor(path, np.asarray(x, dtype=np.float32))
+            x = torch.tensor(arr)  # a copy: jax's arrays are read-only
+        state[flax_path_to_torch_key(path)] = x
     return state
 
 
@@ -108,7 +122,7 @@ def torch_key_to_flax_path(key: str, module: nn.Module) -> Tuple[str, ...]:
     parts = key.split(".")
     path = []
     for part in parts[:-1]:
-        if part.isdigit() and path:
+        if part.isdigit() and path and path[-1] != "layers":  # CLIP: layers / 0
             path[-1] = f"{path[-1]}_{part}"
         else:
             path.append(part)
@@ -119,29 +133,118 @@ def torch_key_to_flax_path(key: str, module: nn.Module) -> Tuple[str, ...]:
     return tuple(path) + (leaf,)
 
 
-def to_flax(state: Mapping[str, torch.Tensor], model: nn.Module) -> dict:
-    """The UNet's (or the VAE's) torch state_dict -> its nested Flax tree of
-    numpy arrays.
+def to_flax(state: Mapping[str, torch.Tensor], model: nn.Module, keep_bf16: bool = False) -> dict:
+    """A model's torch state_dict (the UNet's, the VAE's or a CLIP tower's)
+    -> its nested Flax tree of numpy arrays.
 
     ``model`` is the module the state belongs to (its module types name the
-    leaves). The CLIP text tree nests its layers under digit keys of their
-    own ("layers" / "0"), which this does not rebuild. Conv weights go OIHW -> HWIO and Dense weights are transposed.
-    bf16 tensors are written as float32, which holds them exactly (numpy
-    has no bfloat16); other dtypes keep theirs.
+    leaves). Conv weights go OIHW -> HWIO and Dense weights are transposed.
+    bf16 tensors become float32, which holds them exactly (numpy has no
+    bfloat16), unless ``keep_bf16``: then they stay bf16 CPU tensors, which
+    ``utils.tensor_files.write_msgpack`` writes under the name "bfloat16".
+    Other dtypes keep theirs.
     """
     owners = dict(model.named_modules())
     tree: dict = {}
     for key, value in state.items():
         module = owners[key.rpartition(".")[0]]
         path = torch_key_to_flax_path(key, module)
-        x = value.detach()
-        if x.dtype == torch.bfloat16:
-            x = x.float()
-        x = x.cpu().numpy()
+        x = value.detach().cpu()
         if path[-1] == "kernel":
-            x = np.transpose(x, (2, 3, 1, 0)) if x.ndim == 4 else x.T
+            x = x.permute(2, 3, 1, 0) if x.ndim == 4 else x.t()
+        if x.dtype == torch.bfloat16 and not keep_bf16:
+            x = x.float()
+        x = x.contiguous()
         node = tree
         for part in path[:-1]:
             node = node.setdefault(part, {})
-        node[path[-1]] = np.ascontiguousarray(x)
+        node[path[-1]] = x if x.dtype == torch.bfloat16 else x.numpy()
     return tree
+
+
+# ------------------------ local checkpoint directories ------------------------ #
+
+# the diffusers-Flax pipeline layout's file per submodule
+FLAX_FILES = {
+    "unet": "diffusion_flax_model.msgpack",
+    "vae": "diffusion_flax_model.msgpack",
+    "text_encoder": "flax_model.msgpack",
+}
+
+_VAE_ATTN_ALIASES = {"to_q": "query", "to_k": "key", "to_v": "value"}
+
+
+def _alias_vae_attention(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Newer diffusers torch VAEs name the mid-block attention to_q/to_k/
+    to_v/to_out.0; the port's VAESelfAttention (and older checkpoints) use
+    query/key/value/proj_attn. Renamed where present."""
+    out = {}
+    for key, value in state.items():
+        parts = key.replace(".to_out.0.", ".proj_attn.").split(".")
+        out[".".join(_VAE_ATTN_ALIASES.get(p, p) for p in parts)] = value
+    return out
+
+
+def _drop_position_ids(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """transformers checkpoints may carry the CLIP embeddings' position_ids
+    buffer; the port's modules have none (JAX leaves it unused)."""
+    return {k: v for k, v in state.items() if not k.endswith("embeddings.position_ids")}
+
+
+def _cast(state: Dict[str, torch.Tensor], dtype: Optional[torch.dtype]) -> Dict[str, torch.Tensor]:
+    if dtype is None:
+        return state
+    return {k: v.to(dtype) if v.is_floating_point() else v for k, v in state.items()}
+
+
+def load_sd_checkpoint(path: str, dtype: Optional[torch.dtype] = None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A local SD-1.4 checkpoint directory -> {unet, vae, text_encoder}
+    state_dicts of CPU tensors (the file's dtype, or ``dtype``).
+
+    Per submodule, the diffusers-Flax msgpack file if there is one, else the
+    torch safetensors one; the file names and the FileNotFoundError are
+    ddpo_tpu's (models/convert.py ``load_sd_checkpoint``).
+    """
+    from ddpo_torch.utils.tensor_files import read_msgpack, read_safetensors
+
+    out = {}
+    for sub, fname in FLAX_FILES.items():
+        subdir = os.path.join(path, sub)
+        flax_path = os.path.join(subdir, fname)
+        st_candidates = [
+            os.path.join(subdir, "diffusion_pytorch_model.safetensors"),
+            os.path.join(subdir, "model.safetensors"),
+        ]
+        if os.path.exists(flax_path):
+            state = flax_tree_to_state_dict(read_msgpack(flax_path))
+        else:
+            st_path = next((p for p in st_candidates if os.path.exists(p)), None)
+            if st_path is None:
+                raise FileNotFoundError(f"no flax/safetensors weights under {subdir}")
+            state = read_safetensors(st_path)
+            if sub == "vae":
+                state = _alias_vae_attention(state)
+        out[sub] = _cast(_drop_position_ids(state), dtype)
+    return out
+
+
+def load_clip_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A local CLIP checkpoint directory (openai/clip-vit-large-patch14
+    layout) -> one state_dict under transformers' torch keys: text_model.*,
+    vision_model.*, visual_projection.weight, text_projection.weight and
+    the bare logit_scale, as the CLIP rewards take it.
+
+    transformers' Flax msgpack (flax_model.msgpack) if there is one, else
+    torch safetensors (model.safetensors); local files only.
+    """
+    from ddpo_torch.utils.tensor_files import read_msgpack, read_safetensors
+
+    flax_path = os.path.join(path, "flax_model.msgpack")
+    if os.path.exists(flax_path):
+        state = flax_tree_to_state_dict(read_msgpack(flax_path))
+    else:
+        st_path = os.path.join(path, "model.safetensors")
+        if not os.path.exists(st_path):
+            raise FileNotFoundError(f"no flax/safetensors CLIP weights under {path}")
+        state = read_safetensors(st_path)
+    return _drop_position_ids(state)

@@ -1,22 +1,27 @@
-"""Model-stack construction with random weights, and the finetuned-UNet overlay.
+"""Model-stack construction (a local checkpoint or random weights), the
+finetuned-UNet overlay, and the stack's export.
 
-Port of ddpo_tpu/utils/serialization.py's ``load_stable_diffusion`` for the
-random-init case: the SD-1.4 weights are not in the repository, so the stack
-is built at the full SD-1.4 geometry (``sd14``) or the CPU fixture's
-(``tiny``) with random weights drawn from a seeded ``torch.Generator``.
-``load_unet`` overlays a finetuned UNet on that stack, as the JAX package's
-does. Loading a local diffusers checkpoint is not ported yet.
+Port of ddpo_tpu/utils/serialization.py. ``load_stable_diffusion`` loads a
+local diffusers checkpoint directory (the diffusers-Flax msgpack layout or
+the torch-safetensors one, through models/convert.py
+``load_sd_checkpoint``) when ``pretrained_model`` names one. Otherwise it
+says so, as JAX does, and builds the stack at the full SD-1.4 geometry
+(``sd14``) or the CPU fixture's (``tiny``) with random weights drawn from
+a seeded ``torch.Generator``. ``load_unet`` overlays a finetuned UNet on
+that stack, and ``save_stable_diffusion_export`` writes the stack in the
+diffusers-Flax msgpack layout, which either package's loader reads.
 
-The initialisation mirrors Flax's defaults, which the JAX package's random
-model uses: lecun-normal (truncated) kernels, zero biases, ones and zeros
-for the norms, normal(0.02) for the CLIP embeddings. PyTorch's own defaults
-differ, and a model drawn from them does not stay finite through 50 bf16
-sampling steps the way the Flax-initialised one does.
+The random initialisation mirrors Flax's defaults, which the JAX package's
+random model uses: lecun-normal (truncated) kernels, zero biases, ones and
+zeros for the norms, normal(0.02) for the CLIP embeddings. PyTorch's own
+defaults differ, and a model drawn from them does not stay finite through
+50 bf16 sampling steps the way the Flax-initialised one does.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -31,6 +36,7 @@ from ddpo_torch.models import (
     UNetConfig,
     VAEConfig,
 )
+from ddpo_torch.models.clip import CLIPVisionEmbeddings
 from ddpo_torch.models.layers import GroupNorm
 from ddpo_torch.models.tokenizer import get_tokenizer, warn_if_fallback
 
@@ -126,6 +132,8 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
             m.bias.zero_()
         elif isinstance(m, nn.Embedding):
             m.weight.normal_(0.0, 0.02, generator=generator)
+        elif isinstance(m, CLIPVisionEmbeddings):
+            m.class_embedding.normal_(0.0, 0.02, generator=generator)
         else:
             continue
         done.update(id(p) for p in m.parameters(recurse=False))
@@ -141,17 +149,35 @@ def load_stable_diffusion(
     dtype: torch.dtype = torch.float32,
     seed: int = 0,
 ) -> StableModels:
-    """Build the stack on ``device`` in ``dtype`` with random weights.
+    """Build the stack on ``device`` in ``dtype``: the weights of the local
+    checkpoint directory ``pretrained_model`` names, else random ones drawn
+    from ``seed``. ``pretrained_model`` also names the tokenizer vocabulary
+    to look for."""
+    device = resolve_device(device)
+    if pretrained_model is not None and os.path.isdir(pretrained_model):
+        from ddpo_torch.models.convert import load_sd_checkpoint
 
-    ``pretrained_model`` names the tokenizer vocabulary to look for; the
-    weights are always random (checkpoint loading is not ported yet).
-    """
-    device = torch.device(device)
-    text_encoder, vae, unet = build_models(model_preset, device)
-    generator = torch.Generator(device=device).manual_seed(int(seed))
-    for module in (unet, vae, text_encoder):
-        init_weights_(module, generator)
-        module.to(dtype).eval().requires_grad_(False)
+        print(f"[ serialization ] loading local checkpoint: {pretrained_model}")
+        modules = build_models(model_preset, "meta")
+        state = load_sd_checkpoint(pretrained_model)
+        # transformers text encoders may lack the top-level text_model key
+        if not any(k.startswith("text_model.") for k in state["text_encoder"]):
+            state["text_encoder"] = {f"text_model.{k}": v for k, v in state["text_encoder"].items()}
+        text_encoder, vae, unet = (m.to(dtype).to_empty(device=device) for m in modules)
+        for name, module in (("unet", unet), ("vae", vae), ("text_encoder", text_encoder)):
+            module.load_state_dict(state.pop(name), strict=True)  # copies, cast to dtype
+            module.eval().requires_grad_(False)
+    else:
+        if pretrained_model is not None:
+            print(
+                f"[ serialization ] '{pretrained_model}' is not a local "
+                "directory; random-initializing SD-1.4 (zero-egress env)"
+            )
+        text_encoder, vae, unet = build_models(model_preset, device)
+        generator = torch.Generator(device=device).manual_seed(int(seed))
+        for module in (unet, vae, text_encoder):
+            init_weights_(module, generator)
+            module.to(dtype).eval().requires_grad_(False)
     tokenizer = get_tokenizer(pretrained_model)
     if model_preset != "tiny":  # the tiny preset is a test fixture by design
         warn_if_fallback(tokenizer, "serialization")
@@ -212,3 +238,22 @@ def load_unet(
     with torch.no_grad():
         models.unet.load_state_dict(state, strict=True)  # copies, cast to dtype
     return models
+
+
+def save_stable_diffusion_export(savepath: str, models) -> str:
+    """Write the stack's weights in the diffusers-Flax layout,
+    {unet,vae,text_encoder}/*.msgpack under ``savepath``, as ddpo_tpu's
+    export does: Flax trees (``models.convert.to_flax``), bf16 kept as
+    bf16. Both packages' ``load_stable_diffusion`` read the directory.
+    ``models`` is a StableModels (or anything with unet, vae and
+    text_encoder attributes)."""
+    from ddpo_torch.models.convert import FLAX_FILES, to_flax
+    from ddpo_torch.utils.tensor_files import write_msgpack
+
+    for sub, fname in FLAX_FILES.items():
+        module = getattr(models, sub)
+        subdir = os.path.join(savepath, sub)
+        os.makedirs(subdir, exist_ok=True)
+        write_msgpack(os.path.join(subdir, fname),
+                      to_flax(module.state_dict(), module, keep_bf16=True))
+    return savepath

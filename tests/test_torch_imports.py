@@ -1,5 +1,7 @@
 """Import hygiene: the port imports neither jax nor ddpo_tpu nor h5py (the
-RWR storage imports it at first use), and builds nothing at import time.
+RWR storage imports it at first use), nor the packages its checkpoint
+readers and LLaVA clients do without (msgpack, safetensors, requests), and
+builds nothing at import time.
 
 Runs in a fresh interpreter, since this test process imports both.
 """
@@ -18,7 +20,8 @@ import ddpo_torch.pipelines.policy_gradient
 for info in pkgutil.walk_packages(ddpo_torch.__path__, "ddpo_torch."):
     importlib.import_module(info.name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "ddpo_tpu", "h5py"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "ddpo_tpu", "h5py",
+                                    "msgpack", "safetensors", "requests"))
 print("LEAKED", bad)
 # importing builds nothing: the kernels are built at first use on a CUDA tensor
 # nor the JPEG reward's library: it is built at the reward's first call

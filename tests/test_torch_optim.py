@@ -216,9 +216,12 @@ def test_rewards_match_jax(name):
 
 
 def test_unported_rewards_raise():
-    for name in ("aesthetic", "consistency", "rotational", "thumbnail", "vqa",
-                 "llava_vqa", "llava_bertscore"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+    # only vqa is not ported; the CLIP rewards are, and without their
+    # weights raise as JAX's do (tests/test_torch_rewards_clip.py)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        t_callbacks.callback_fns["vqa"]()
+    for name in ("aesthetic", "consistency", "rotational", "thumbnail"):
+        with pytest.raises(RuntimeError, match="unavailable"):
             t_callbacks.callback_fns[name]()
     # the vae reward is ported (tests/test_torch_rwr.py) and needs its model
     with pytest.raises(RuntimeError, match="pass vae="):
