@@ -6,10 +6,11 @@ Phases, in order; any failure exits non-zero:
      port's device setup (utils/serialization.py resolve_device) must have
      turned TF32 off.
   2. build: nvcc builds ddpo_torch/csrc/*.cu for sm_90a; cuobjdump -sass on
-     the library says which kernel functions hold tensor-core (HMMA)
-     instructions: every instantiation of the bf16 flash forward, the bf16
-     flash backward (dq and dk/dv) and the tap-GEMM must; ptxas's registers
-     and spills of each of those instantiations.
+     the library says which kernel functions hold tensor-core (HMMA, and
+     for int8 IMMA) instructions: every instantiation of the bf16 flash
+     forward, the bf16 flash backward (dq and dk/dv), the tap-GEMM and the
+     s8 tap-GEMM must; ptxas's registers and spills of each of those
+     instantiations.
   3. kernels: each forward kernel against its plain PyTorch version at the
      main path's shapes, with the bound stated, plus kernel and plain times;
      the bf16 flash forward and gn_stats on image 0 of each 8-image case
@@ -125,6 +126,25 @@ Phases, in order; any failure exits non-zero:
      ViT-B/32 and B/32 text, hash tokenizer) consistency rewards at fp32
      on (c)'s images, ms a batch on the card, each within 1e-4 of the same
      function with device="cpu" (max|d| over the batch's largest |score|).
+  12. the serving extras at SD-1.4 width: (a) the s8 tap-GEMM
+     (csrc/conv3x3_s8.cu) against its plain version on the same int8 codes
+     at four of the quantized UNet's conv shapes (2B = 8), bf16 and fp32
+     out with a bias, and a ragged case: max |d| must be 0, two calls and
+     image 0 alone give the same bits; kernel, plain, cuDNN's bf16 conv and
+     im2col + torch._int_mm (a yardstick, checked against the exact sums)
+     times, the quantize pass over x and the bound (operations over the
+     1979 TOPS int8 peak against bytes); (b) generate at 512 px, batch 4,
+     seed 0: DDIM-50 and DPM++-20, each bf16 and --quant int8 in turns
+     (bf16, int8, int8, bf16), images/s and the launches (47 conv3x3_s8 a
+     UNet forward), then the final latents' relative L2 distances of int8
+     from bf16 and of DPM++-20 and eta-0 DDIM-20 from eta-0 DDIM-50
+     (random weights: printed, not bounded); (c) one collection batch of
+     compressed-animals-rwr with --scheduler dpm++ --quant int8
+     --n_inference_steps 20: seconds by stage, images/s beside 10b's, the
+     launches; (d) calibrate with two scales, one batch of 4, 20 DDIM steps,
+     then generate --guidance_scale auto on its savepath must print and use
+     the argmax; whether matplotlib imports and which renderer drew
+     calibration.png.
 
 The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}. With no CUDA device, or run
@@ -148,9 +168,9 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # the card's published peaks (H100 SXM data sheet, dense): device memory,
-# bf16 tensor cores, fp32 outside the tensor cores
+# bf16 and int8 tensor cores, fp32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "int8": 1979e12, "float32": 67e12}
 
 # UNet self-attentions per forward that meet the flash gate at 512 px:
 # down blocks 0-2 (S = 4096, 1024, 256) x 2 and up blocks 1-3 x 3; the
@@ -258,7 +278,7 @@ def phase_device():
 
 # kernel functions that must run their products on the tensor cores
 TENSOR_CORE_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
-                       "flash_bwd_dkv_mma_kernel", "tap_gemm_mma_kernel")
+                       "flash_bwd_dkv_mma_kernel", "tap_gemm_mma_kernel", "tap_gemm_s8_kernel")
 
 
 def kernel_name(mangled: str) -> str:
@@ -294,7 +314,7 @@ def ptxas_instantiations(build_log: str, names):
 
 
 def sass_hmma(path: str):
-    """{kernel function: [HMMA count of each instantiation]} from
+    """{kernel function: [HMMA or IMMA count of each instantiation]} from
     cuobjdump -sass of the built library; fails if cuobjdump is missing."""
     import re
 
@@ -311,7 +331,7 @@ def sass_hmma(path: str):
         if "Function :" in line:
             name = kernel_name(line.split("Function :")[1].strip())
             counts.setdefault(name, []).append(0)
-        elif name is not None and re.search(r"\bHMMA\b", line):
+        elif name is not None and re.search(r"\b[HI]MMA\b", line):
             counts[name][-1] += 1
     return counts
 
@@ -332,10 +352,11 @@ def phase_build():
     hmma = sass_hmma(kl.path)
     for name, per in sorted(hmma.items()):
         log(f"sass: {name}: {len(per)} instantiations, {sum(n > 0 for n in per)} with HMMA "
-            f"({min(per)}..{max(per)} HMMA instructions each)")
+            f"or IMMA ({min(per)}..{max(per)} such instructions each)")
     for name in TENSOR_CORE_KERNELS:
         if name not in hmma or not all(hmma[name]):
-            fail(f"{name}: every instantiation must hold HMMA instructions, got {hmma.get(name)}")
+            fail(f"{name}: every instantiation must hold tensor-core instructions, got "
+                 f"{hmma.get(name)}")
     for name, rows in sorted(ptxas_instantiations(kl.log, TENSOR_CORE_KERNELS).items()):
         log(f"ptxas {name} <template args>: registers, spill store/load bytes: " + "; ".join(
             f"<{','.join(map(str, args))}> {regs}, {st}/{ld}" for args, regs, st, ld in rows))
@@ -2130,6 +2151,307 @@ def phase_checkpoints(serving_images, serving_counts):
                                       for i, (name, t) in enumerate(marks[1:])))
 
 
+# ---- phase 12: the serving extras (DPM-Solver++, W8A8 int8 convs, calibrate) ----
+
+# the UNet's quantized convs per forward: 22 resnets x 2 + 3 upsamplers
+QUANT_PER_UNET_FORWARD = 47
+# (N, Cin, H, W, Cout) of the s8 kernel at 2B = 8: the first resnet conv of
+# each resolution's blocks, and two of the up path's widest inputs
+S8_SHAPES = [(8, 320, 64, 64, 320), (8, 640, 32, 32, 640), (8, 1920, 16, 16, 1280),
+             (8, 2560, 8, 8, 1280)]
+
+
+def int_mm_conv(xq, wq):
+    """The int32 sums of the s8 conv as im2col + torch._int_mm: one int8
+    GEMM over a (N*H*W, 9*Cin) copy of the codes. A yardstick for the
+    kernel's time, never on the port's path."""
+    import torch
+    import torch.nn.functional as F
+
+    n, cin, h, w = xq.shape
+    xp = F.pad(xq, (1, 1, 1, 1))
+    cols = torch.stack([xp[:, :, dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3)],
+                       dim=1)  # (N, 9, Cin, H, W): K in (tap, cin) order
+    return torch._int_mm(cols.permute(0, 3, 4, 1, 2).reshape(n * h * w, 9 * cin), wq.t())
+
+
+def check_conv3x3_s8(results, smi):
+    """12a: the s8 tap-GEMM against its plain version on the same codes,
+    bf16 and fp32 out with a bias; max |d| must be 0. Times beside cuDNN's
+    bf16 conv, im2col + _int_mm and the plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    from ddpo_torch.ops.quant import (quantize_symmetric, tap_gemm_s8, tap_gemm_s8_reference,
+                                      weight_codes)
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    cases = [(shape, dtype) for shape in S8_SHAPES for dtype in (torch.bfloat16, torch.float32)]
+    cases += [((2, 40, 13, 17, 24), torch.bfloat16)]  # Cin not a multiple of 16, ragged maps
+    for shape, dtype in cases:
+        n, cin, h, w, cout = shape
+        name = dtype_name(dtype)
+        x = torch.randn((n, cin, h, w), generator=gen, device="cuda").to(torch.bfloat16)
+        weight = (torch.randn((cout, cin, 3, 3), generator=gen, device="cuda")
+                  * (9 * cin) ** -0.5).to(torch.bfloat16)
+        bias = torch.randn(cout, generator=gen, device="cuda")
+        xq, sx = quantize_symmetric(x, (1, 2, 3))
+        sx = sx.reshape(-1)
+        wq, sw = weight_codes(weight)
+        out = tap_gemm_s8(xq, wq, sx, sw, bias, dtype)
+        again = tap_gemm_s8(xq, wq, sx, sw, bias, dtype)
+        alone = tap_gemm_s8(xq[:1].contiguous(), wq, sx[:1].contiguous(), sw, bias, dtype)
+        ref = tap_gemm_s8_reference(xq, wq, sx, sw, bias, dtype)
+        err = (out.float() - ref.float()).abs().max().item()
+        same = torch.equal(out, again) and torch.equal(alone, out[:1])
+        line = (f"12a conv3x3_s8 {name} out x{(n, cin, h, w)} -> {cout}: max|kernel - plain| "
+                f"{err:g} (bound 0: the same codes); two calls and image 0 alone equal: {same}")
+        if not (err == 0 and same and out.dtype == dtype):
+            fail(line)
+        entry = {"shape": list(shape), "dtype": name, "max_abs_err": err}
+        if shape in S8_SHAPES and dtype == torch.bfloat16:
+            ops = 2.0 * n * h * w * 9 * cin * cout
+            nbytes = (xq.numel() + wq.numel() + out.numel() * out.element_size()
+                      + 4 * (sx.numel() + sw.numel() + bias.numel()))
+            bound_ms, bound_by = roofline(ops, nbytes, "int8")
+            iters = 5 if ops > 1e11 else 10
+            k_ms, p_ms = timed_pair(lambda: tap_gemm_s8(xq, wq, sx, sw, bias, dtype),
+                                    lambda: tap_gemm_s8_reference(xq, wq, sx, sw, bias, dtype),
+                                    iters)
+            b16 = bias.to(torch.bfloat16)
+            cudnn_ms = median_ms(lambda: F.conv2d(x, weight, b16, padding=1), iters)
+            sums = int_mm_conv(xq, wq)
+            exact = tap_gemm_s8_reference(xq, wq, torch.ones_like(sx), torch.ones_like(sw),
+                                          None, torch.float32)
+            if not torch.equal(sums.float().view(n, h, w, cout).permute(0, 3, 1, 2), exact):
+                fail(f"im2col + _int_mm differs from the exact sums at {shape}")
+            int_mm_ms = median_ms(lambda: int_mm_conv(xq, wq), iters)
+            quant_ms = median_ms(lambda: quantize_symmetric(x, (1, 2, 3)), iters)
+            entry.update(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=None, cudnn_bf16_ms=cudnn_ms, int_mm_ms=int_mm_ms,
+                         quantize_ms=quant_ms)
+            line += (f"; kernel {k_ms:.4f} ms ({ops / k_ms / 1e9:.1f} TOPS), bound "
+                     f"{bound_ms:.4f} ms ({bound_by}), plain {p_ms:.4f} ms, cuDNN bf16 F.conv2d "
+                     f"{cudnn_ms:.4f} ms, im2col + _int_mm {int_mm_ms:.4f} ms; the quantize "
+                     f"pass over x {quant_ms:.4f} ms a call ({smi})")
+            del sums, exact
+        log(line)
+        results.append(entry)
+        del x, weight, xq, wq, out, again, alone, ref
+        torch.cuda.empty_cache()
+
+
+def run_generate(tag, extra, steps, quant, unet_gn, vae_gn):
+    """generate.main on the serving cell plus ``extra``: images/s of its
+    batch, after checking the images and the launches."""
+    import numpy as np
+    import torch
+
+    from ddpo_torch.ops import _build
+    from ddpo_torch.pipelines import generate
+    from ddpo_torch.utils.metrics import read_metrics
+
+    _build.reset_launch_counts()
+    start = time.perf_counter()
+    result = generate.main(SERVING_ARGV + extra)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    counts = _build.launch_counts()
+    images = result.images
+    if images.shape != (4, 512, 512, 3) or not np.isfinite(images).all():
+        fail(f"12b {tag}: images {images.shape} are not four finite 512 px images")
+    want = expected(flash_fwd=FLASH_PER_UNET_FORWARD * steps, gn_stats=unet_gn * steps + vae_gn,
+                    conv3x3_s8=QUANT_PER_UNET_FORWARD * steps if quant else 0)
+    ips = [e["images_per_sec"] for e in read_metrics(result.outdir)
+           if e.get("phase") == "generate"][-1]
+    log(f"12b generate {tag}: {ips:.3f} images/s (sampling + decode of the batch of 4); "
+        f"{wall:.1f} s with the model build; launches {counts}")
+    if counts != want:
+        fail(f"12b {tag}: kernel launches {counts} != expected {want}")
+    return ips, counts
+
+
+def serving_distances():
+    """12b: the final latents of one bf16 stack (seed 0) from the same init
+    latents and prompts: int8 against bf16 (DDIM-50 at eta 1 with the same
+    noise, DPM++-20), and DPM++-20 and eta-0 DDIM-20 against eta-0 DDIM-50.
+    The weights are random, so the distances are printed, not bounded."""
+    import dataclasses
+    import types
+
+    import torch
+
+    from ddpo_torch.models.tokenizer import make_uncond_ids
+    from ddpo_torch.pipelines.generate import inference_sampler
+    from ddpo_torch.sampling import SamplerConfig
+    from ddpo_torch.utils.serialization import load_stable_diffusion
+
+    models = load_stable_diffusion(model_preset="sd14", device="cuda", dtype=torch.bfloat16,
+                                   seed=0)
+    with torch.no_grad():
+        prompt = models.text_encoder(torch.as_tensor(
+            models.tokenizer(["a cat", "a dog", "a horse", "a llama"]), device="cuda"))
+        uncond = models.text_encoder(torch.as_tensor(make_uncond_ids(models.tokenizer, 4),
+                                                     device="cuda"))
+    init = torch.randn((4, 4, 64, 64), generator=torch.Generator(device="cuda").manual_seed(0),
+                       device="cuda")
+    config = SamplerConfig(guidance_scale=5.0)
+
+    def run(scheduler_name, steps, eta, quant):
+        args = types.SimpleNamespace(quant="int8" if quant else "none",
+                                     scheduler=scheduler_name, eta=eta)
+        models.unet.set_quant(False)
+        scheduler, sample_fn = inference_sampler(args, [], models, "12b")
+        return sample_fn(models.unet, scheduler, scheduler.create_state("cuda"), prompt, uncond,
+                         dataclasses.replace(config, num_inference_steps=steps, eta=eta),
+                         generator=torch.Generator(device="cuda").manual_seed(1),
+                         init_latents=init)
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    ddim50 = {q: run("ddim", 50, 1.0, q) for q in (False, True)}
+    dpm20 = {q: run("dpm++", 20, 0.0, q) for q in (False, True)}
+    ode50, ode20 = run("ddim", 50, 0.0, False), run("ddim", 20, 0.0, False)
+    models.unet.set_quant(False)
+    latents = (*ddim50.values(), *dpm20.values(), ode50, ode20)
+    if not all(torch.isfinite(t).all() for t in latents):
+        fail("12b: a sampler gave non-finite latents")
+    log(f"12b final latents, relative L2 (random weights: printed, not bounded): int8 against "
+        f"bf16 at the same seed: DDIM-50 {rel(ddim50[True], ddim50[False]):.4f}, DPM++-20 "
+        f"{rel(dpm20[True], dpm20[False]):.4f}; from eta-0 DDIM-50 with the same init latents: "
+        f"DPM++-20 {rel(dpm20[False], ode50):.4f}, eta-0 DDIM-20 {rel(ode20, ode50):.4f}")
+    del models
+    torch.cuda.empty_cache()
+
+
+def phase_extras_collect(unet_gn, vae_gn, enc_gn):
+    """12c: one collection batch of compressed-animals-rwr with --scheduler
+    dpm++ --quant int8 --n_inference_steps 20, beside phase 10b's."""
+    from ddpo_torch.models.layers import Conv3x3
+    from ddpo_torch.ops import _build
+    from ddpo_torch.pipelines import sample
+    from ddpo_torch.utils.metrics import read_metrics, run_dir
+
+    steps = 20
+    argv = ["--dataset", "compressed-animals-rwr", "--seed", "0", "--scheduler", "dpm++",
+            "--quant", "int8", "--n_inference_steps", str(steps)]
+    args = sample.Parser().parse_args("sample", list(argv))
+    c = sample.build_collector(args, argv)
+    quantized = sum(m.quant for m in c.models.unet.modules() if isinstance(m, Conv3x3))
+    if quantized != QUANT_PER_UNET_FORWARD:
+        fail(f"12c: {quantized} quantized convs in the sampling UNet, expected 47")
+    _build.reset_launch_counts()
+    batch, mask, rewards, seconds = sample.collect_batch(c)
+    counts = _build.launch_counts()
+    want = expected(flash_fwd=FLASH_PER_UNET_FORWARD * steps,
+                    gn_stats=unet_gn * steps + vae_gn + enc_gn,
+                    conv3x3_s8=QUANT_PER_UNET_FORWARD * steps)
+    n = len(batch["images"])
+    ips = n / sum(seconds.values())
+    base = run_dir(sample.Parser().parse_args("sample", ["--dataset",
+                                                         "compressed-animals-rwr"]).savepath)
+    earlier = [e["images_per_sec"] for e in (read_metrics(base) if os.path.exists(
+        os.path.join(base, "metrics.jsonl")) else []) if e.get("phase") == "sample"]
+    log(f"12c collection batch of {n} (dpm++, 20 steps, int8): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in seconds.items()) + f"; {ips:.3f} images/s (no write), "
+        f"phase 10b's batches {[round(x, 3) for x in earlier]} images/s (write included); "
+        f"launches {counts}")
+    if n != 4 or len(rewards) != 4 or batch["vae"].shape[0] != 4:
+        fail("12c: the collection batch is not 4 samples")
+    if counts != want:
+        fail(f"12c: kernel launches {counts} != expected {want}")
+    del c
+    return ips
+
+
+def phase_extras_calibrate():
+    """12d: calibrate with two scales and one batch of 4 at 512 px, then
+    generate --guidance_scale auto on its savepath reads the argmax."""
+    import contextlib
+    import io
+    import json
+
+    from ddpo_torch.pipelines import calibrate, generate
+
+    argv = ["--dataset", "compressed-animals", "--guidance_scales", "[2.0, 7.5]",
+            "--n_eval_batches", "1", "--n_samples_per_device", "4", "--n_inference_steps", "20",
+            "--seed", "0"]
+    start = time.perf_counter()
+    result = calibrate.main(argv)
+    wall = time.perf_counter() - start
+    savepath = calibrate.Parser().parse_args("calibrate", list(argv)).savepath
+    with open(os.path.join(savepath, "calibration.json")) as f:
+        cal = json.load(f)
+    with open(os.path.join(savepath, "metadata.json")) as f:
+        meta = json.load(f)
+    means = {float(k): v["mean"] for k, v in cal["curve"].items()}
+    try:
+        import matplotlib  # noqa: F401
+        has_mpl = True
+    except ImportError:
+        has_mpl = False
+    log(f"12d calibrate (2 scales, a batch of 4, 20 DDIM steps, the jpeg reward): curve "
+        f"{means}, best {result.best:g}, in {wall:.1f} s with the model build; matplotlib "
+        f"imports: {has_mpl}; calibration.png drawn with {result.renderer}")
+    if not (cal["best"] == meta["guidance_scale"] == max(means, key=means.get) == result.best
+            and all(v["n"] == 4 for v in cal["curve"].values())
+            and os.path.getsize(os.path.join(savepath, "calibration.png")) > 0):
+        fail("12d: calibration.json, metadata.json or calibration.png is not the sweep's")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        gen = generate.main(SERVING_ARGV + ["--guidance_scale", "auto", "--loadpath", savepath,
+                                            "--scheduler", "dpm++", "--n_inference_steps", "20"])
+    printed = out.getvalue()
+    with open(os.path.join(gen.outdir, "prompts.json")) as f:
+        used = json.load(f)["guidance_scale"]
+    line = next((l for l in printed.splitlines() if "calibrated guidance scale" in l), "")
+    log(f"12d generate --guidance_scale auto: '{line.strip()}'; prompts.json "
+        f"guidance_scale {used}")
+    if f"calibrated guidance scale: {result.best:g}" not in printed or used != result.best:
+        fail("12d: generate --guidance_scale auto did not read the calibrated argmax")
+
+
+def phase_serving_extras(unet_gn, vae_gn, serving_ips, smi):
+    """12: the serving extras at SD-1.4 width, on the card ``smi`` names."""
+    from ddpo_torch.models.layers import GroupNorm
+    from ddpo_torch.utils.serialization import build_models
+
+    log(f"12: the serving extras on {smi}")
+    marks = [("start", time.perf_counter())]
+    s8_results = []
+    check_conv3x3_s8(s8_results, smi)
+    marks.append(("12a", time.perf_counter()))
+    # each scheduler's bf16 and int8 runs in turns (bf16, int8, int8, bf16)
+    # in one process, so that both see the same warm state
+    ips, counts = {}, None
+    for sched, extra, steps in (("DDIM-50", [], 50),
+                                ("DPM++-20", ["--scheduler", "dpm++", "--n_inference_steps",
+                                              "20"], 20)):
+        for quant in (False, True, True, False):
+            tag = f"{sched} {'int8' if quant else 'bf16'}"
+            rate, launched = run_generate(tag, extra + (["--quant", "int8"] if quant else []),
+                                          steps, quant, unet_gn, vae_gn)
+            ips.setdefault(tag, []).append(rate)
+            if tag == "DDIM-50 int8":
+                counts = launched
+    log(f"12b images/s, batch 4 at 512 px, bf16 activations, two runs each in turns: "
+        + "; ".join(f"{tag} {sum(r) / len(r):.3f} ({', '.join(f'{x:.3f}' for x in r)})"
+                    for tag, r in ips.items())
+        + f"; phase 4's DDIM-50 bf16 {serving_ips:.3f} ({smi})")
+    serving_distances()
+    marks.append(("12b", time.perf_counter()))
+    encoder = build_models("sd14", "meta")[1].encoder
+    enc_gn = sum(isinstance(m, GroupNorm) for m in encoder.modules())
+    phase_extras_collect(unet_gn, vae_gn, enc_gn)
+    marks.append(("12c", time.perf_counter()))
+    phase_extras_calibrate()
+    marks.append(("12d", time.perf_counter()))
+    log("phase 12 wall: " + ", ".join(f"{name} {t - marks[i][1]:.1f} s"
+                                      for i, (name, t) in enumerate(marks[1:])))
+    return s8_results, counts
+
+
 def main() -> None:
     try:
         import torch
@@ -2155,7 +2477,7 @@ def main() -> None:
     silu_launches = check_gn_silu(silu_results, gn_shapes)
     check_conv3x3(conv_results, conv_shapes)
     phase_probes(probe_results)
-    serving_counts, _, _, serving_images = phase_serving(unet_gn, vae_gn)
+    serving_counts, serving_ips, _, serving_images = phase_serving(unet_gn, vae_gn)
     rollout = phase_rollout()
     init_params, _ = phase_onpolicy(rollout, unet_gn)
     phase_batch_invariance(rollout[0])
@@ -2165,6 +2487,7 @@ def main() -> None:
     conv_counts, _ = phase_conv_path(unet_gn, vae_gn, unet_conv, vae_conv)
     phase_rwr(unet_gn, vae_gn)
     phase_checkpoints(serving_images, serving_counts)
+    s8_results, s8_counts = phase_serving_extras(unet_gn, vae_gn, serving_ips[-1], smi)
     shutil.rmtree(bucket, ignore_errors=True)
 
     def headline(results, shape):
@@ -2208,14 +2531,22 @@ def main() -> None:
             "name": f"conv_probe_{probe}", "route": "cuda", "source": "ddpo_torch/csrc/conv3x3.cu",
             "replaces": f"bench_conv_probe.py:{line}", "launches": entry["launches"],
             "max_abs_err": entry["max_abs_err"], **timing(entry)})
+    s8_main = headline(s8_results, [8, 320, 64, 64, 320])
+    kernels.append({
+        "name": "conv3x3_s8", "route": "cuda", "source": "ddpo_torch/csrc/conv3x3_s8.cu",
+        "replaces": "ddpo_tpu/ops/quant.py:80", "launches": s8_counts["conv3x3_s8"],
+        "max_abs_err": max(r["max_abs_err"] for r in s8_results), **timing(s8_main)})
     if any(k["launches"] <= 0 for k in kernels):
         fail(f"a kernel was never launched on its path: {[k['name'] for k in kernels]}")
     log("kernels: launches are the DDPO phase's for the four kernels of the default path, "
         "the op-level path's for gn_silu, the serving phase's with the conv switch on for "
-        "conv3x3 and conv_probe.main's for the probes; a backward kernel's plain_ms and "
+        "conv3x3, conv_probe.main's for the probes and phase 12b's DDIM-50 int8 generate's "
+        "for conv3x3_s8 (an XLA op in JAX, no Pallas kernel; no one PyTorch call computes "
+        "it, so its library_ms is null); a backward kernel's plain_ms and "
         "library_ms are the whole backward (dq, dk and dv); times at the headline shapes: "
         "flash (8, 4096, 8, 40) and (4, 4096, 8, 40), GroupNorm (8, 320, 64, 64), conv "
-        "(8, 320, 64, 64) -> 320 and the probes' (16, 320, 64, 64) -> 320, bf16")
+        "(8, 320, 64, 64) -> 320 and the probes' (16, 320, 64, 64) -> 320, bf16 (the s8 "
+        "conv: int8 codes in, bf16 out)")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,10 +14,10 @@ chain ("f:models/{iteration+1}").
 
 This is the PyTorch port's copy of ddpo_tpu/config/base.py: every preset and
 value is unchanged, so one command line means the same run in both packages.
-One key is the port's own: ``device`` in the sample, train, generate and pg
-blocks.
-Every measurement a comment below cites was taken by the JAX package on a
-TPU v5e; none of them describes this port's speed.
+One key is the port's own: ``device`` in the sample, calibrate, train,
+generate and pg blocks. The numbers in the comments below are the port's,
+measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at a 700 W power
+limit.
 """
 
 from ddpo_torch.config import user
@@ -34,14 +34,12 @@ base = {
         "n_inference_steps": 50,
         # "ddim" (reference parity) or "dpm++": DPM-Solver++(2M) — RWR
         # collection keeps only images+rewards, so the deterministic
-        # few-step solver applies; measured 2.38x DDIM-50 throughput at
-        # closer-than-DDIM-20 endpoint quality (bench_dpm.py). Pair with
-        # --n_inference_steps 20.
+        # few-step solver applies. Pair with --n_inference_steps 20.
         "scheduler": "ddim",
         # "int8": W8A8 quantized resnet convs in the sampling UNet
-        # (2x-rate MXU path, ops/quant.py) — inference-only speedup for
-        # data collection; the stored images/latents are what trains, so
-        # quantization shifts sample statistics slightly but nothing else
+        # (ops/quant.py, the s8 tap-GEMM kernel on the card) — inference
+        # only; the stored images are what trains, so quantization shifts
+        # sample statistics slightly but nothing else
         "quant": "none",
         "eta": 1.0,
         "resolution": 512,
@@ -58,7 +56,7 @@ base = {
         "cache": "cache",
         "seed": None,
         "dtype": "bfloat16",
-        "model_preset": "sd14",  # TPU-native default (reference used float32)
+        "model_preset": "sd14",
         "device": "cuda",  # or "cpu"; "cuda" raises when there is no card
     },
     # guidance-scale calibration sweep (pipelines/calibrate.py). Completes
@@ -84,6 +82,7 @@ base = {
         "seed": None,
         "dtype": "bfloat16",
         "model_preset": "sd14",
+        "device": "cuda",  # or "cpu"; "cuda" raises when there is no card
     },
     # generation-only inference (pipelines/generate.py). No reference
     # counterpart as a standalone driver — the reference previews samples
@@ -190,25 +189,17 @@ base = {
         "train_accumulation_steps": 1,
         "num_train_epochs": 200,
         "num_inner_epochs": 1,
-        # reference value is 1e-4 (config/base.py:84). Measured on v5e at
-        # production geometry (bench_logp.py, round 3): the recompute-noise
-        # median |dlogp| is 4.5e-5 for fp32 and 9.0e-5 for bf16 — the
-        # reference's own clip range sits at ~0.5x/1x its numerics noise
-        # (clipfrac 0.19 / 0.46 at sampling params). 2e-4 restores the
-        # reference's noise-to-trust-region ratio under the bf16 defaults.
+        # reference value is 1e-4 (config/base.py:84); JAX's default, kept
+        # so one command line means one run. On the card the bf16
+        # recompute gives |dlogp| 0 at the sampler's shape and at most
+        # 4.0e-7 at the trainer's (chip_smoke.py phases 6-9), far inside it.
         "ppo_clip_range": 2e-4,
         "train_cfg": True,
         # 0 = full finetune (reference behavior). >0 trains rank-r LoRA
-        # adapters on the attention projections only (models/lora.py).
-        # Measured at r=8 on v5e (bench_lora.py, round 4): train state
-        # 180x smaller (18.2 vs 3286 MB — checkpoints + dp all-reduces),
-        # trainable 537x smaller, step 1.25x FASTER than full finetune.
-        # lr is MEASURED, not folklore (40-epoch real-chip curves,
-        # BENCHLOG round 4): at r=8, lr=1e-4 barely moves the policy
-        # (kl ~2e-6, best reward -217.6); lr=1e-3 learns PAST the
-        # full-finetune curve (best -189.7 vs -207.3) and stays stable
-        # (kl <= 1.8e-3, clipfrac <= 0.18). Use --learning_rate 1e-3
-        # with --lora_rank 8.
+        # adapters on the attention projections only (models/lora.py). At
+        # r=8 on the card: 1,594,368 trainables, 0.388-0.391 s an update
+        # against 0.480-0.497 full (chip_smoke.py phase 9). Use
+        # --learning_rate 1e-3 with --lora_rank 8 (the lora preset).
         "lora_rank": 0,
         "learning_rate": 1e-5,
         # "constant" (reference) | "linear" | "cosine"; warmup in optimizer
@@ -224,54 +215,37 @@ base = {
         "save_freq": 10,
         "optimizer": "adamw",
         # "none" (reduce grads at the param dtype — fp32 masters, the
-        # reference's pmean semantics) | "bfloat16" | "float32". bfloat16
-        # halves the dp all-reduce bytes (compile-measured:
-        # bench_grad_reduce.py) — matters most on DCN multi-slice where
-        # the reduce rides ~25 GB/s. Off by default pending a multi-slice
-        # learning-parity run at scale; per-step numerics pinned by
-        # tests/test_grad_reduce.py.
+        # reference's pmean semantics) | "bfloat16" | "float32": bfloat16
+        # halves the data-parallel all-reduce bytes. Not ported yet (one
+        # process); the port refuses anything but "none".
         "grad_reduce_dtype": "none",
         "train_timestep_ratio": 1.0,
         "prompt_kwargs": {},
         "per_prompt_stats_bufsize": 32,
         "per_prompt_stats_min_count": 16,
-        # TPU-native extensions (not in the reference)
-        "fused_train_loop": True,  # scan over timesteps in one dispatch
-        # (equivalence-tested vs per-timestep dispatch; 1.8x on v5e)
-        # Full inner epoch on device (one dispatch: shuffle + rebatch +
-        # minibatch scan) vs the host loop (numpy shuffle + one dispatch
-        # per minibatch). Measured a WASH at production geometry (v5e,
-        # bs8 T50 512px train_bs2: 35.3s resident vs 35.5s host, 1.006x
-        # — bench_resident.py, round 4; measured under --optimizer
-        # adafactor, the choice that fits both loops' state in HBM at
-        # that geometry — the pg default stays adamw): 4 dispatches of
-        # ~9s each leave nothing for dispatch overhead to save. Host loop stays the
-        # default for its simpler failure surface and per-minibatch
-        # host-visible infos; the resident path remains available and
-        # equivalence-tested for geometries with many small minibatches.
+        # JAX's own extensions (not in the reference)
+        # all trained timesteps of a minibatch in one optimizer step (JAX's
+        # scan over timesteps in one dispatch) instead of accumulating
+        "fused_train_loop": True,
+        # JAX: the full inner epoch on device (one dispatch: shuffle +
+        # rebatch + minibatch scan) instead of the host loop (numpy shuffle
+        # + one dispatch per minibatch); not ported, and refused.
         "resident_inner_loop": False,
         "mesh_tp": 1,  # tensor-parallel axis size
         "mesh_sp": 1,  # sequence-parallel axis size (latent self-attention)
         # "spatial": whole-UNet shard_map, H sharded — halo-exchange convs
-        #   divide conv FLOPs by sp AND move 8.1x less sp-axis traffic in
-        #   the train step (441 vs 3582 MB/step at 512px on a dp4xsp2 mesh;
-        #   forward ~equal at 193 vs 203 MB — bench_sp_comms.py, compile-
-        #   measured HLO collective bytes, round 4);
+        #   divide conv FLOPs by sp and move less sp-axis traffic;
         # "attention": per-attention shard_map only — convs stay REPLICATED
         #   over sp (duplicated FLOPs, no conv speedup), and the param-grad
         #   reduction pays an extra sp-axis all-reduce. Kept as the fallback
         #   for geometries the spatial mode's divisibility check rejects.
         "sp_mode": "spatial",
         # Compute dtypes (master params/optimizer stay in `dtype`=fp32).
-        # bf16 is the measured-sound default: on v5e at production geometry
-        # the bf16 sampler is 1.14x and the bf16 fused train step 1.83x,
-        # while the PPO-ratio noise it adds is only 2x the fp32 floor
-        # (median |dlogp| 9.0e-5 vs 4.5e-5 — bench_logp.py round 3; the
-        # round-1 "~1e-2 bf16 noise" predates the fp32 latent carry and is
-        # not reproducible). ppo_clip_range above is retuned accordingly.
+        # bf16 by default, as in JAX; the on-policy recompute at bf16 is
+        # exact or within 4.0e-7 on the card (ppo_clip_range above).
         "sample_dtype": "bfloat16",  # sampler compute dtype
         "train_dtype": "bfloat16",  # PPO-recompute compute dtype
-        "profile_dir": None,  # jax.profiler trace output
+        "profile_dir": None,  # JAX's profiler trace output; not ported
         "resume": False,  # restore full train state from savepath
         # keep only the newest N full-state checkpoints on local disk
         # (~8.5GB each at SD scale); 0 = keep all (reference behavior,
@@ -325,11 +299,9 @@ compressed_animals = _dataset(
            "save_freq": 20, "dtype": "float32"},
 )
 
-# Measured-best DDPO recipe on the flagship task (no reference equivalent):
-# LoRA r=8 @ lr 1e-3 adamw. 40-epoch real-chip curves (BENCHLOG round 4)
-# show it learns PAST full finetune (best reward -189.7 vs -207.3) with a
-# 1.25x faster train step (73.7 vs 91.9 ms), 537x fewer trainables, and a
-# 180x smaller train state (checkpoints + dp all-reduce traffic).
+# JAX's LoRA recipe on the flagship task (no reference equivalent): LoRA
+# r=8 @ lr 1e-3 adamw, 1,594,368 trainables; on the card an update takes
+# 0.78-0.82x the full finetune's (chip_smoke.py phase 9).
 compressed_animals_lora = _dataset(
     "lora-compressed-animals-r8", "imagenet_animals", "jpeg",
     sample=dict(_FILTER_SAMPLE),

@@ -1,14 +1,17 @@
-"""DDIM scheduler with differentiable per-step Gaussian log-probs, and the
-DDPM forward-noising schedule of RWR.
+"""DDIM scheduler with differentiable per-step Gaussian log-probs, the
+DDPM forward-noising schedule of RWR, and the DPM-Solver++(2M) ODE solver
+for few-step inference.
 
-Port of ddpo_tpu/core/scheduler.py (DDIM and DDPM; DPMSolverPlusPlus is not
-ported yet). The DDIM reverse step doubles as the DDPO policy: ``step`` in
-sample mode draws x_{t-1} and returns its log-density; in score mode it takes
-a stored ``prev_sample`` and scores that transition under the current model,
-with gradients flowing through the mean only. ``add_noise`` is the forward
+Port of ddpo_tpu/core/scheduler.py. The DDIM reverse step doubles as the
+DDPO policy: ``step`` in sample mode draws x_{t-1} and returns its
+log-density; in score mode it takes a stored ``prev_sample`` and scores that
+transition under the current model, with gradients flowing through the mean
+only. ``add_noise`` is the forward
 process q(x_t | x_0) at per-sample timesteps (diffusers' add_noise_common),
 which the RWR finetune step (training/diffusion.py) draws its inputs from
-through ``DDPMScheduler``.
+through ``DDPMScheduler``. ``DPMSolverPlusPlus`` is the deterministic
+multistep solver behind ``sampling.sample_images_ode`` (``--scheduler
+dpm++`` of the generate and sample drivers).
 
 Scheduler math is float32 whatever the model's activation dtype. Sample mode
 draws its noise from an explicit ``torch.Generator`` or takes it injected
@@ -294,3 +297,160 @@ class DDPMScheduler:
 
     def add_noise(self, state, original_samples, noise, timesteps):
         return self._ddim().add_noise(state, original_samples, noise, timesteps)
+
+
+def _linspace(start: float, stop: float, num: int) -> torch.Tensor:
+    """fp32 ``jnp.linspace(start, stop, num)`` by JAX's own formula,
+    start * (1 - i/(num-1)) + stop * i/(num-1) with the last entry stop,
+    which torch.linspace does not share to the last ulp."""
+    div = num - 1
+    step = torch.arange(div, dtype=torch.float32) / div
+    out = start * (1 - step) + stop * step
+    return torch.cat([out, torch.tensor([stop], dtype=torch.float32)])
+
+
+@dataclasses.dataclass(frozen=True)
+class DPMSolverState:
+    """DPM-Solver++ state.
+
+    Boundary tensors have ``num_inference_steps + 1`` entries: index ``i`` is
+    the noise level the i-th model call starts from; the last entry is the
+    t = 0 target level. ``timesteps`` (length T) is the descending
+    model-call grid in train-timestep units.
+    """
+
+    alphas_cumprod: torch.Tensor
+    timesteps: torch.Tensor
+    lambdas: torch.Tensor  # log(alpha / sigma) per boundary, ascending
+    alphas: torch.Tensor  # sqrt(alpha_bar) per boundary
+    sigmas: torch.Tensor  # sqrt(1 - alpha_bar) per boundary
+    init_noise_sigma: torch.Tensor
+    num_inference_steps: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class DPMSolverPlusPlus:
+    """DPM-Solver++(2M): deterministic second-order multistep ODE sampler
+    (Lu et al. 2022, arXiv:2211.01095, the data-prediction variant).
+
+    ``step`` takes the step index into the inference grid and the previous
+    step's x0 estimate, and returns the new sample with this step's x0
+    estimate. The first step, and the last one when fewer than 15 steps are
+    asked for, fall back to first order (eta-0 DDIM in x0 form). All of it
+    runs in fp32.
+    """
+
+    num_train_timesteps: int = 1000
+    beta_start: float = 0.00085
+    beta_end: float = 0.012
+    beta_schedule: str = "scaled_linear"
+    prediction_type: str = "epsilon"
+    grid: str = "karras"  # or "linspace"
+    karras_rho: float = 7.0
+    dtype: torch.dtype = torch.float32
+
+    def create_state(self, device=None) -> DPMSolverState:
+        betas = make_betas(
+            self.num_train_timesteps, self.beta_start, self.beta_end,
+            self.beta_schedule, self.dtype, device,
+        )
+        empty = torch.zeros((0,), dtype=self.dtype, device=device)
+        return DPMSolverState(
+            alphas_cumprod=torch.cumprod(1.0 - betas, dim=0),
+            timesteps=torch.arange(self.num_train_timesteps - 1, -1, -1, device=device),
+            lambdas=empty,
+            alphas=empty,
+            sigmas=empty,
+            init_noise_sigma=torch.tensor(1.0, dtype=self.dtype, device=device),
+        )
+
+    def set_timesteps(self, state: DPMSolverState, num_inference_steps: int) -> DPMSolverState:
+        """The inference grid; both variants start at t = T - 1.
+
+        ``karras`` (default): boundaries spaced in the noise-to-signal ratio
+        with rho 7 (Karras et al. 2022), each model call at the nearest train
+        timestep. ``linspace``: evenly spaced timesteps over [0, T - 1].
+        """
+        n = num_inference_steps
+        ac_all = state.alphas_cumprod
+        device = ac_all.device
+        if self.grid == "linspace":
+            grid = torch.round(_linspace(0.0, self.num_train_timesteps - 1, n + 1))
+            grid = grid.to(torch.int64).flip(0).to(device)  # descending, grid[-1] == 0
+            ac = ac_all[grid]
+            alphas = ac**0.5
+            sigmas = (1.0 - ac) ** 0.5
+            lambdas = torch.log(alphas) - torch.log(sigmas)
+            timesteps = grid[:-1].to(torch.int32)
+        elif self.grid == "karras":
+            rho = self.karras_rho
+            sig_kd = ((1.0 - ac_all) / ac_all) ** 0.5
+            smax, smin = sig_kd[-1], sig_kd[0]
+            ramp = _linspace(0.0, 1.0, n + 1).to(device)
+            s = (
+                smax ** (1.0 / rho) + ramp * (smin ** (1.0 / rho) - smax ** (1.0 / rho))
+            ) ** rho  # (n + 1,) descending noise-to-signal ratios
+            alphas = 1.0 / (1.0 + s**2) ** 0.5
+            sigmas = s * alphas
+            lambdas = -torch.log(s)
+            # nearest train timestep per model-call boundary (sig_kd rises
+            # with t); a tie goes to the upper neighbour, as in JAX
+            idx = torch.clamp(
+                torch.searchsorted(sig_kd, s[:-1]), 1, self.num_train_timesteps - 1
+            )
+            pick_lo = (s[:-1] - sig_kd[idx - 1]) < (sig_kd[idx] - s[:-1])
+            timesteps = torch.where(pick_lo, idx - 1, idx).to(torch.int32)
+        else:
+            raise ValueError(f"unknown grid {self.grid!r} (karras|linspace)")
+        return dataclasses.replace(
+            state,
+            timesteps=timesteps,
+            lambdas=lambdas.to(self.dtype),
+            alphas=alphas.to(self.dtype),
+            sigmas=sigmas.to(self.dtype),
+            num_inference_steps=n,
+        )
+
+    def _pred_x0(self, model_output, sample, alpha, sigma):
+        if self.prediction_type == "epsilon":
+            return (sample - sigma * model_output) / alpha
+        if self.prediction_type == "sample":
+            return model_output
+        if self.prediction_type == "v_prediction":
+            return alpha * sample - sigma * model_output
+        raise ValueError(f"unknown prediction_type: {self.prediction_type}")
+
+    def step(
+        self,
+        state: DPMSolverState,
+        model_output: torch.Tensor,
+        step_index: int,
+        sample: torch.Tensor,
+        prev_x0: torch.Tensor,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One solver step: ``(new_sample, x0_estimate)``.
+
+        ``prev_x0`` is the x0 estimate the previous call returned (any value
+        at step 0, where it is not used).
+        """
+        if state.num_inference_steps is None:
+            raise ValueError("call set_timesteps before step")
+        i = int(step_index)
+        alpha_i, sigma_i = state.alphas[i], state.sigmas[i]
+        x0 = self._pred_x0(model_output, sample, alpha_i, sigma_i)
+
+        lam_i = state.lambdas[i]
+        h = state.lambdas[i + 1] - lam_i
+        h_prev = lam_i - state.lambdas[max(i - 1, 0)]
+        r = torch.where(h_prev == 0.0, torch.ones_like(h_prev), h_prev / h)
+
+        ratio = state.sigmas[i + 1] / sigma_i
+        phi = torch.expm1(-h)  # exp(-h) - 1 < 0
+        use_first = i == 0 or (
+            state.num_inference_steps < 15 and i == state.num_inference_steps - 1
+        )
+        if use_first:
+            return ratio * sample - state.alphas[i + 1] * phi * x0, x0
+        # 2M midpoint correction: D1 = (x0 - prev_x0) / r
+        d = x0 + 0.5 * (x0 - prev_x0) / r
+        return ratio * sample - state.alphas[i + 1] * phi * d, x0

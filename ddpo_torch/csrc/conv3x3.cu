@@ -70,6 +70,7 @@
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "tap_tiles.cuh"
 
 #include <type_traits>
 
@@ -236,31 +237,20 @@ cudaError_t launch(const void* x, const void* w, void* out, int B, int Cin, int 
 // ---- bf16 on the tensor cores ----
 
 using bf16 = __nv_bfloat16;
-constexpr int TN = 64;         // output channels per tile
-constexpr int CK = 16;         // input channels per chunk: one k16 step per tap
-constexpr int TT = 128;        // threads: 4 warps, 2 (pixels) x 2 (channels)
-constexpr int ROWS_MAX = 448;  // staged padded positions per chunk
+using ddpo::tap::ROWS_MAX;
+using ddpo::tap::TN;
+using ddpo::tap::TT;
+using ddpo::tap::a_offset;
+using ddpo::tap::tap_shift;
+constexpr int CK = 16;  // input channels per chunk: one k16 step per tap
 constexpr int B_TILE = kTaps * CK * TN;  // weight elements per chunk
+static_assert(CK * sizeof(bf16) == ddpo::tap::ROW_BYTES, "a staged row is 32 bytes");
 // A [2][ROWS_MAX][CK] + B [2][9][CK][TN] bf16, then the row table int64 [ROWS_MAX]
 constexpr size_t MMA_SMEM = sizeof(bf16) * (2 * ROWS_MAX * CK + 2 * B_TILE) +
                             sizeof(int64_t) * ROWS_MAX;
 // staging items (position, 8-channel half) per thread, one per tap slot
 // (each is loaded in tap slot k and stored in slot k + 2)
 static_assert((2 * ROWS_MAX + TT - 1) / TT <= kTaps - 2, "staging must fit the tap slots");
-
-// (dy, dx) in 0..2 of a tap, for the tap maps above
-template <int MAP>
-__device__ __forceinline__ int tap_shift(int tap, int taprow) {
-  const int dy = MAP == 2 ? 1 : tap / 3;
-  const int dx = MAP == 0 ? tap % 3 : 1;
-  return dy * taprow + dx;
-}
-
-// byte offset of 16-byte half u of staged row r: the half is XOR-ed with
-// bit 2 of the row, so 8 consecutive rows hit 8 distinct bank groups
-__device__ __forceinline__ uint32_t a_offset(int r, int u) {
-  return uint32_t(r) * (CK * 2) + uint32_t((u ^ ((r >> 2) & 1)) << 4);
-}
 
 // element offset of channels 8u .. 8u+7 of weight row kk of tap `tap`; the
 // 8 units of a 128-byte row are XOR-ed with the row's low 3 bits
@@ -448,31 +438,6 @@ __global__ void __launch_bounds__(TT) tap_gemm_mma_kernel(
     }
 }
 
-// worst-case padded-frame extent d = ppad(last) - ppad(first) of a tile
-// of cnt pixels in one image (cnt <= H*W), or of k whole images
-int64_t extent_in_image(int64_t cnt, int64_t W) { return (cnt - 1) + 2 * ((cnt - 2 + W) / W); }
-int64_t extent_of_images(int64_t k, int64_t H, int64_t W) {
-  return ((k - 1) * (H + 2) + H - 1) * (W + 2) + W - 1;
-}
-
-// The largest tile of at most tm pixels whose staged rows fit in ROWS_MAX:
-// contiguous, or three dy segments. Maps of at least tm pixels are tiled
-// image by image, smaller ones by whole images. False if none fits.
-bool plan_tiles(int64_t H, int64_t W, int64_t tm, int& ipg, int& mpb, int& span, bool& perdy) {
-  const int64_t HW = H * W, WP = W + 2;
-  for (int64_t cnt = HW >= tm ? tm : (tm / HW) * HW; cnt > 0; cnt -= HW >= tm ? 1 : HW) {
-    const int64_t d = HW >= tm ? extent_in_image(cnt, W) : extent_of_images(cnt / HW, H, W);
-    const int64_t contig = d + 2 * WP + 3, segs = 3 * (d + 3);
-    if (contig > ROWS_MAX && segs > ROWS_MAX) continue;
-    ipg = HW >= tm ? 1 : int(cnt / HW);
-    mpb = int(cnt);
-    perdy = segs < contig;
-    span = int(d + 3);
-    return true;
-  }
-  return false;  // not reached: one pixel, or one image of under tm pixels, fits
-}
-
 template <int MAP, int MI>
 cudaError_t launch_tiles(const void* x, const void* w, void* out, int B, int Cin, int H, int W,
                          int Cout, int ipg, int mpb, int span, bool perdy, cudaStream_t stream) {
@@ -491,26 +456,22 @@ cudaError_t launch_tiles(const void* x, const void* w, void* out, int B, int Cin
   return cudaGetLastError();
 }
 
-// Tiles of 128 pixels, or of 64 or 32 where larger ones would give fewer
-// than two blocks per SM (the 8x8 bottom at 2B = 8: 80 blocks of 128, 320
-// of 32). The tile changes which lane owns an output, not the order of its
-// sum: the same bits either way.
 template <int MAP>
 cudaError_t launch_mma(const void* x, const void* w, void* out, int B, int Cin, int H, int W,
                        int Cout, cudaStream_t stream) {
   if (int64_t(B) * (H + 2) * (W + 2) >= (int64_t(1) << 31)) return cudaErrorInvalidValue;
   int ipg, mpb, span;
   bool perdy;
-  for (int mi = 4; mi >= 1; mi /= 2) {
-    if (!plan_tiles(H, W, 32 * mi, ipg, mpb, span, perdy)) return cudaErrorInvalidValue;
-    const int64_t blocks = (B + ipg - 1) / ipg * ((int64_t(ipg) * H * W + mpb - 1) / mpb) *
-                           ((Cout + TN - 1) / TN);
-    if (mi == 4 && blocks >= 2 * 132)
+  switch (ddpo::tap::plan_launch(B, H, W, Cout, ipg, mpb, span, perdy)) {
+    case 4:
       return launch_tiles<MAP, 4>(x, w, out, B, Cin, H, W, Cout, ipg, mpb, span, perdy, stream);
-    if (mi == 2 && blocks >= 2 * 132)
+    case 2:
       return launch_tiles<MAP, 2>(x, w, out, B, Cin, H, W, Cout, ipg, mpb, span, perdy, stream);
+    case 1:
+      return launch_tiles<MAP, 1>(x, w, out, B, Cin, H, W, Cout, ipg, mpb, span, perdy, stream);
+    default:
+      return cudaErrorInvalidValue;
   }
-  return launch_tiles<MAP, 1>(x, w, out, B, Cin, H, W, Cout, ipg, mpb, span, perdy, stream);
 }
 
 // bf16 takes the tensor-core kernel, fp32 the FMA kernel

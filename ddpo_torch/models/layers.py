@@ -25,13 +25,19 @@ from ddpo_torch.ops.groupnorm import group_norm
 
 
 class Conv3x3(nn.Conv2d):
-    """3x3 stride-1 SAME conv dispatching through ops/conv.py."""
+    """3x3 stride-1 SAME conv dispatching through ops/conv.py.
+
+    ``quant`` (JAX's field of the same name, set on the built module by
+    ``UNet2DCondition.set_quant``): the W8A8 int8 inference conv of
+    ops/quant.py. The parameters are the same either way.
+    """
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__(in_channels, out_channels, 3, padding=1)
+        self.quant = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv3x3(x, self.weight, self.bias)
+        return conv3x3(x, self.weight, self.bias, quant=self.quant)
 
 
 def timestep_embedding(

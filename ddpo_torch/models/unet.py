@@ -171,6 +171,19 @@ class UNet2DCondition(nn.Module):
         self.conv_norm_out = GroupNorm(channels[0], silu=True)
         self.conv_out = Conv3x3(channels[0], cfg.out_channels)
 
+    def set_quant(self, quant: bool) -> "UNet2DCondition":
+        """JAX's ``unet.clone(quant=...)`` on the built module: the W8A8 int8
+        conv (ops/quant.py) in each resnet's conv1 and conv2 and each
+        upsampler's conv, 47 convs at SD-1.4, for inference sampling.
+        conv_in, conv_out, the stride-2 downsamplers and the 1x1 shortcuts
+        stay float. The parameters do not change. Returns the module."""
+        for block in [*self.down_blocks, self.mid_block, *self.up_blocks]:
+            for resnet in block.resnets:
+                resnet.conv1.quant = resnet.conv2.quant = quant
+            for up in getattr(block, "upsamplers", ()):
+                up.conv.quant = quant
+        return self
+
     def forward(
         self,
         sample: torch.Tensor,  # (B, C, H, W)

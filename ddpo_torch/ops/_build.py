@@ -39,7 +39,7 @@ DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
 launches: Dict[str, int] = {
     "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "gn_stats": 0, "gn_silu": 0,
     "conv3x3": 0, "conv_probe_p1": 0, "conv_probe_p2": 0, "conv_probe_p6": 0,
-    "conv_probe_p7": 0,
+    "conv_probe_p7": 0, "conv3x3_s8": 0,
 }
 
 
@@ -89,6 +89,10 @@ class KernelLibrary:
         # x, w, out, dtype, tap map, B, Cin, H, W, Cout, stream
         lib.ddpo_tap_gemm.argtypes = [p, p, p, i32, i32] + [i32] * 5 + [p]
         lib.ddpo_tap_gemm.restype = i32
+        # xq, wq (Cout, 9 * Cin), sx, sw, bias or null, out, out dtype, B, Cin, H, W,
+        # Cout, stream
+        lib.ddpo_tap_gemm_s8.argtypes = [p] * 6 + [i32] * 6 + [p]
+        lib.ddpo_tap_gemm_s8.restype = i32
         # w (OIHW), out (9 * Cin, Cout), dtype, Cout, Cin, stream
         lib.ddpo_conv_weight_kn.argtypes = [p, p, i32, i32, i32, p]
         lib.ddpo_conv_weight_kn.restype = i32

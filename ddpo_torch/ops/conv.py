@@ -29,6 +29,9 @@ and at one N, 22 of them with the image's position in the batch
 tap-GEMM kernel, which computes each image alone, and ``library_conv``'s
 forward makes one cuDNN call an image (its backward stays one call over the
 batch, as ``Conv3x3Direct``'s).
+
+``conv3x3(..., quant=True)`` runs the W8A8 int8 conv of ops/quant.py
+instead, whatever the switch and the mode.
 """
 
 from __future__ import annotations
@@ -191,9 +194,20 @@ class ConvPerImage(torch.autograd.Function):
 
 
 def conv3x3(
-    x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None
+    x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+    quant: bool = False,
 ) -> torch.Tensor:
-    """x (N, Cin, H, W), weight (Cout, Cin, 3, 3) -> (N, Cout, H, W)."""
+    """x (N, Cin, H, W), weight (Cout, Cin, 3, 3) -> (N, Cout, H, W).
+
+    ``quant``: the W8A8 int8 conv of ops/quant.py, for inference sampling;
+    it takes precedence over ``set_conv_kernel_enabled`` and
+    ``batch_invariant()``, as in JAX (the s8 kernel has no float variant to
+    switch to, and its integer sums are batch invariant already).
+    """
+    if quant:
+        from ddpo_torch.ops.quant import conv3x3_w8a8
+
+        return conv3x3_w8a8(x, weight, bias)
     use_kernel = _CONV_OVERRIDE or (
         _CONV_OVERRIDE is None and x.is_cuda and invariance.enabled())
     if not use_kernel:

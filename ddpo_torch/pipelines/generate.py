@@ -1,18 +1,23 @@
 """Generation-only inference driver: text -> images.
 
-Port of the DDIM path of ddpo_tpu/pipelines/generate.py, on one device:
-prompts -> CLIP text encode -> 50-step CFG DDIM sampler -> VAE decode ->
-PNGs under the run's savepath. It runs on the CUDA device (where the
+Port of ddpo_tpu/pipelines/generate.py, on one device: prompts -> CLIP
+text encode -> CFG sampler (50-step DDIM, or ``--scheduler dpm++``: the
+DPM-Solver++(2M) ODE sampler, about 20 steps) -> VAE decode -> PNGs under
+the run's savepath. It runs on the CUDA device (where the
 UNet's self-attention and every GroupNorm go through the kernels in
 ddpo_torch/csrc) and raises at once when there is none, unless
 ``--device cpu`` asks for the CPU. With ``ops.conv.set_conv_kernel_enabled(True)``
 every 3x3 conv of the UNet and the VAE decoder runs the direct kernel too.
+``--quant int8`` runs the UNet's 47 resnet and upsampler convs as W8A8
+int8 convs (ops/quant.py; on the card the s8 tap-GEMM kernel), alone or
+with ``--scheduler dpm++``.
 
 ``--iteration`` > 0 serves a finetuned UNet: ``load_unet`` overlays
 ``unet_{load_epoch}.pkl`` from ``--loadpath`` (the Flax-layout export of
 either package, e.g. the merged UNet a LoRA run of
 pipelines/policy_gradient.py writes) on the stack built from ``--seed``.
-``--scheduler dpm++`` and ``--quant int8`` are not ported yet and raise.
+``--guidance_scale auto`` reads the scale pipelines/calibrate.py wrote to
+``--loadpath``'s metadata.json.
 
 Run: python -m ddpo_torch.pipelines.generate --dataset compressed-animals \
          --prompts "['a dog', 'a cheetah']" --n_samples 8
@@ -22,14 +27,16 @@ from __future__ import annotations
 
 import json
 import os
-from typing import List, NamedTuple
+import sys
+from typing import Callable, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from ddpo_torch import training
+from ddpo_torch.core.scheduler import DPMSolverPlusPlus
 from ddpo_torch.models.tokenizer import make_uncond_ids
-from ddpo_torch.sampling import SamplerConfig, sample_images, vae_decode
+from ddpo_torch.sampling import SamplerConfig, sample_images, sample_images_ode, vae_decode
 from ddpo_torch.utils import Timer
 from ddpo_torch.utils.images import save_image, save_images
 from ddpo_torch.utils.metrics import MetricsLogger, run_dir
@@ -52,15 +59,38 @@ def _dtype(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
 
 
+def inference_sampler(args, argv, models, tag: str) -> Tuple[object, Callable]:
+    """``--quant`` on the loaded UNet, then ``--scheduler``'s scheduler and
+    sampler function: (models.scheduler, sample_images) for ddim, a
+    DPMSolverPlusPlus with the DDIM scheduler's noise schedule and
+    prediction type and sample_images_ode for dpm++. ``argv`` (None: the
+    command line) tells whether --eta was given, which dpm++ ignores."""
+    if args.quant == "int8":
+        models.unet.set_quant(True)
+        print(f"[ {tag} ] quant=int8: W8A8 resnet convs in the sampling UNet")
+    elif args.quant != "none":
+        raise ValueError(f"unknown quant {args.quant!r} (none|int8)")
+    if args.scheduler == "ddim":
+        return models.scheduler, sample_images
+    if args.scheduler != "dpm++":
+        raise ValueError(f"unknown scheduler {args.scheduler!r} (ddim|dpm++)")
+    raw_argv = argv if argv is not None else sys.argv[1:]
+    if "--eta" in raw_argv and float(args.eta) != 0.0:
+        print(f"[ {tag} ] warning: --eta has no effect with "
+              "--scheduler dpm++ (deterministic ODE solver, eta=0)")
+    d = models.scheduler
+    return DPMSolverPlusPlus(
+        num_train_timesteps=d.num_train_timesteps,
+        beta_start=d.beta_start,
+        beta_end=d.beta_end,
+        beta_schedule=d.beta_schedule,
+        prediction_type=d.prediction_type,
+    ), sample_images_ode
+
+
 def main(argv=None) -> GenerateResult:
     args = Parser().parse_args("generate", argv)
     device = resolve_device(args.device)
-    if args.scheduler != "ddim":
-        raise NotImplementedError(
-            f"--scheduler {args.scheduler!r} is not ported yet (ddim only)"
-        )
-    if args.quant != "none":
-        raise NotImplementedError(f"--quant {args.quant!r} is not ported yet")
     if args.guidance_scale == "auto":
         from ddpo_torch.utils.loaders import load_guidance_scale
 
@@ -78,7 +108,7 @@ def main(argv=None) -> GenerateResult:
         dtype=_dtype(args.dtype),
         seed=args.seed or 0,
     )
-    scheduler = models.scheduler
+    scheduler, sample_fn = inference_sampler(args, argv, models, "generate")
     sched_state = scheduler.create_state(device)
     sampler_config = SamplerConfig(
         num_inference_steps=args.n_inference_steps,
@@ -116,7 +146,7 @@ def main(argv=None) -> GenerateResult:
                 evaluate=args.evaluate, **args.prompt_kwargs,
             )
         prompt_embeds = text_encode(models.tokenizer(list(prompts)))
-        latents = sample_images(
+        latents = sample_fn(
             models.unet, scheduler, sched_state, prompt_embeds, uncond_embeds,
             sampler_config, generator=generator,
         )

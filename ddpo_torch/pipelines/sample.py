@@ -2,17 +2,20 @@
 
 Port of ddpo_tpu/pipelines/sample.py, on one device: the CUDA device,
 raising at once when there is none, unless ``--device cpu`` asks for the
-CPU. Each batch: prompts -> CLIP text encode -> the trajectory-free CFG DDIM
-sampler (``sample_images``) -> VAE decode -> the ``filter_field`` reward and
-the ``vae`` posterior moments (the finetune loss's inputs) -> the masker ->
-``RemoteWriter`` split files. The models run in ``--dtype`` (bf16 by
+CPU. Each batch: prompts -> CLIP text encode -> the trajectory-free CFG
+sampler (DDIM's ``sample_images``, or with ``--scheduler dpm++`` the
+DPM-Solver++(2M) ``sample_images_ode``: collection keeps only images and
+rewards, so the few-step ODE solver applies) -> VAE decode -> the
+``filter_field`` reward and the ``vae`` posterior moments (the finetune
+loss's inputs) -> the masker -> ``RemoteWriter`` split files. The models run in ``--dtype`` (bf16 by
 default), the moments come back in fp32.
 
 ``--iteration`` > 0 samples from the finetuned UNet ``unet_{load_epoch}.pkl``
 under ``--loadpath`` (the previous iteration's ``pipelines/finetune.py``
 export, of either package); ``--guidance_scale auto`` reads the calibrated
-scale from the model directory's metadata.json. ``--scheduler dpm++`` and
-``--quant int8`` are not ported yet and raise.
+scale from the model directory's metadata.json. ``--quant int8`` runs the
+sampling UNet's resnet and upsampler convs as W8A8 int8 convs
+(ops/quant.py), alone or with ``--scheduler dpm++``.
 
 ``main`` is ``build_collector`` (models, sampler, rewards, masker), the
 writer and ``collect`` (the loop); ``collect_batch`` is one batch,
@@ -34,7 +37,8 @@ from ddpo_torch import training
 from ddpo_torch.data.hdf5 import RemoteWriter, decode_generic, encode_generic
 from ddpo_torch.models.tokenizer import make_uncond_ids
 from ddpo_torch.parallel.collectives import worker_sum
-from ddpo_torch.sampling import SamplerConfig, sample_images, vae_decode
+from ddpo_torch.pipelines.generate import inference_sampler
+from ddpo_torch.sampling import SamplerConfig, vae_decode
 from ddpo_torch.utils import Timer
 from ddpo_torch.utils.images import decode_jpeg, encode_jpeg
 from ddpo_torch.utils.maskers import StreamingAverage, make_masker
@@ -61,6 +65,8 @@ class Collector(NamedTuple):
     args: Any
     device: torch.device
     models: Any
+    scheduler: Any  # --scheduler's: DDIM or DPM-Solver++
+    sample_fn: Callable  # sample_images or sample_images_ode
     sched_state: Any
     sampler_config: SamplerConfig
     uncond_embeds: torch.Tensor
@@ -70,15 +76,13 @@ class Collector(NamedTuple):
     generator: torch.Generator
 
 
-def build_collector(args) -> Collector:
+def build_collector(args, argv=None) -> Collector:
     """Everything a batch needs: the models (the finetuned UNet at
-    ``--iteration`` > 0), the sampler's configuration, the rewards, the
-    masker and the sampler's generator."""
+    ``--iteration`` > 0, quantized under ``--quant int8``), the scheduler
+    and sampler of ``--scheduler``, the sampler's configuration, the
+    rewards, the masker and the sampler's generator. ``argv`` is the
+    command line the arguments came from (None: sys.argv)."""
     device = resolve_device(args.device)
-    if args.scheduler != "ddim":
-        raise NotImplementedError(f"--scheduler {args.scheduler!r} is not ported yet (ddim only)")
-    if args.quant != "none":
-        raise NotImplementedError(f"--quant {args.quant!r} is not ported yet")
     batch_size = args.n_samples_per_device
     print(f"[ sample ] device: {device} | batch {batch_size}")
     if args.guidance_scale == "auto":
@@ -98,6 +102,7 @@ def build_collector(args) -> Collector:
         dtype=_dtype(args.dtype),
         seed=args.seed or 0,
     )
+    scheduler, sample_fn = inference_sampler(args, argv, models, "sample")
     sampler_config = SamplerConfig(
         num_inference_steps=args.n_inference_steps,
         guidance_scale=float(args.guidance_scale),
@@ -116,8 +121,8 @@ def build_collector(args) -> Collector:
         uncond_embeds = models.text_encoder(
             torch.as_tensor(make_uncond_ids(models.tokenizer, batch_size), device=device))
     return Collector(
-        args=args, device=device, models=models,
-        sched_state=models.scheduler.create_state(device), sampler_config=sampler_config,
+        args=args, device=device, models=models, scheduler=scheduler, sample_fn=sample_fn,
+        sched_state=scheduler.create_state(device), sampler_config=sampler_config,
         uncond_embeds=uncond_embeds, callback_fns=callback_fns,
         masker=make_masker(args.mask_mode, args.mask_param), avg=StreamingAverage(),
         generator=torch.Generator(device=device).manual_seed(args.seed or 0),
@@ -136,8 +141,8 @@ def collect_batch(c: Collector):
     with torch.no_grad():
         prompt_embeds = models.text_encoder(
             torch.as_tensor(models.tokenizer(list(inference_prompts)), device=c.device))
-    latents = sample_images(models.unet, models.scheduler, c.sched_state, prompt_embeds,
-                            c.uncond_embeds, c.sampler_config, generator=c.generator)
+    latents = c.sample_fn(models.unet, c.scheduler, c.sched_state, prompt_embeds,
+                          c.uncond_embeds, c.sampler_config, generator=c.generator)
     _sync(c.device)
     seconds["sample_s"] = time.perf_counter() - start
     start = time.perf_counter()
@@ -212,7 +217,7 @@ def collect(c: Collector, writer) -> int:
 
 def main(argv=None) -> int:
     args = Parser().parse_args("sample", argv)
-    c = build_collector(args)
+    c = build_collector(args, argv)
     writer = RemoteWriter(args.savepath, split_size=args.local_size)
     configure_writer(writer, c.callback_fns)
     return collect(c, writer)

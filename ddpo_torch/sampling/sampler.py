@@ -1,10 +1,13 @@
-"""Trajectory-recording CFG DDIM sampler, VAE decode.
+"""Trajectory-recording CFG DDIM sampler, the DPM-Solver++ ODE sampler,
+VAE decode.
 
-Port of ddpo_tpu/sampling/sampler.py (DDIM; the DPM-Solver++ ODE sampler is
-not ported yet). Classifier-free guidance runs as one 2B batch
-([uncond; cond]); ``sample_trajectories`` records the policy trajectory the
-PPO trainer consumes (latents, next_latents, log_probs, ts), batch-major.
-UNet activations run in the model's dtype; scheduler math stays fp32.
+Port of ddpo_tpu/sampling/sampler.py, on one device. Classifier-free
+guidance runs as one 2B batch ([uncond; cond]); ``sample_trajectories``
+records the policy trajectory the PPO trainer consumes (latents,
+next_latents, log_probs, ts), batch-major; ``sample_images`` keeps only the
+final latents; ``sample_images_ode`` runs the deterministic DPM-Solver++(2M)
+in few steps for inference. UNet activations run in the model's dtype;
+scheduler math stays fp32.
 
 The JAX scan becomes a Python loop. Randomness comes from an explicit
 ``torch.Generator``: the initial latents first, then one draw per step.
@@ -19,7 +22,12 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from ddpo_torch.core.scheduler import DDIMScheduler, DDIMState
+from ddpo_torch.core.scheduler import (
+    DDIMScheduler,
+    DDIMState,
+    DPMSolverPlusPlus,
+    DPMSolverState,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,6 +131,35 @@ def sample_images(
         config, generator, init_latents, noise,
     ):
         pass
+    return latents
+
+
+@torch.no_grad()
+def sample_images_ode(
+    unet: Callable,
+    scheduler: DPMSolverPlusPlus,
+    scheduler_state: DPMSolverState,
+    prompt_embeds: torch.Tensor,
+    uncond_embeds: torch.Tensor,
+    config: SamplerConfig = SamplerConfig(),
+    generator: Optional[torch.Generator] = None,
+    init_latents: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Deterministic few-step generation with DPM-Solver++(2M).
+
+    The same CFG batching and initial draw as ``sample_images``, then
+    ``num_inference_steps`` model calls of the second-order solver, carrying
+    (latents, previous x0 estimate). ``config.eta`` is ignored: the solver
+    integrates the eta-0 probability-flow ODE, so the generator is drawn
+    from once, for the initial latents.
+    """
+    state = scheduler.set_timesteps(scheduler_state, config.num_inference_steps)
+    context = torch.cat([uncond_embeds, prompt_embeds])
+    latents = _init_latents(state, prompt_embeds, config, generator, init_latents)
+    prev_x0 = torch.zeros_like(latents)
+    for i, t in enumerate(state.timesteps):
+        eps = _guided_eps(unet, latents, t, context, config.guidance_scale)
+        latents, prev_x0 = scheduler.step(state, eps, i, latents, prev_x0)
     return latents
 
 

@@ -3,6 +3,8 @@
 PNG files are written with the standard library alone (zlib + struct), so
 the serving path needs neither PIL nor matplotlib. ``save_images`` tiles a
 batch into one grid image instead of drawing a matplotlib figure.
+``plot_calibration`` draws the guidance-scale curve with matplotlib where it
+imports, else with PIL.
 
 The codecs are ddpo_tpu/utils/images.py's: ``encode_jpeg``/``decode_jpeg``
 (PIL, quality 95) for the images, ``encode_generic``/``decode_generic`` for
@@ -84,6 +86,88 @@ def save_images(images, *savepath, nrow: int = 8) -> None:
         r, col = divmod(i, nrow)
         grid[r * h:(r + 1) * h, col * w:(col + 1) * w] = img
     save_image(os.path.join(*savepath), grid)
+
+
+def plot_calibration(savepath: str, y_dict: dict, ylabel=None, cache: str = "logs") -> str:
+    """Reward against guidance scale, the calibration driver's curve (JAX's
+    plot_calibration, reference :402-428), as a PNG at ``savepath``.
+
+    Drawn with matplotlib on the Agg backend, as JAX draws it, where
+    matplotlib imports; else the same curve (the grey face, white grid
+    lines, the line in matplotlib's first colour, the axis labels) with
+    PIL's ImageDraw. Returns which one drew it: "matplotlib" or "pil".
+    """
+    xs = sorted(y_dict.keys())
+    ys = [y_dict[x] for x in xs]
+    try:
+        import matplotlib
+    except ImportError:
+        data, renderer = _plot_pil(xs, ys, ylabel), "pil"
+    else:
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        plt.plot(xs, ys)
+        ax = plt.gca()
+        ax.grid(linestyle="-", linewidth="1", color="white")
+        ax.set_facecolor([0.9, 0.9, 0.9])
+        for spine in ax.spines.values():
+            spine.set_visible(False)
+        plt.ylabel(ylabel)
+        plt.xlabel("guidance scale")
+        buffer = io.BytesIO()
+        plt.savefig(buffer, format="png")
+        plt.close()
+        data, renderer = buffer.getvalue(), "matplotlib"
+    if fs.is_remote(savepath):
+        localpath = os.path.join(cache, savepath.replace("gs://", ""))
+        fs.mkdir(localpath, fname=True)
+        with open(localpath, "wb") as f:
+            f.write(data)
+        with fs.open(savepath, mode="wb") as f:
+            f.write(data)
+    else:
+        fs.mkdir(savepath, fname=True)
+        with open(savepath, "wb") as f:
+            f.write(data)
+    return renderer
+
+
+def _plot_pil(xs, ys, ylabel, size=(640, 480), margin=(80, 30, 30, 60)) -> bytes:
+    """The calibration curve with PIL's ImageDraw: PNG bytes."""
+    from PIL import Image, ImageDraw
+
+    width, height = size
+    left, top, right, bottom = margin
+    img = Image.new("RGB", size, "white")
+    draw = ImageDraw.Draw(img)
+    x0, y0, x1, y1 = left, top, width - right, height - bottom
+    draw.rectangle([x0, y0, x1, y1], fill=(230, 230, 230))
+    xlo, xhi = min(xs), max(xs)
+    ylo, yhi = min(ys), max(ys)
+    xpad = (xhi - xlo) * 0.05 or 0.5
+    ypad = (yhi - ylo) * 0.05 or 0.5
+
+    def px(x, y):
+        return (x0 + (x - xlo + xpad) / (xhi - xlo + 2 * xpad) * (x1 - x0),
+                y1 - (y - ylo + ypad) / (yhi - ylo + 2 * ypad) * (y1 - y0))
+
+    for i in range(5):
+        gy = ylo - ypad + (yhi - ylo + 2 * ypad) * i / 4
+        _, py = px(xlo, gy)
+        draw.line([(x0, py), (x1, py)], fill="white", width=1)
+        draw.text((4, py - 6), f"{gy:.3g}", fill="black")
+    for x in xs:
+        gx, _ = px(x, ylo)
+        draw.line([(gx, y0), (gx, y1)], fill="white", width=1)
+        draw.text((gx - 8, y1 + 6), f"{x:g}", fill="black")
+    draw.line([px(x, y) for x, y in zip(xs, ys)], fill=(31, 119, 180), width=2)
+    draw.text(((x0 + x1) // 2 - 40, height - 24), "guidance scale", fill="black")
+    if ylabel:
+        draw.text((4, 6), str(ylabel), fill="black")
+    buffer = io.BytesIO()
+    img.save(buffer, "PNG")
+    return buffer.getvalue()
 
 
 def encode_jpeg(x: np.ndarray, quality: int = 95) -> np.ndarray:

@@ -34,6 +34,14 @@ from ddpo_torch.ops.conv import (
     set_conv_kernel_enabled,
     weight_kn,
 )
+from ddpo_torch.ops.quant import (
+    conv3x3_w8a8,
+    conv3x3_w8a8_reference,
+    quantize_symmetric,
+    tap_gemm_s8,
+    tap_gemm_s8_reference,
+    weight_codes,
+)
 from ddpo_torch.ops.groupnorm import (
     gn_silu_plan,
     gn_stats_cluster_size,
@@ -253,6 +261,36 @@ def test_conv3x3_kernel_matches_plain(cuda, dtype, b, cin, cout, h, w):
     assert out.dtype == dtype and out.shape == (b, cout, h, w) and torch.equal(out, again)
     ref = conv3x3_reference(x.float(), weight.float())
     assert (out.float() - ref).abs().max().item() <= _bound(dtype, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,cin,cout,h,w,bias", [
+    (8, 320, 320, 64, 64, True), (8, 640, 640, 32, 32, False), (8, 1920, 1280, 16, 16, True),
+    (8, 2560, 1280, 8, 8, True), (2, 40, 24, 13, 17, True), (1, 3, 5, 1, 1, False)])
+def test_conv3x3_s8_kernel_matches_plain(cuda, dtype, b, cin, cout, h, w, bias):
+    """The s8 tap-GEMM against its plain version on the same codes, bit for
+    bit (integer sums are exact; the epilogue rounds as the plain version
+    does); two calls and image 0 alone give the same bits; Cin not a
+    multiple of 16 (element-wise weight loads), ragged maps and channels
+    are masked in the kernel."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn((b, cin, h, w), generator=gen, device=cuda).to(dtype)
+    weight = (torch.randn((cout, cin, 3, 3), generator=gen, device=cuda)
+              * (9 * cin) ** -0.5).to(dtype)
+    bvec = torch.randn(cout, generator=gen, device=cuda) if bias else None
+    xq, sx = quantize_symmetric(x, (1, 2, 3))
+    wq, sw = weight_codes(weight)
+    before = _build.launch_counts()["conv3x3_s8"]
+    out = tap_gemm_s8(xq, wq, sx.reshape(-1), sw, bvec, dtype)
+    again = tap_gemm_s8(xq, wq, sx.reshape(-1), sw, bvec, dtype)
+    alone = tap_gemm_s8(xq[:1].contiguous(), wq, sx.reshape(-1)[:1].contiguous(), sw, bvec, dtype)
+    assert _build.launch_counts()["conv3x3_s8"] == before + 3
+    ref = tap_gemm_s8_reference(xq, wq, sx.reshape(-1), sw, bvec, dtype)
+    assert out.dtype == dtype and out.shape == (b, cout, h, w)
+    assert torch.equal(out, ref) and torch.equal(out, again) and torch.equal(alone, out[:1])
+    # the op end to end: the kernel path equals the plain one on the same x
+    assert torch.equal(conv3x3_w8a8(x, weight, bvec), conv3x3_w8a8_reference(x, weight, bvec))
 
 
 @pytest.mark.cuda

@@ -4,8 +4,9 @@ What tests/test_pipelines_rwr.py::test_rwr_chain holds for the JAX drivers,
 with --device cpu at 32 px and 2 sampling steps: sample -> save_sizes ->
 finetune -> sample --iteration 1 on the export, with their metrics streams;
 the rwr_loop driver for one iteration; a LoRA finetune whose merged export
-ddpo_tpu's ``load_unet`` reads bit for bit; the options that are not ported
-raise; and the drivers raise without a card unless given --device cpu.
+ddpo_tpu's ``load_unet`` reads bit for bit; the serving extras (--scheduler
+dpm++, --quant int8, both); and the drivers raise without a card unless
+given --device cpu.
 """
 
 import numpy as np
@@ -127,8 +128,36 @@ def test_lora_finetune_export_is_read_by_jax(workdir):  # noqa: F811
 
 @pytest.mark.parametrize("flag,value", [("--scheduler", "dpm++"), ("--quant", "int8")])
 def test_sample_options_not_ported_raise(workdir, flag, value):  # noqa: F811
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        _sample(1, [flag, value])
+    """The serving extras, once refused here, are ported: collection runs
+    with the value (the ODE sampler, or the quantized UNet), and an unknown
+    value of the flag raises."""
+    from ddpo_torch.data.hdf5 import LocalReader
+
+    n = _sample(1, [flag, value, "--max_steps", "1", "--savepath", "samples/x"])
+    reader = LocalReader(str(workdir.joinpath(*BASE, "samples", "x")))
+    assert n >= 1 and len(reader) == n
+    assert np.isfinite(np.asarray(reader.get(slice(0, n), field="images"), np.float32)).all()
+    with pytest.raises(ValueError, match="unknown"):
+        _sample(1, [flag, value + "x"])
+
+
+def test_sample_dpmpp_int8_collects(workdir):  # noqa: F811
+    """--quant int8 with --scheduler dpm++ (the cheapest collection): the
+    collector samples with the ODE solver on the quantized UNet."""
+    from ddpo_torch.core.scheduler import DPMSolverPlusPlus
+    from ddpo_torch.models.layers import Conv3x3
+    from ddpo_torch.pipelines import sample
+    from ddpo_torch.sampling import sample_images_ode
+
+    args = sample.Parser().parse_args("sample", COMMON + [
+        "--n_samples_per_device", "1", "--quant", "int8", "--scheduler", "dpm++",
+        "--n_inference_steps", "3"])
+    c = sample.build_collector(args, [])
+    assert isinstance(c.scheduler, DPMSolverPlusPlus) and c.sample_fn is sample_images_ode
+    assert c.scheduler.prediction_type == c.models.scheduler.prediction_type
+    assert sum(m.quant for m in c.models.unet.modules() if isinstance(m, Conv3x3)) == 17
+    batch, mask, rewards, seconds = sample.collect_batch(c)
+    assert np.isfinite(batch["images"]).all() and batch["vae"].shape == (1, 16, 16, 8)
 
 
 @pytest.mark.parametrize("driver", ["sample", "finetune"])

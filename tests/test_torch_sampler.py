@@ -11,6 +11,7 @@ injected noise and sigma, not on the mean, so the debug grid's small-sigma
 last step does not amplify the latents' differences here).
 """
 
+import json
 import os
 
 import jax
@@ -146,8 +147,36 @@ def test_generate_end_to_end_debug_animals(tmp_path, monkeypatch):
     np.testing.assert_array_equal(again.images, result.images)
 
 
+SMALL = ["--dataset", "debug-animals", "--device", "cpu", "--n_samples", "2",
+         "--n_samples_per_device", "2", "--resolution", "32", "--prompts", "['a dog']",
+         "--seed", "3"]
+
+
 @pytest.mark.parametrize("flag,value", [("--scheduler", "dpm++"), ("--quant", "int8")])
 def test_generate_refuses_what_is_not_ported(tmp_path, monkeypatch, flag, value):
+    """The serving extras, once refused here, are ported: generate runs with
+    the value and records it; an unknown value of the flag raises."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        generate.main(["--dataset", "debug-animals", "--device", "cpu", flag, value])
+    result = generate.main(SMALL + ["--n_inference_steps", "3", flag, value])
+    assert result.images.shape == (2, 32, 32, 3) and np.isfinite(result.images).all()
+    with open(os.path.join(result.outdir, "prompts.json")) as f:
+        meta = json.load(f)
+    assert meta["prompts"] == ["a dog", "a dog"]
+    assert meta["scheduler"] == ("dpm++" if flag == "--scheduler" else "ddim")
+    with pytest.raises(ValueError, match="unknown"):
+        generate.main(SMALL + [flag, value + "x"])
+
+
+def test_generate_dpmpp_int8_and_eta_warning(tmp_path, monkeypatch, capsys):
+    """Both extras together; --eta with dpm++ warns as JAX does, and the ODE
+    sampler ignores it: the images equal those without --eta."""
+    monkeypatch.chdir(tmp_path)
+    argv = SMALL + ["--n_inference_steps", "3", "--scheduler", "dpm++", "--quant", "int8"]
+    result = generate.main(argv)
+    out = capsys.readouterr().out
+    assert "quant=int8" in out and "warning" not in out
+    with_eta = generate.main(argv + ["--eta", "0.5"])
+    assert "warning: --eta has no effect" in capsys.readouterr().out
+    np.testing.assert_array_equal(with_eta.images, result.images)
+    plain = generate.main(SMALL + ["--n_inference_steps", "3", "--scheduler", "dpm++"])
+    assert 0 < np.abs(plain.images - result.images).max() < 0.5  # int8 moves the images a little
