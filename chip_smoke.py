@@ -65,7 +65,8 @@ Phases, in order; any failure exits non-zero:
   4-7 launch none of the new kernels.
   7. DDPO: ddpo_torch.pipelines.policy_gradient.main, one epoch at the
      defaults of --dataset compressed-animals (sample batch 8, 50 steps,
-     train batch 2, bf16 over fp32 masters, adamw) with its JPEG reward
+     train batch 2, bf16 over fp32 masters, adamw; cut to
+     --train_timestep_ratio 0.5, 100 updates) with its JPEG reward
      (the native library built against the libjpeg the build finds, which
      is logged, with the reward's seconds for the epoch's images), a
      full-state checkpoint, and a --resume call that trains no further
@@ -145,6 +146,23 @@ Phases, in order; any failure exits non-zero:
      then generate --guidance_scale auto on its savepath must print and use
      the argmax; whether matplotlib imports and which renderer drew
      calibration.png.
+  13. two ranks of DDPO on the one card: two ``python -m
+     ddpo_torch.pipelines.policy_gradient`` processes (RANK 0 and 1,
+     WORLD_SIZE 2, LOCAL_RANK 0, so both on cuda:0 and their gradients over
+     gloo), --dataset compressed-animals at SD-1.4 width, sample batch 2 and
+     train batch 1 a rank, 50 steps, CFG 5.0, cut only in
+     --train_timestep_ratio 0.2, to a gs:// savepath on a DDPO_TPU_FAKE_GCS
+     stand-in: (a) one epoch with the fp32 all-reduce; (b) --resume from a
+     fresh local directory with --grad_reduce_dtype bfloat16, which fetches
+     the checkpoint from the stand-in and trains epoch 1. Each fails unless
+     both ranks exit 0, print the same rewards and parameter digests, drew
+     different noise, chose gloo, launched phase 7's kernels per rank at
+     this shape and recomputed the first minibatch on-policy (|dlogp| <=
+     1e-5, clipfrac 0); the bucket must hold reward_curve.json, the checkpoint and
+     both host pickles, and (b) must start at epoch 1. Printed: each
+     all-reduce's bytes and seconds, the seconds per update, the epoch
+     walls, each rank's peak memory and launches. Each rank's whole output
+     goes to chiprun_out/phase13/.
 
 The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}. With no CUDA device, or run
@@ -1142,7 +1160,10 @@ def phase_train(init_params, unet_gn, vae_gn, unet_conv):
     from ddpo_torch.utils import checkpoints
     from ddpo_torch.utils.metrics import read_metrics
 
-    argv = ["--dataset", "compressed-animals", "--num_train_epochs", "1", "--seed", "0"]
+    # depth cut to keep the script inside its time limit with phase 13:
+    # half the trained timesteps
+    argv = ["--dataset", "compressed-animals", "--num_train_epochs", "1", "--seed", "0",
+            "--train_timestep_ratio", "0.5"]
     args = policy_gradient.Parser().parse_args("pg", list(argv))
     if args.filter_field != "jpeg":
         fail(f"compressed-animals trains on {args.filter_field!r}, not the JPEG reward")
@@ -1272,7 +1293,8 @@ def phase_lora(unet_gn, vae_gn, unet_conv, full_update_s):
     from ddpo_torch.utils.metrics import read_metrics
     from ddpo_torch.utils.serialization import load_stable_diffusion, load_unet
 
-    argv = ["--dataset", "compressed-animals-lora", "--num_train_epochs", "1", "--seed", "0"]
+    argv = ["--dataset", "compressed-animals-lora", "--num_train_epochs", "1", "--seed", "0",
+            "--train_timestep_ratio", "0.5"]  # the depth cut of phase 7
     args = policy_gradient.Parser().parse_args("pg", list(argv))
     if (args.lora_rank, args.learning_rate, args.optimizer) != (8, 1e-3, "adamw"):
         fail(f"compressed-animals-lora resolves to r {args.lora_rank}, lr "
@@ -1305,8 +1327,8 @@ def phase_lora(unet_gn, vae_gn, unet_conv, full_update_s):
     n_trainable = n_lora_params(adapters)
     first_dlogp = (2.0 * args.train_batch_size * int(steps * args.train_timestep_ratio)
                    * infos["approx_kl"][0]) ** 0.5
-    log(f"lora epoch (r {args.lora_rank}, lr {args.learning_rate:g}, {args.optimizer}, all "
-        f"{steps} timesteps): {wall:.1f} s in all (model build included); {n_trainable} "
+    log(f"lora epoch (r {args.lora_rank}, lr {args.learning_rate:g}, {args.optimizer}, "
+        f"{int(steps * args.train_timestep_ratio)} of {steps} timesteps trained): {wall:.1f} s in all (model build included); {n_trainable} "
         f"trainable in {len(adapters)} tensors (expected 1594368 in 256); training "
         f"{train_ev['train_time_s']:.2f} s for {n_updates} updates = "
         f"{train_ev['train_time_s'] / n_updates:.4f} s each (full finetune, phase 7: "
@@ -2452,6 +2474,179 @@ def phase_serving_extras(unet_gn, vae_gn, serving_ips, smi):
     return s8_results, counts
 
 
+PHASE13_ARGV = ["--dataset", "compressed-animals", "--sample_batch_size", "2",
+                "--train_batch_size", "1", "--train_timestep_ratio", "0.2", "--seed", "0",
+                "--logbase", "gs://chip-smoke/logs"]
+
+
+def rank_values(outs, pattern, cast=str):
+    """Each rank's matches of ``pattern`` (its first group, or all groups)."""
+    import re
+
+    found = []
+    for out in outs:
+        ms = [m for m in (re.search(pattern, line) for line in out.splitlines()) if m]
+        found.append([cast(m.group(1)) if m.re.groups == 1 else m.groups() for m in ms])
+    return found
+
+
+def run_ranks(tag, argv, cwd, env, timeout):
+    """Two ranks of the DDPO driver on the one card (LOCAL_RANK 0 each);
+    each rank's whole output goes to chiprun_out/phase13/."""
+    from ddpo_torch.parallel.launch import launch
+
+    os.makedirs(cwd, exist_ok=True)
+    start = time.perf_counter()
+    results = launch([sys.executable, "-m", "ddpo_torch.pipelines.policy_gradient", *argv],
+                     2, timeout=timeout, env=env, cwd=cwd, local_rank=lambda r: 0)
+    wall = time.perf_counter() - start
+    logdir = os.path.join(REPO, "chiprun_out", "phase13")
+    os.makedirs(logdir, exist_ok=True)
+    for rank, (rc, out) in enumerate(results):
+        with open(os.path.join(logdir, f"{tag}_rank{rank}.log"), "w") as f:
+            f.write(out)
+        if rc != 0:
+            print(out[-6000:], file=sys.stderr, flush=True)
+            fail(f"{tag}: rank {rank} exited {rc}")
+    return [out for _, out in results], wall
+
+
+def check_ranks(tag, outs, want, smi, epochs, remote, args):
+    """The checks and numbers of one two-rank run; returns the reward history."""
+    import json as _json
+
+    import numpy as np
+
+    rewards = rank_values(outs, r"epoch (\d+) mean reward: (\S+)")
+    noise = rank_values(outs, r"initial noise digest (\w+)")
+    digests = rank_values(outs, r"epoch (\d+) params digest (\w+)")
+    backend = rank_values(outs, r"gradient all-reduce: (\w+), (\w+)")
+    reduces = rank_values(outs, r"gradient all-reduce \(\w+, (\w+)\): (\d+) calls, (\d+) bytes "
+                                r"each, seconds (.*)")
+    updates = rank_values(outs, r"epoch (\d+)\.0: .*\| (\S+)s, (\S+) s an update \((\d+)\)")
+    walls = rank_values(outs, r"epoch (\d+) wall (\S+) s")
+    ends = rank_values(outs, r"rank (\d+): peak memory (\S+) GiB \| kernel launches (\{.*\})")
+    if rewards[0] != rewards[1] or [e for e, _ in rewards[0]] != [str(e) for e in epochs]:
+        fail(f"{tag}: the ranks' reward histories differ or miss epochs: {rewards}")
+    if digests[0] != digests[1] or len(digests[0]) != len(epochs):
+        fail(f"{tag}: the ranks' parameter digests differ: {digests}")
+    if len(noise[0]) != len(epochs) or any(a == b for a, b in zip(*noise)):
+        fail(f"{tag}: the ranks drew the same sampler noise: {noise}")
+    if any([name for name, _ in b] != ["gloo"] for b in backend):
+        fail(f"{tag}: ranks sharing a card must reduce over gloo: {backend}")
+    if not all(len(e) == 1 for e in ends):
+        fail(f"{tag}: a rank printed no peak memory and launches")
+    # each rank's first minibatch is on-policy: the infos are the ranks'
+    # mean, so 2 B T x 2 ranks x approx_kl bounds the sum of dlogp^2
+    infos = np.load(os.path.join(remote, "train_info", f"0_{epochs[-1]}_0.npy"),
+                    allow_pickle=True).item()
+    num_ts = int(args.n_inference_steps * args.train_timestep_ratio)
+    first_dlogp = (4.0 * args.train_batch_size * num_ts * infos["approx_kl"][0]) ** 0.5
+    log(f"13 {tag}: first minibatch (2B = {2 * args.train_batch_size} against the sampler's "
+        f"2B = {2 * args.sample_batch_size}, both ranks) approx_kl {infos['approx_kl'][0]:.3e}, "
+        f"clipfrac {infos['clipfrac'][0]:.3f}, max|dlogp| <= {first_dlogp:.3e} (bound 1e-5); "
+        f"the second, after an update: approx_kl {infos['approx_kl'][1]:.3e}, clipfrac "
+        f"{infos['clipfrac'][1]:.3f}")
+    if not (first_dlogp <= 1e-5 and infos["clipfrac"][0] == 0.0):
+        fail(f"{tag}: the first minibatch's recompute is off-policy")
+    log(f"13 {tag}: backend {backend[0][0][0]} (both ranks on cuda:0), all-reduce dtype "
+        f"{backend[0][0][1]}; rewards {rewards[0]}; params digests {digests[0]} (equal on both "
+        f"ranks); initial noise digests rank 0 {noise[0]}, rank 1 {noise[1]} ({smi})")
+    for rank in range(2):
+        for dtype, calls, nbytes, secs in reduces[rank]:
+            log(f"13 {tag} rank {rank}: gradient all-reduce ({dtype}) {calls} calls of "
+                f"{int(nbytes)} bytes, seconds {secs} (pinned host staging + gloo; includes "
+                f"the wait for the other rank) ({smi})")
+        for epoch, train_s, per_update, n in updates[rank]:
+            log(f"13 {tag} rank {rank}: epoch {epoch} training {train_s} s, {per_update} s "
+                f"an update ({n} updates) ({smi})")
+        log(f"13 {tag} rank {rank}: epoch walls "
+            + ", ".join(f"{e}: {w} s" for e, w in walls[rank])
+            + f"; peak memory {ends[rank][0][1]} GiB ({smi})")
+        launched = _json.loads(ends[rank][0][2])
+        log(f"13 {tag} rank {rank}: launches {launched}, expected {want}")
+        if launched != want:
+            fail(f"{tag}: rank {rank} launched {launched}, expected {want}")
+    return rewards[0]
+
+
+def phase_ddpo_ranks(unet_gn, vae_gn, unet_conv, smi):
+    """13: two ranks of SD-1.4 DDPO on the one card (gloo), to a gs:// stand-in;
+    13a one epoch at an fp32 all-reduce, 13b a resume on a fresh host at bf16."""
+    import torch
+
+    from ddpo_torch.native import build as native_build
+    from ddpo_torch.ops import _build
+    from ddpo_torch.pipelines import policy_gradient
+
+    # the ranks load the kernel and JPEG libraries built here (earlier
+    # phases), and never build them at the same time
+    _build.load_library()
+    native_build.build()
+    torch.cuda.empty_cache()
+    log(f"13: two DDPO ranks on one card; the parent holds "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB ({smi})")
+    args = policy_gradient.Parser().parse_args("pg", list(PHASE13_ARGV), setup=False)
+    steps, n_sample = args.n_inference_steps, args.num_sample_batches_per_epoch
+    num_ts = int(steps * args.train_timestep_ratio)
+    n_updates = args.sample_batch_size * n_sample // args.train_batch_size * num_ts
+    log(f"13: --dataset compressed-animals at SD-1.4 width, per rank sample batch "
+        f"{args.sample_batch_size}, train batch {args.train_batch_size}, {steps} steps, CFG "
+        f"{args.guidance_scale}; cut: --train_timestep_ratio {args.train_timestep_ratio} "
+        f"({num_ts} of {steps} timesteps trained, {n_updates} updates a rank an epoch)")
+    # per rank and epoch, as phase 7: the sampler's 2B calls, the trainer's
+    # forward + remat + backward, inside batch_invariant()
+    want = expected(
+        flash_fwd=FLASH_PER_UNET_FORWARD * (steps * n_sample + 2 * n_updates),
+        flash_bwd_dq=FLASH_PER_UNET_FORWARD * n_updates,
+        flash_bwd_dkv=FLASH_PER_UNET_FORWARD * n_updates,
+        gn_stats=unet_gn * (steps * n_sample + 2 * n_updates) + vae_gn * n_sample,
+        conv3x3=unet_conv * (steps * n_sample + 2 * n_updates),
+    )
+    work = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    fake = os.path.join(work, "fake_gcs")
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               DDPO_TPU_FAKE_GCS=fake, DDPO_BUCKET=os.path.join(work, "bucket"))
+    remote = os.path.join(fake, "chip-smoke", "logs", "models", "pg")
+    marks = [("start", time.perf_counter())]
+
+    outs, wall = run_ranks("13a", PHASE13_ARGV + ["--num_train_epochs", "1"],
+                           os.path.join(work, "host_a"), env, timeout=420)
+    marks.append(("13a", time.perf_counter()))
+    first = check_ranks("13a", outs, want, smi, [0], remote, args)
+    log(f"13a: two ranks, one epoch, {wall:.1f} s from launch to exit ({smi})")
+    needed = ["reward_curve.json", "checkpoints/0/state.pt", "checkpoints/0_host.pkl",
+              "checkpoints/0_host_p1.pkl"]
+    missing = [p for p in needed if not os.path.exists(os.path.join(remote, p))]
+    if missing:
+        fail(f"13a: not in the stand-in bucket: {missing}")
+    log(f"13a: in the bucket: {needed}; state.pt "
+        f"{os.path.getsize(os.path.join(remote, 'checkpoints/0/state.pt'))} bytes")
+    shutil.rmtree(os.path.join(work, "host_a"))  # the next host starts with nothing
+
+    outs, wall = run_ranks("13b", PHASE13_ARGV + ["--num_train_epochs", "2", "--resume", "True",
+                                                  "--grad_reduce_dtype", "bfloat16"],
+                           os.path.join(work, "host_b"), env, timeout=480)
+    marks.append(("13b", time.perf_counter()))
+    resumed = rank_values(outs, r"resumed from checkpoint at epoch (\d+)", int)
+    fetched = rank_values(outs, r"(fetched remote checkpoints)")
+    if resumed != [[0], [0]] or sum(map(len, fetched)) != 1:
+        fail(f"13b: expected both ranks to resume at epoch 0 + 1 = 1 from one fetch: "
+             f"{resumed}, {fetched}")
+    second = check_ranks("13b", outs, want, smi, [1], remote, args)
+    with open(os.path.join(remote, "reward_curve.json")) as f:
+        curve = json.load(f)["mean"]
+    if len(curve) != 2 or f"{curve[0]:.4f}" != first[0][1] or f"{curve[1]:.4f}" != second[0][1]:
+        fail(f"13b: the bucket's reward curve {curve} is not 13a's then 13b's epoch")
+    if not os.path.exists(os.path.join(remote, "checkpoints/1_host_p1.pkl")):
+        fail("13b: rank 1's epoch-1 host pickle is not in the bucket")
+    log(f"13b: start epoch 1 on a fresh host (one rank fetched the bucket's checkpoints), "
+        f"reward curve {curve}, {wall:.1f} s from launch to exit ({smi})")
+    shutil.rmtree(work, ignore_errors=True)
+    log("phase 13 wall: " + ", ".join(f"{name} {t - marks[i][1]:.1f} s"
+                                      for i, (name, t) in enumerate(marks[1:])))
+
+
 def main() -> None:
     try:
         import torch
@@ -2489,6 +2684,8 @@ def main() -> None:
     phase_checkpoints(serving_images, serving_counts)
     s8_results, s8_counts = phase_serving_extras(unet_gn, vae_gn, serving_ips[-1], smi)
     shutil.rmtree(bucket, ignore_errors=True)
+    del serving_images
+    phase_ddpo_ranks(unet_gn, vae_gn, unet_conv, smi)
 
     def headline(results, shape):
         return next(r for r in results if r["shape"] == shape and r["dtype"] == "bfloat16")

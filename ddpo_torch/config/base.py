@@ -216,8 +216,8 @@ base = {
         "optimizer": "adamw",
         # "none" (reduce grads at the param dtype — fp32 masters, the
         # reference's pmean semantics) | "bfloat16" | "float32": bfloat16
-        # halves the data-parallel all-reduce bytes. Not ported yet (one
-        # process); the port refuses anything but "none".
+        # halves the data-parallel all-reduce bytes (fused loop only;
+        # parallel/collectives.py GradientAllReduce).
         "grad_reduce_dtype": "none",
         "train_timestep_ratio": 1.0,
         "prompt_kwargs": {},
@@ -245,7 +245,9 @@ base = {
         # exact or within 4.0e-7 on the card (ppo_clip_range above).
         "sample_dtype": "bfloat16",  # sampler compute dtype
         "train_dtype": "bfloat16",  # PPO-recompute compute dtype
-        "profile_dir": None,  # JAX's profiler trace output; not ported
+        # torch.profiler trace of epoch start_epoch + 1, one Chrome trace per
+        # rank (utils/profiling.py)
+        "profile_dir": None,
         "resume": False,  # restore full train state from savepath
         # keep only the newest N full-state checkpoints on local disk
         # (~8.5GB each at SD scale); 0 = keep all (reference behavior,

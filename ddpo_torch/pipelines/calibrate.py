@@ -1,10 +1,13 @@
 """Guidance-scale calibration sweep: reward against CFG scale, the argmax
 to metadata.json.
 
-Port of ddpo_tpu/pipelines/calibrate.py, on one device: the CUDA device,
-raising at once when there is none, unless ``--device cpu`` asks for the
-CPU. The reference consumes a calibrated scale (``pipeline/sample.py:48-49``
-reads metadata.json) but has no sweep that writes one; this driver does:
+Port of ddpo_tpu/pipelines/calibrate.py, on the CUDA device, raising at
+once when there is none, unless ``--device cpu`` asks for the CPU. Under a
+launcher each rank sweeps its own prompts and noise (seed base_seed +
+rank) on the same model, the rewards are gathered over ranks before the
+curve (JAX :182-190), and rank 0 writes the files. The reference consumes
+a calibrated scale (``pipeline/sample.py:48-49`` reads metadata.json) but
+has no sweep that writes one; this driver does:
 
   for each batch: one draw of prompts, then for each scale the CFG DDIM
       sampler from one saved generator state, so every scale sees the same
@@ -19,8 +22,7 @@ reads metadata.json) but has no sweep that writes one; this driver does:
 
 JAX's sampler here is ``sample_trajectories``; the port runs
 ``sample_images``, the same chain and random stream without the recorded
-trajectory. JAX's gather of the rewards across processes waits with
-multi-device work (ROADMAP.md Queue 1).
+trajectory.
 
 Run: python -m ddpo_torch.pipelines.calibrate --dataset compressed-animals \
          --guidance_scales "[1,2,3,5,8,12]"
@@ -30,13 +32,19 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ddpo_torch import training
 from ddpo_torch.models.tokenizer import make_uncond_ids
+from ddpo_torch.parallel import (
+    all_gather_array,
+    destroy_distributed,
+    maybe_initialize_distributed,
+    process_index,
+)
 from ddpo_torch.sampling import SamplerConfig, sample_images, vae_decode
 from ddpo_torch.utils import Timer
 from ddpo_torch.utils import filesystem as fs
@@ -56,7 +64,7 @@ class Parser(BaseParser):
 class CalibrationResult(NamedTuple):
     best: float
     curve: Dict[float, Dict[str, float]]  # scale -> mean, std, sem, n
-    renderer: str  # what drew calibration.png: "matplotlib" or "pil"
+    renderer: Optional[str]  # what drew calibration.png: "matplotlib" or "pil"; None off rank 0
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -64,6 +72,7 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def main(argv=None) -> CalibrationResult:
+    maybe_initialize_distributed()
     args = Parser().parse_args("calibrate", argv)
     device = resolve_device(args.device)
     batch_size = args.n_samples_per_device
@@ -77,7 +86,7 @@ def main(argv=None) -> CalibrationResult:
         model_preset=args.model_preset,
         device=device,
         dtype=_dtype(args.dtype),
-        seed=args.seed or 0,
+        seed=args.base_seed,
     )
     scheduler = models.scheduler
     sched_state = scheduler.create_state(device)
@@ -99,9 +108,10 @@ def main(argv=None) -> CalibrationResult:
             return models.text_encoder(torch.as_tensor(ids, device=device))
 
     uncond_embeds = text_encode(make_uncond_ids(models.tokenizer, batch_size))
-    metrics = MetricsLogger(run_dir(args.savepath))
+    writer = process_index() == 0
+    metrics = MetricsLogger(run_dir(args.savepath), enabled=writer)
 
-    generator = torch.Generator(device=device).manual_seed(args.seed or 0)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
     timer = Timer()
     per_scale = {scale: [] for scale in scales}
     for batch_idx in range(args.n_eval_batches):
@@ -132,7 +142,7 @@ def main(argv=None) -> CalibrationResult:
 
     curve = {}
     for scale, reward_batches in per_scale.items():
-        rewards = np.concatenate(reward_batches)
+        rewards = np.concatenate([all_gather_array(r) for r in reward_batches])
         curve[scale] = {
             "mean": float(rewards.mean()),
             "std": float(rewards.std()),
@@ -146,23 +156,26 @@ def main(argv=None) -> CalibrationResult:
     for scale, stats in sorted(curve.items()):
         metrics.log(0, phase="calibrate", guidance_scale=scale, **stats)
 
-    fs.save_json(
-        os.path.join(args.savepath, "calibration.json"),
-        {"filter_field": args.filter_field, "curve": curve, "best": best},
-    )
-    # what generate and sample --guidance_scale auto read
-    fs.save_json(
-        os.path.join(args.savepath, "metadata.json"),
-        {"guidance_scale": best, "filter_field": args.filter_field},
-    )
-    renderer = plot_calibration(
-        os.path.join(args.savepath, "calibration.png"),
-        {s: v["mean"] for s, v in curve.items()},
-        ylabel=args.filter_field,
-    )
-    print(f"[ calibrate ] calibration.png drawn with {renderer}")
+    renderer = None
+    if writer:
+        fs.save_json(
+            os.path.join(args.savepath, "calibration.json"),
+            {"filter_field": args.filter_field, "curve": curve, "best": best},
+        )
+        # what generate and sample --guidance_scale auto read
+        fs.save_json(
+            os.path.join(args.savepath, "metadata.json"),
+            {"guidance_scale": best, "filter_field": args.filter_field},
+        )
+        renderer = plot_calibration(
+            os.path.join(args.savepath, "calibration.png"),
+            {s: v["mean"] for s, v in curve.items()},
+            ylabel=args.filter_field,
+        )
+        print(f"[ calibrate ] calibration.png drawn with {renderer}")
     return CalibrationResult(best, curve, renderer)
 
 
 if __name__ == "__main__":
     main()
+    destroy_distributed()

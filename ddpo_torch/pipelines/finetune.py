@@ -1,13 +1,17 @@
 """RWR supervised finetuning over a sampled HDF5 dataset.
 
-Port of ddpo_tpu/pipelines/finetune.py, on one device: the CUDA device,
-raising at once when there is none, unless ``--device cpu`` asks for the
-CPU. The bucket loader (data/bucket.py) reads the dataset the collection
-wrote; ``--weighted_dataset`` gives each sample a softmax RWR weight over the
-whole dataset (optionally per prompt), ``--weighted_batch`` over each batch;
-clip + adamw (or adafactor); one ``training.diffusion.train_step`` per
-batch; the UNet exported as ``unet_{epoch}.pkl`` every ``save_freq`` epochs,
-the artifact the next RWR iteration's sampler loads.
+Port of ddpo_tpu/pipelines/finetune.py, on the CUDA device, raising at
+once when there is none, unless ``--device cpu`` asks for the CPU. Under a
+launcher each rank reads its own contiguous shard of the dataset, the pod
+batch is the rank's batch times the world size, and the gradients are
+reduced over ranks (the unweighted loss's averaged, the weighted one's
+summed: training/diffusion.py). The bucket loader (data/bucket.py) reads
+the dataset the collection wrote; ``--weighted_dataset`` gives each sample
+a softmax RWR weight over the whole dataset (optionally per prompt),
+``--weighted_batch`` over each batch; clip + adamw (or adafactor); one
+``training.diffusion.train_step`` per batch; the UNet exported as
+``unet_{epoch}.pkl`` every ``save_freq`` epochs, the artifact the next RWR
+iteration's sampler loads.
 
 As in the JAX package the step computes in fp32 whatever ``--dtype``:
 ``--dtype`` is the dtype the parameters (and the text tower) are stored and
@@ -38,12 +42,25 @@ from ddpo_torch import training
 from ddpo_torch.core.scheduler import DDPMScheduler
 from ddpo_torch.data import get_bucket_loader
 from ddpo_torch.models.lora import init_lora, merge_lora, n_lora_params
-from ddpo_torch.parallel.collectives import process_count, sharded_softmax
+from ddpo_torch.parallel import (
+    GradientAllReduce,
+    all_processes_equal,
+    destroy_distributed,
+    global_batch_size,
+    gradient_group,
+    maybe_initialize_distributed,
+    process_barrier,
+    process_count,
+    process_index,
+    sharded_softmax,
+    worker_sum,
+)
 from ddpo_torch.pipelines.policy_gradient import make_train_apply
 from ddpo_torch.training.optim import build_optimizer
 from ddpo_torch.training.policy_gradient import AccumulatingTrainState
 from ddpo_torch.utils.checkpoints import save_unet
 from ddpo_torch.utils.metrics import MetricsLogger, run_dir
+from ddpo_torch.utils.progress import Progress
 from ddpo_torch.utils.parser import Parser as BaseParser
 from ddpo_torch.utils.serialization import load_unet, resolve_device
 
@@ -81,7 +98,7 @@ def build_finetuner(args) -> Finetuner:
         model_preset=args.model_preset,
         device=device,
         dtype=_dtype(args.dtype),
-        seed=args.seed,
+        seed=args.base_seed,  # the same on every rank: the replicas start equal
     )
     # JAX's finetune computes in its fp32 activation dtype over the stored
     # (possibly bf16) weights
@@ -92,17 +109,23 @@ def build_finetuner(args) -> Finetuner:
     if args.lora_rank:
         lora_base = dict(unet.named_parameters())
         params = init_lora(lora_base, args.lora_rank,
-                           torch.Generator(device=device).manual_seed(args.seed or 0))
+                           torch.Generator(device=device).manual_seed(args.base_seed))
         for p in params.values():
             p.requires_grad_(True)
         print(f"[ finetune ] lora: rank {args.lora_rank}, {n_lora_params(params)} trainable "
               f"in {len(params)} tensors (base frozen)")
     else:
         params = dict(unet.requires_grad_(True).named_parameters())
+    group, backend = gradient_group(device)
     state = AccumulatingTrainState(
         apply_fn=make_train_apply(unet, torch.float32, args.remat, lora_base),
         params=params, tx=build_optimizer(args), accumulate=False,
+        grad_reduce=GradientAllReduce(group, backend) if process_count() > 1 else None,
     )
+    if process_count() > 1:
+        print(f"[ finetune ] rank {process_index()} of {process_count()} | gradient "
+              f"all-reduce: {backend}")
+        all_processes_equal(params, "initial params")
     scheduler = DDPMScheduler()
     return Finetuner(
         args=args, device=device, models=models, state=state, lora_base=lora_base,
@@ -113,9 +136,10 @@ def build_finetuner(args) -> Finetuner:
 
 def finetune_step(ft: Finetuner, batch: dict, pod_batch_size: int,
                   draws: Optional[training.diffusion.Draws] = None) -> torch.Tensor:
-    """One train step on a collated numpy batch; returns the loss. The
-    step's random inputs come from the finetuner's generator unless
-    ``draws`` gives them."""
+    """One train step on a collated numpy batch (this rank's rows); returns
+    this rank's loss. The step's random inputs come from the finetuner's
+    generator unless ``draws`` gives them; the weights of
+    ``--weighted_batch`` are a softmax over every rank's batch."""
     args, device = ft.args, ft.device
     if args.weighted_batch:
         rewards = torch.as_tensor(np.asarray(batch[args.filter_field]).squeeze(),
@@ -158,7 +182,7 @@ def train(ft: Finetuner, dataset, loader) -> Finetuner:
     if args.weighted_dataset:
         dataset.make_weights(args.filter_field, args.temperature, args.per_prompt_weights)
     worker_batch_size = args.train_batch_size
-    pod_batch_size = worker_batch_size * process_count()
+    pod_batch_size = global_batch_size(worker_batch_size)
     steps_per_epoch = max(1, len(dataset) // worker_batch_size)
     max_steps = args.max_train_steps or args.num_train_epochs * steps_per_epoch
     num_epochs = (
@@ -170,20 +194,26 @@ def train(ft: Finetuner, dataset, loader) -> Finetuner:
         f"[ finetune ] dataset {len(dataset)} | worker bs {worker_batch_size} | "
         f"pod bs {pod_batch_size} | steps {max_steps}"
     )
-    metrics = MetricsLogger(run_dir(args.savepath))
+    rank, world = process_index(), process_count()
+    metrics = MetricsLogger(run_dir(args.savepath), enabled=rank == 0)
+    # the global batch's loss: the ranks' mean for the unweighted loss, their
+    # sum for the weighted one (training/diffusion.py)
+    weighted = args.weighted_batch or args.weighted_dataset
     global_step = 0
     for epoch in range(num_epochs):
         losses, step_s = [], []
+        progress = Progress(steps_per_epoch, name=f"epoch {epoch}")
         for batch in loader:
             start = time.perf_counter()
-            losses.append(float(finetune_step(ft, batch, pod_batch_size)))  # waits for the device
+            loss = float(finetune_step(ft, batch, pod_batch_size))  # waits for the device
             step_s.append(time.perf_counter() - start)
-            if args.verbose:
-                print(f"[ finetune ] step {global_step}: loss {losses[-1]:.5f}, "
-                      f"idx_max {int(np.max(batch['idxs']))}, {step_s[-1]:.3f} s")
+            losses.append(worker_sum(loss) / (1 if weighted else world))
+            progress({"loss": losses[-1], "idx_max": int(np.max(batch["idxs"])),
+                      "cfg": args.train_cfg})
             global_step += 1
             if global_step >= max_steps:
                 break
+        progress.stamp()
         print(f"[ finetune ] epoch {epoch} loss {np.mean(losses):.5f}, "
               f"{len(step_s)} steps in {sum(step_s):.3f} s")
         saved = {}
@@ -191,6 +221,7 @@ def train(ft: Finetuner, dataset, loader) -> Finetuner:
             start = time.perf_counter()
             path = export_unet(ft, args.savepath,
                                epoch=(epoch + 1) // args.save_freq * args.save_freq)
+            process_barrier(f"finetune_export_{epoch}")  # rank 0 wrote it
             saved = {"save_bytes": os.path.getsize(path), "save_s": time.perf_counter() - start}
             print(f"[ finetune ] saved {path}: {saved['save_bytes']} bytes in "
                   f"{saved['save_s']:.2f} s")
@@ -205,6 +236,7 @@ def train(ft: Finetuner, dataset, loader) -> Finetuner:
 
 
 def main(argv=None) -> Finetuner:
+    maybe_initialize_distributed()
     args = Parser().parse_args("train", argv)
     ft = build_finetuner(args)
     dataset, loader = get_bucket_loader(
@@ -220,3 +252,4 @@ def main(argv=None) -> Finetuner:
 
 if __name__ == "__main__":
     main()
+    destroy_distributed()

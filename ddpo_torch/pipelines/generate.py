@@ -19,6 +19,11 @@ pipelines/policy_gradient.py writes) on the stack built from ``--seed``.
 ``--guidance_scale auto`` reads the scale pipelines/calibrate.py wrote to
 ``--loadpath``'s metadata.json.
 
+It runs in one process and refuses WORLD_SIZE > 1 by name: JAX's
+``generate`` does not run under two processes (it device_puts
+per-process-seeded parameters as replicated, and fetches a global image
+batch that no process fully addresses).
+
 Run: python -m ddpo_torch.pipelines.generate --dataset compressed-animals \
          --prompts "['a dog', 'a cheetah']" --n_samples 8
 """
@@ -36,6 +41,7 @@ import torch
 from ddpo_torch import training
 from ddpo_torch.core.scheduler import DPMSolverPlusPlus
 from ddpo_torch.models.tokenizer import make_uncond_ids
+from ddpo_torch.parallel.mesh import env_world_size
 from ddpo_torch.sampling import SamplerConfig, sample_images, sample_images_ode, vae_decode
 from ddpo_torch.utils import Timer
 from ddpo_torch.utils.images import save_image, save_images
@@ -89,6 +95,10 @@ def inference_sampler(args, argv, models, tag: str) -> Tuple[object, Callable]:
 
 
 def main(argv=None) -> GenerateResult:
+    if env_world_size() > 1:
+        raise NotImplementedError(
+            "generate under more than one process (WORLD_SIZE > 1) is not ported: "
+            "run it as one process")
     args = Parser().parse_args("generate", argv)
     device = resolve_device(args.device)
     if args.guidance_scale == "auto":

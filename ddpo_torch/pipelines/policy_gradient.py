@@ -1,8 +1,22 @@
-"""DDPO training pipeline: sample -> reward -> advantage -> PPO update, one process.
+"""DDPO training pipeline: sample -> reward -> advantage -> PPO update.
 
-Port of ddpo_tpu/pipelines/policy_gradient.py (its single-process host
-loop), on one device: the CUDA device, raising at once when there is none,
-unless ``--device cpu`` asks for the CPU:
+Port of ddpo_tpu/pipelines/policy_gradient.py (its host loop), on the CUDA
+device, raising at once when there is none, unless ``--device cpu`` asks
+for the CPU. Under ``torchrun`` (or any launcher that sets RANK,
+WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT) it is data-parallel
+over processes, rank r on cuda:LOCAL_RANK:
+
+  - each rank samples its own batch (its own prompts, seed base_seed + r,
+    and its own sampler noise), the ranks gather rewards and prompts so
+    that every rank computes the same advantages, and each trains on its
+    own rows; the gradients are averaged over ranks once per optimizer
+    step (parallel/collectives.py ``GradientAllReduce``, in
+    ``--grad_reduce_dtype`` when given), over NCCL when every rank has a
+    card of its own, else over gloo (parallel/mesh.py ``gradient_group``);
+  - barriers at each phase boundary; the train infos are reduced over
+    ranks and, with the parameters' digest after each epoch, checked equal
+    on every rank; rank 0 writes the shared artifacts and the state, every
+    rank its own host pickle;
 
   - the sampler runs the UNet in ``sample_dtype`` (bf16 by default) on a
     copy cast from the fp32 master parameters once per epoch;
@@ -31,25 +45,33 @@ unless ``--device cpu`` asks for the CPU:
     reads;
   - full-state checkpoints (params, optimizer, RNGs, reward history, stat
     buffers) give a true resume; SIGTERM checkpoints at the epoch boundary
-    and exits;
-  - artifacts under logs/<savepath>: rewards/, prompts/, callback_info/,
-    train_info/, samples/, per_prompt_stats/, metrics.jsonl,
-    reward_curve.json, and log_0.png where matplotlib imports.
+    and exits (every rank, when any rank got it);
+  - artifacts under logs/<savepath without gs://>: rewards/, prompts/,
+    callback_info/, train_info/, samples/, per_prompt_stats/,
+    metrics.jsonl, reward_curve.json, and log_0.png where matplotlib
+    imports. A gs:// savepath keeps its checkpoints there too and syncs
+    the directory to the bucket after each epoch (rank 0, in the
+    background, after the checkpoint writes land; each other rank uploads
+    its own host pickle) and once more, blocking, at the end; ``--resume``
+    on a fresh host fetches the checkpoints from the bucket first;
+  - ``--profile_dir`` traces epoch start_epoch + 1 with torch.profiler, one
+    Chrome trace per rank.
 
-Not ported yet, each raising: resident_inner_loop, mesh_tp/mesh_sp > 1,
-more than one process, grad_reduce_dtype other than none, a remote
-savepath, and profile_dir.
+Not ported yet, each raising: resident_inner_loop and mesh_tp/mesh_sp > 1.
 
 Run: python -m ddpo_torch.pipelines.policy_gradient --dataset compressed-animals
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
 import random
 import signal
+import socket
+import time
 from concurrent import futures
 from typing import Callable, Dict, Optional
 
@@ -62,6 +84,23 @@ from ddpo_torch import training
 from ddpo_torch.models.lora import init_lora, merge_lora, n_lora_params, target_paths
 from ddpo_torch.models.tokenizer import make_uncond_ids
 from ddpo_torch.ops.invariance import batch_invariant
+from ddpo_torch.parallel import (
+    GradientAllReduce,
+    all_gather_array,
+    all_gather_strings,
+    all_processes_equal,
+    destroy_distributed,
+    digest,
+    global_batch_size,
+    gradient_group,
+    local_batch_size,
+    local_shard,
+    maybe_initialize_distributed,
+    process_barrier,
+    process_count,
+    process_index,
+    worker_sum,
+)
 from ddpo_torch.sampling import SamplerConfig, sample_trajectories, vae_decode
 from ddpo_torch.training.optim import build_optimizer
 from ddpo_torch.training.policy_gradient import (
@@ -72,6 +111,7 @@ from ddpo_torch.training.policy_gradient import (
 from ddpo_torch.training.stat_tracking import PerPromptStatTracker
 from ddpo_torch.utils import Timer, fs
 from ddpo_torch.utils.checkpoints import (
+    host_file,
     prune_checkpoints,
     restore_train_state,
     save_train_state,
@@ -81,7 +121,12 @@ from ddpo_torch.utils.checkpoints import (
 from ddpo_torch.utils.images import save_image
 from ddpo_torch.utils.metrics import MetricsLogger
 from ddpo_torch.utils.parser import Parser as BaseParser
-from ddpo_torch.utils.serialization import load_stable_diffusion, resolve_device
+from ddpo_torch.utils.profiling import trace
+from ddpo_torch.utils.serialization import (
+    async_to_bucket,
+    load_stable_diffusion,
+    resolve_device,
+)
 
 
 class Parser(BaseParser):
@@ -93,14 +138,13 @@ def _dtype(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
 
 
+REDUCE_DTYPES = {"none": None, "float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def _check_ported(args) -> None:
     not_ported = {
         "--resident_inner_loop": args.resident_inner_loop,
         "--mesh_tp/--mesh_sp > 1": args.mesh_tp > 1 or args.mesh_sp > 1,
-        "more than one process": int(os.environ.get("WORLD_SIZE", "1")) > 1,
-        "--grad_reduce_dtype": args.grad_reduce_dtype != "none",
-        "a remote --savepath": fs.is_remote(args.savepath),
-        "--profile_dir": bool(args.profile_dir),
     }
     for what, asked in not_ported.items():
         if asked:
@@ -168,33 +212,59 @@ def refresh_sampler(sample_unet: torch.nn.Module, params: Dict[str, torch.Tensor
             ps.copy_(params[name])
 
 
+def _fetch_checkpoints(savepath: str, ckpt_root: str) -> None:
+    """Resume on a fresh host: one rank per host pulls savepath/checkpoints
+    from the bucket into the local mirror, when the mirror has none; the
+    other ranks wait for it."""
+    local = os.path.join(ckpt_root, "checkpoints")
+    hosts = all_gather_strings([socket.gethostname()])
+    rank = process_index()
+    if hosts.index(hosts[rank]) == rank and not os.path.isdir(local):
+        n = fs.get_dir(os.path.join(savepath, "checkpoints"), local)
+        if n:
+            print(f"[ pg ] fetched remote checkpoints from {savepath}")
+    process_barrier("pg_fetch_checkpoints")
+
+
 def main(argv=None):
+    maybe_initialize_distributed()
     args = Parser().parse_args("pg", argv)
     device = resolve_device(args.device)
     _check_ported(args)
+    rank, world = process_index(), process_count()
+    reduce_dtype = REDUCE_DTYPES[args.grad_reduce_dtype]
+    if reduce_dtype is not None:
+        assert args.fused_train_loop, "--grad_reduce_dtype requires the fused train loop"
+    group, backend = gradient_group(device)
 
-    sample_bs = args.sample_batch_size
-    train_bs = args.train_batch_size
+    # per rank (one device a rank), as JAX's per-process local batch
+    sample_bs = local_batch_size(args.sample_batch_size)
+    train_bs = local_batch_size(args.train_batch_size)
     train_effective_bs = train_bs * args.train_accumulation_steps
     total_samples_per_epoch = args.num_sample_batches_per_epoch * sample_bs
-    print(f"[ pg ] device: {device}")
+    print(f"[ pg ] device: {device} | rank {rank} of {world} | gradient all-reduce: "
+          f"{backend}, {args.grad_reduce_dtype}")
     print(
         f"[ pg ] sample batch: {sample_bs} | train batch: {train_bs} | "
-        f"effective: {train_effective_bs} | samples/epoch: {total_samples_per_epoch}"
+        f"effective: {train_effective_bs} | samples/epoch: {total_samples_per_epoch} "
+        f"(per rank; global sample batch {global_batch_size(args.sample_batch_size)})"
     )
     assert args.sample_batch_size >= args.train_batch_size
     assert args.sample_batch_size % args.train_batch_size == 0
     assert total_samples_per_epoch % train_effective_bs == 0
 
-    worker_id = 0
-    localpath = "logs/" + args.savepath
+    worker_id = rank
+    remote = fs.is_remote(args.savepath)
+    # every artifact is mirrored under logs/, a remote savepath's too
+    localpath = "logs/" + args.savepath.replace("gs://", "")
     os.makedirs(localpath, exist_ok=True)
-    metrics = MetricsLogger(localpath)
+    metrics = MetricsLogger(localpath, enabled=rank == 0)
 
     # --------------------------------- models --------------------------------- #
     master_dtype = _dtype(args.dtype)
     sample_dtype = _dtype(args.sample_dtype)
     train_dtype = _dtype(args.train_dtype)
+    # base_seed, the same on every rank: the replicas start equal
     models = load_stable_diffusion(
         args.pretrained_model,
         model_preset=args.model_preset,
@@ -241,6 +311,10 @@ def main(argv=None):
 
     # ------------------------------- train state ------------------------------ #
     fused = args.fused_train_loop
+    # over ranks, or in one process a cast to --grad_reduce_dtype and back
+    # (JAX's dp = 1 shard_map)
+    grad_reduce = (GradientAllReduce(group, backend, reduce_dtype)
+                   if world > 1 or reduce_dtype is not None else None)
     state = AccumulatingTrainState(
         apply_fn=make_train_apply(unet, train_dtype, args.remat, lora_base),
         params=params,
@@ -249,17 +323,23 @@ def main(argv=None):
         # when something accumulates: explicit accumulation steps, or the
         # non-fused loop, which accumulates over the trained timesteps
         accumulate=args.train_accumulation_steps > 1 or not fused,
+        grad_reduce=grad_reduce,
     )
-    ckpt_root = args.savepath
+    ckpt_root = localpath if remote else args.savepath
     start_epoch = 0
     restored_host = None
     if args.resume:
-        restored, _ = restore_train_state(ckpt_root)
+        if remote:
+            _fetch_checkpoints(args.savepath, ckpt_root)
+        restored, step = restore_train_state(ckpt_root)
+        all_processes_equal(step, "restored checkpoint step")
         if restored is not None:
             state.load_state_dict(restored["state"])
             start_epoch = int(restored["epoch"]) + 1
             restored_host = restored.get("host")
             print(f"[ pg ] resumed from checkpoint at epoch {restored['epoch']}")
+    if world > 1:
+        all_processes_equal(state.params, "initial params")
 
     vae_scale = 2 ** (len(models.vae.config.block_out_channels) - 1)
     sampler_config = SamplerConfig(
@@ -306,9 +386,11 @@ def main(argv=None):
             args.per_prompt_stats_bufsize, args.per_prompt_stats_min_count
         )
 
-    # the sampler's noise; host-side RNGs (prompts, shuffles) are python's
-    # and numpy's, seeded by the parser
-    sample_gen = torch.Generator(device=device).manual_seed(args.base_seed)
+    # the sampler's noise, from this rank's seed (base_seed + rank): each
+    # rank draws its own, as JAX's global-mesh key gives each dp slice its
+    # own; host-side RNGs (prompts, shuffles) are python's and numpy's,
+    # seeded by the parser from the same seed
+    sample_gen = torch.Generator(device=device).manual_seed(args.seed)
 
     mean_rewards, std_rewards = [], []
     if restored_host is not None:
@@ -346,8 +428,16 @@ def main(argv=None):
         prev_sigterm = None
 
     timer = Timer()
+    sync_thread = None
     for epoch in range(start_epoch, args.num_train_epochs):
+        epoch_start = time.perf_counter()
+        profiling = contextlib.ExitStack()
+        if args.profile_dir and epoch == start_epoch + 1:
+            path = os.path.join(args.profile_dir, f"epoch{epoch}_rank{rank}.json")
+            profiling.enter_context(trace(path))
+            print(f"[ pg ] tracing epoch {epoch} to {path}")
         # ============================ sampling phase =========================== #
+        process_barrier(f"pg_sample_{epoch}")
         with torch.no_grad():
             refresh_sampler(sample_unet, state.params if lora_base is None
                             else merge_lora(lora_base, state.params))
@@ -384,7 +474,8 @@ def main(argv=None):
             })
             print(
                 f"[ pg ] epoch {epoch} sample batch {i}: {sample_bs} samples "
-                f"in {sample_time:.2f}s ({sample_bs / sample_time:.3f}/s)"
+                f"in {sample_time:.2f}s ({sample_bs / sample_time:.3f}/s), initial noise "
+                f"digest {digest(traj['latents'][:, 0])}"
             )
             save_image(
                 fs.join_and_create(localpath, f"samples/{worker_id}_{epoch}_{i}.png"),
@@ -397,21 +488,26 @@ def main(argv=None):
                 args.filter_field
             ]
         samples = _concat(samples)
-        rewards = np.asarray(samples["rewards"], dtype=np.float64).reshape(
+        samples["rewards"] = np.asarray(samples["rewards"], dtype=np.float64).reshape(
             len(samples["prompts"]), -1
         )[:, 0]
-        samples["rewards"] = rewards
+        # every rank's rewards and prompts, so that all compute the same
+        # advantages; each then takes its own rows
+        rewards = all_gather_array(samples["rewards"])
+        all_prompts = np.array(all_gather_strings(samples["prompts"].tolist()))
 
         if per_prompt_stats is not None:
-            advantages = per_prompt_stats.update(samples["prompts"], rewards)
-            np.save(
-                fs.join_and_create(localpath, f"per_prompt_stats/{worker_id}_{epoch}.npy"),
-                per_prompt_stats.get_stats(),
-            )
+            advantages = per_prompt_stats.update(all_prompts, rewards)
+            if rank == 0:
+                np.save(
+                    fs.join_and_create(localpath, f"per_prompt_stats/{worker_id}_{epoch}.npy"),
+                    per_prompt_stats.get_stats(),
+                )
         else:
             advantages = (rewards - rewards.mean()) / (rewards.std() + 1e-8)
 
-        samples["advantages"] = torch.as_tensor(advantages, dtype=torch.float32, device=device)
+        samples["advantages"] = torch.as_tensor(local_shard(advantages), dtype=torch.float32,
+                                                device=device)
         mean_rewards.append(float(rewards.mean()))
         std_rewards.append(float(rewards.std()))
         print(f"[ pg ] epoch {epoch} mean reward: {rewards.mean():.4f}")
@@ -433,6 +529,7 @@ def main(argv=None):
                 del samples[name]
 
         # ============================ training phase =========================== #
+        process_barrier(f"pg_train_{epoch}")
         for inner_epoch in range(args.num_inner_epochs):
             total_bs, num_timesteps = samples["log_probs"].shape
             assert num_timesteps == args.n_inference_steps
@@ -458,6 +555,7 @@ def main(argv=None):
 
             num_train_ts = int(num_timesteps * args.train_timestep_ratio)
             infos = []
+            n_reduces = len(grad_reduce.calls) if grad_reduce is not None else 0
             timer()
             with batch_invariant():
                 for i in range(n_batches):
@@ -486,12 +584,21 @@ def main(argv=None):
                                                   **step_kwargs)
                             infos.append({k: float(v) for k, v in info.items()})
             train_time = timer()
-            infos = {k: np.stack([i[k] for i in infos]) for k in infos[0]}
+            # the global batch's infos: the mean of the ranks' (equal rows)
+            infos = {k: worker_sum(np.stack([i[k] for i in infos])) / world for k in infos[0]}
+            all_processes_equal(infos, "train infos")
+            n_updates = n_batches * num_train_ts
             print(
                 f"[ pg ] epoch {epoch}.{inner_epoch}: "
                 f"loss {infos['loss'].mean():.5f} | kl {infos['approx_kl'].mean():.2e} "
-                f"| clipfrac {infos['clipfrac'].mean():.3f} | {train_time:.2f}s"
+                f"| clipfrac {infos['clipfrac'].mean():.3f} | {train_time:.2f}s, "
+                f"{train_time / n_updates:.4f} s an update ({n_updates})"
             )
+            if grad_reduce is not None:
+                calls = grad_reduce.calls[n_reduces:]
+                print(f"[ pg ] gradient all-reduce ({backend}, {args.grad_reduce_dtype}): "
+                      f"{len(calls)} calls, {calls[0][0] if calls else 0} bytes each, "
+                      "seconds " + ", ".join(f"{sec:.4f}" for _, sec in calls))
             metrics.log(
                 epoch,
                 phase="train",
@@ -501,30 +608,53 @@ def main(argv=None):
                 clipfrac=float(infos["clipfrac"].mean()),
                 train_time_s=float(train_time),
             )
-            np.save(
-                fs.join_and_create(localpath, f"train_info/{worker_id}_{epoch}_{inner_epoch}.npy"),
-                infos,
-            )
+            if rank == 0:
+                np.save(
+                    fs.join_and_create(localpath,
+                                       f"train_info/{worker_id}_{epoch}_{inner_epoch}.npy"),
+                    infos,
+                )
+        profiling.close()
+        if world > 1:
+            d = all_processes_equal(state.params, f"params after epoch {epoch}")
+            print(f"[ pg ] epoch {epoch} params digest {d} (equal on all {world} ranks)")
+            # a SIGTERM seen by any rank stops every rank at this boundary
+            shutdown_requested["flag"] = worker_sum(float(shutdown_requested["flag"])) > 0
 
         # ============================ checkpointing ============================ #
-        if (
+        saved = (
             (epoch + 1) % args.save_freq == 0
             or epoch == args.num_train_epochs - 1
             or shutdown_requested["flag"]
-        ):
+        )
+        if saved:
             # the host copy is synchronous (training updates the tensors in
             # place); serialization and the disk write overlap the next epoch
             save_train_state(
                 ckpt_root, epoch, {"state": state.state_dict(), "epoch": epoch},
                 host_state=host_checkpoint_state(), block=False,
             )
-            if args.keep_checkpoints > 0:
+            if args.keep_checkpoints > 0 and rank == 0:  # the ranks share the directory
                 prune_checkpoints(ckpt_root, args.keep_checkpoints)
 
-        _plot_rewards(mean_rewards, std_rewards, localpath, worker_id)
-        with open(os.path.join(localpath, "reward_curve.json"), "w") as f:
-            json.dump({"mean": mean_rewards, "std": std_rewards}, f)
+        if rank == 0:
+            _plot_rewards(mean_rewards, std_rewards, localpath, worker_id)
+            with open(os.path.join(localpath, "reward_curve.json"), "w") as f:
+                json.dump({"mean": mean_rewards, "std": std_rewards}, f)
 
+        if remote:
+            # durable artifacts: join the checkpoint writes, then stream
+            # everything under localpath to the bucket (rank 0, in the
+            # background); every other rank uploads its own host pickle
+            wait_for_pending_saves()
+            if saved and rank > 0:
+                own = host_file(os.path.join(ckpt_root, "checkpoints", str(epoch)))
+                fs.put_file(own, os.path.join(args.savepath, os.path.relpath(own, localpath)))
+            if sync_thread is not None:
+                sync_thread.join()
+            sync_thread = async_to_bucket(localpath, args.savepath)
+
+        print(f"[ pg ] epoch {epoch} wall {time.perf_counter() - epoch_start:.2f} s")
         if shutdown_requested["flag"]:
             print(f"[ pg ] graceful shutdown after epoch {epoch} (checkpointed)")
             break
@@ -540,6 +670,16 @@ def main(argv=None):
         print(f"[ pg ] lora: merged unet exported to {path}")
     executor.shutdown()
     wait_for_pending_saves()
+    if remote:
+        if sync_thread is not None:
+            sync_thread.join()
+        async_to_bucket(localpath, args.savepath, wait=True)  # the final full sync
+    if device.type == "cuda":
+        from ddpo_torch.ops._build import launch_counts
+
+        print(f"[ pg ] rank {rank}: peak memory "
+              f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB | kernel launches "
+              f"{json.dumps(launch_counts(), sort_keys=True)}")
     return mean_rewards
 
 
@@ -574,3 +714,4 @@ def _plot_rewards(mean_rewards, std_rewards, localpath, worker_id):
 
 if __name__ == "__main__":
     main()
+    destroy_distributed()

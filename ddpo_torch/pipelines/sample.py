@@ -1,14 +1,17 @@
 """RWR data collection: sample, reward, filter, write sharded HDF5.
 
-Port of ddpo_tpu/pipelines/sample.py, on one device: the CUDA device,
-raising at once when there is none, unless ``--device cpu`` asks for the
-CPU. Each batch: prompts -> CLIP text encode -> the trajectory-free CFG
-sampler (DDIM's ``sample_images``, or with ``--scheduler dpm++`` the
-DPM-Solver++(2M) ``sample_images_ode``: collection keeps only images and
-rewards, so the few-step ODE solver applies) -> VAE decode -> the
-``filter_field`` reward and the ``vae`` posterior moments (the finetune
-loss's inputs) -> the masker -> ``RemoteWriter`` split files. The models run in ``--dtype`` (bf16 by
-default), the moments come back in fp32.
+Port of ddpo_tpu/pipelines/sample.py, on the CUDA device, raising at once
+when there is none, unless ``--device cpu`` asks for the CPU; under a
+launcher each rank collects its own batches (seed base_seed + rank, its own
+``-w{rank}-`` split files) from the same model (built from base_seed), and
+the sample count that ends the loop is the sum over ranks. Each batch:
+prompts -> CLIP text encode -> the trajectory-free CFG sampler (DDIM's
+``sample_images``, or with ``--scheduler dpm++`` the DPM-Solver++(2M)
+``sample_images_ode``: collection keeps only images and rewards, so the
+few-step ODE solver applies) -> VAE decode -> the ``filter_field`` reward
+and the ``vae`` posterior moments (the finetune loss's inputs) -> the
+masker -> ``RemoteWriter`` split files. The models run in ``--dtype``
+(bf16 by default), the moments come back in fp32.
 
 ``--iteration`` > 0 samples from the finetuned UNet ``unet_{load_epoch}.pkl``
 under ``--loadpath`` (the previous iteration's ``pipelines/finetune.py``
@@ -36,7 +39,12 @@ import torch
 from ddpo_torch import training
 from ddpo_torch.data.hdf5 import RemoteWriter, decode_generic, encode_generic
 from ddpo_torch.models.tokenizer import make_uncond_ids
-from ddpo_torch.parallel.collectives import worker_sum
+from ddpo_torch.parallel import (
+    destroy_distributed,
+    maybe_initialize_distributed,
+    process_index,
+    worker_sum,
+)
 from ddpo_torch.pipelines.generate import inference_sampler
 from ddpo_torch.sampling import SamplerConfig, vae_decode
 from ddpo_torch.utils import Timer
@@ -100,7 +108,7 @@ def build_collector(args, argv=None) -> Collector:
         model_preset=args.model_preset,
         device=device,
         dtype=_dtype(args.dtype),
-        seed=args.seed or 0,
+        seed=args.base_seed,
     )
     scheduler, sample_fn = inference_sampler(args, argv, models, "sample")
     sampler_config = SamplerConfig(
@@ -125,7 +133,7 @@ def build_collector(args, argv=None) -> Collector:
         sched_state=scheduler.create_state(device), sampler_config=sampler_config,
         uncond_embeds=uncond_embeds, callback_fns=callback_fns,
         masker=make_masker(args.mask_mode, args.mask_param), avg=StreamingAverage(),
-        generator=torch.Generator(device=device).manual_seed(args.seed or 0),
+        generator=torch.Generator(device=device).manual_seed(args.seed),
     )
 
 
@@ -187,7 +195,7 @@ def collect(c: Collector, writer) -> int:
     """Batches until ``max_samples`` are written (or ``max_steps`` batches);
     returns the samples written."""
     args = c.args
-    metrics = MetricsLogger(run_dir(args.savepath))
+    metrics = MetricsLogger(run_dir(args.savepath), enabled=process_index() == 0)
     timer = Timer()
     n_steps, n_samples = 0, 0
     while True:
@@ -216,6 +224,7 @@ def collect(c: Collector, writer) -> int:
 
 
 def main(argv=None) -> int:
+    maybe_initialize_distributed()
     args = Parser().parse_args("sample", argv)
     c = build_collector(args, argv)
     writer = RemoteWriter(args.savepath, split_size=args.local_size)
@@ -225,3 +234,4 @@ def main(argv=None) -> int:
 
 if __name__ == "__main__":
     main()
+    destroy_distributed()

@@ -13,7 +13,11 @@ from __future__ import annotations
 import os
 from concurrent import futures
 
-from ddpo_torch.parallel.collectives import process_index
+from ddpo_torch.parallel import (
+    destroy_distributed,
+    maybe_initialize_distributed,
+    process_index,
+)
 from ddpo_torch.utils import fs
 from ddpo_torch.utils.parser import Parser as BaseParser
 
@@ -44,6 +48,7 @@ def build_manifest(loadpath: str, max_workers: int = 16) -> dict:
 
 
 def main(argv=None) -> dict:
+    maybe_initialize_distributed()
     args = Parser().parse_args("sizes", argv, setup=False)
     loadpath = getattr(args, "override", None) or args.loadpath
     if hasattr(args, "logbase") and not (
@@ -58,3 +63,4 @@ def main(argv=None) -> dict:
 
 if __name__ == "__main__":
     main()
+    destroy_distributed()

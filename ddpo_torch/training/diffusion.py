@@ -13,7 +13,10 @@ training/diffusion.py:6-102):
     1) their weighted sum,
   - one optimizer step of ``state`` (training/policy_gradient.py's
     ``AccumulatingTrainState`` without an accumulation buffer: clip + adamw
-    or adafactor, training/optim.py).
+    or adafactor, training/optim.py); over ranks its ``grad_reduce``
+    averages the unweighted gradients and sums the weighted ones (JAX's
+    weights come from the global ``sharded_softmax`` or ``/ pod_batch_size``,
+    so its global step is a sum of the ranks' weighted sums).
 
 ``state.apply_fn(params, latents, t, context)`` runs the UNet; the finetune
 driver builds it with pipelines/policy_gradient.py's ``make_train_apply``,
@@ -71,7 +74,8 @@ def train_step(
 
     batch: "vae" (B, h, w, 8) fp32 moments, "input_ids" and "uncond_text"
     (B, 77) token ids, on the device. Each parameter's ``.grad`` holds this
-    step's gradient afterwards.
+    step's gradient afterwards (reduced over ranks by ``state.grad_reduce``).
+    The loss is this rank's.
     """
     params = state.params
     for p in params.values():
@@ -106,5 +110,9 @@ def train_step(
     loss = ((noise - noise_pred) ** 2).mean(dim=tuple(range(1, noise.dim())))
     loss = loss.mean() if weights is None else (loss * weights).sum()
     loss.backward()
-    state.apply_gradients(grads={k: p.grad for k, p in params.items()})
+    # over ranks: the unweighted loss is a mean over the global batch, so
+    # ranks average; the weighted one is a sum with globally normalized
+    # weights, so ranks sum
+    state.apply_gradients(grads={k: p.grad for k, p in params.items()},
+                          reduce="mean" if weights is None else "sum")
     return loss.detach()

@@ -18,8 +18,14 @@ it; the sum is divided by T and applied in one optimizer update.
 
 ``apply_fn(params, latents, t, context)`` runs the UNet on a dict of master
 parameters; pipelines/policy_gradient.py builds it to cast them to the compute dtype at use
-(pipelines/policy_gradient.py). ``inner_epoch_resident`` and the
-reduced-precision gradient all-reduce are not ported yet.
+(pipelines/policy_gradient.py).
+
+Data parallelism: each rank computes the mean gradient of its own rows,
+and the state's ``grad_reduce`` (parallel/collectives.py
+``GradientAllReduce``) averages it over ranks once per optimizer step,
+after accumulation and before the clip: equal rows per rank make that the
+global-batch mean JAX's GSPMD step takes; with a ``reduce_dtype`` it is
+JAX's ``grad_reduce_dtype``. ``inner_epoch_resident`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -41,13 +47,17 @@ class AccumulatingTrainState:
     ``params`` are the fp32 master tensors (``requires_grad``), updated in
     place by ``tx``. ``grad_acc`` (fp32, params-sized: 3.4 GB at SD-1.4
     scale) exists only when ``accumulate`` is set, as in the JAX package.
+    ``grad_reduce`` (None in one process) reduces the gradients over ranks
+    just before each optimizer update: their mean, or with
+    ``reduce="sum"`` their sum (the weighted RWR loss, training/diffusion.py).
     """
 
     def __init__(self, apply_fn: Callable, params: Tensors, tx,
-                 accumulate: bool = True):
+                 accumulate: bool = True, grad_reduce: Optional[Callable] = None):
         self.apply_fn = apply_fn
         self.params = params
         self.tx = tx
+        self.grad_reduce = grad_reduce
         self.opt_state = tx.init(params)
         self.step = 0
         self.grad_acc: Optional[Tensors] = (
@@ -56,19 +66,22 @@ class AccumulatingTrainState:
         )
         self.n_acc = 0
 
-    def _update(self, grads: Tensors) -> None:
+    def _update(self, grads: Tensors, reduce: str) -> None:
+        if self.grad_reduce is not None:
+            grads = self.grad_reduce(grads, reduce)
         self.tx.step(self.params, grads, self.opt_state)
         self.step += 1
 
     @torch.no_grad()
-    def apply_gradients(self, *, grads: Tensors, do_update: bool = True) -> None:
+    def apply_gradients(self, *, grads: Tensors, do_update: bool = True,
+                        reduce: str = "mean") -> None:
         if self.grad_acc is None:
             assert do_update, "created without an accumulation buffer"
-            self._update(grads)
+            self._update(grads, reduce)
             return
         if do_update:
             n = self.n_acc + 1
-            self._update({k: (ga + grads[k]) / n for k, ga in self.grad_acc.items()})
+            self._update({k: (ga + grads[k]) / n for k, ga in self.grad_acc.items()}, reduce)
             for ga in self.grad_acc.values():
                 ga.zero_()
             self.n_acc = 0
@@ -207,18 +220,16 @@ def train_step_fused(
     clip_range: float,
     do_opt_update: bool,
     cfg_concat: bool = False,
-    grad_reduce_mesh=None,
-    grad_reduce_dtype=None,
 ) -> Tuple[AccumulatingTrainState, Tensors]:
     """All timesteps of a minibatch, then one update.
 
     batch carries a leading timestep axis on latents/next_latents/ts/
     log_probs: (T, B, ...). The T gradients are summed in fp32 and divided
     by T (the reference's T accumulation steps with the optimizer firing on
-    the last); infos are averaged over T.
+    the last), then reduced over ranks by ``state.grad_reduce`` in its dtype
+    (JAX's ``grad_reduce_mesh``/``grad_reduce_dtype``); infos are averaged
+    over T (this rank's rows).
     """
-    if grad_reduce_mesh is not None or grad_reduce_dtype is not None:
-        raise NotImplementedError("the reduced-precision gradient all-reduce is not ported yet")
     num_t = batch["ts"].shape[0]
     shared = {k: batch[k] for k in ("advantages", "prompt_embeds", "uncond_embeds")}
     info_sum = None

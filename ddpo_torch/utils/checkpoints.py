@@ -2,7 +2,7 @@
 
 Port of ddpo_tpu/utils/checkpoints.py (save_train_state, restore_train_state,
 latest_checkpoint_step, prune_checkpoints, wait_for_pending_saves), with
-``torch.save``/``torch.load`` in place of Orbax. Single process.
+``torch.save``/``torch.load`` in place of Orbax.
 
 ``save_unet``, ``get_latest_epoch`` and ``load_unet_pickle`` keep the JAX
 package's (and the reference's) export format: ``unet_{epoch}.pkl``, a
@@ -16,7 +16,14 @@ Layout under ``savepath/checkpoints/``:
                       a step directory without state.pt is an unfinished
                       write and is not restored;
   <step>_host.pkl     the host state beside it (RNG states, reward history,
-                      per-prompt stat buffers), pickled.
+                      per-prompt stat buffers), pickled; rank r > 0 writes
+                      its own as <step>_host_p<r>.pkl.
+
+More than one process: the state is the same on every rank (the caller
+checks a digest), so rank 0 writes state.pt, and every rank writes its own
+host pickle (ddpo_tpu/utils/checkpoints.py:111-134) and restores its own.
+The ranks then share the directory; on several hosts it is a shared
+filesystem, or a bucket the driver syncs (pipelines/policy_gradient.py).
 
 ``block=False`` copies every tensor to host memory first, synchronously
 (training goes on updating the device tensors in place), then serializes and
@@ -37,6 +44,7 @@ from typing import Any, Mapping, Optional
 
 import torch
 
+from ddpo_torch.parallel.collectives import process_index
 from ddpo_torch.utils import filesystem as fs
 
 STATE_FILE = "state.pt"
@@ -74,28 +82,39 @@ def _step_dir(savepath: str, step: int) -> str:
     return os.path.abspath(os.path.join(savepath, "checkpoints", str(step)))
 
 
+def host_file(step_dir: str, rank: Optional[int] = None) -> str:
+    """The host pickle of ``rank`` (default: this process) beside a step
+    directory: <step>_host.pkl for rank 0, <step>_host_p<r>.pkl else."""
+    rank = process_index() if rank is None else rank
+    return f"{step_dir}_host.pkl" if rank == 0 else f"{step_dir}_host_p{rank}.pkl"
+
+
 def save_train_state(
     savepath: str, step: int, payload: Any, host_state: Any = None,
     block: bool = True,
 ) -> str:
-    """Write one full-state checkpoint under savepath/checkpoints/<step>."""
+    """Write one full-state checkpoint under savepath/checkpoints/<step>:
+    the state on rank 0, this rank's host state on every rank."""
     wait_for_pending_saves()  # at most one write in flight
     path = _step_dir(savepath, step)
+    writer = process_index() == 0
     start = time.perf_counter()
-    payload = _to_host(payload)
+    payload = _to_host(payload) if writer else None
     copy_s = time.perf_counter() - start
 
     def _write():
         t0 = time.perf_counter()
         os.makedirs(path, exist_ok=True)
         target = os.path.join(path, STATE_FILE)
-        torch.save(payload, target + ".tmp")
-        os.replace(target + ".tmp", target)
+        if writer:
+            torch.save(payload, target + ".tmp")
+            os.replace(target + ".tmp", target)
         if host_state is not None:
-            with open(f"{path}_host.pkl", "wb") as f:
+            with open(host_file(path), "wb") as f:
                 pickle.dump(host_state, f)
         last_save.clear()
-        last_save.update(step=step, path=path, bytes=os.path.getsize(target),
+        last_save.update(step=step, path=path,
+                         bytes=os.path.getsize(target) if writer else 0,
                          copy_s=copy_s, write_s=time.perf_counter() - t0)
 
     if block:
@@ -149,8 +168,10 @@ def prune_checkpoints(savepath: str, keep: int) -> int:
 def restore_train_state(savepath: str, step: Optional[int] = None,
                         map_location: Any = "cpu"):
     """Restore the newest (or given) checkpoint -> (payload, step), or
-    (None, None) if there is none. The host state, if saved, is merged into
-    the payload under "host"."""
+    (None, None) if there is none. This rank's host state, if saved, is
+    merged into the payload under "host"; a rank r > 0 whose own pickle is
+    missing beside rank 0's raises (its RNG streams were never saved, and
+    taking rank 0's would repeat rank 0's draws)."""
     wait_for_pending_saves()
     if step is None:
         step = latest_checkpoint_step(savepath)
@@ -159,9 +180,13 @@ def restore_train_state(savepath: str, step: Optional[int] = None,
     path = _step_dir(savepath, step)
     restored = torch.load(os.path.join(path, STATE_FILE), map_location=map_location,
                           weights_only=True)
-    if os.path.exists(f"{path}_host.pkl"):
-        with open(f"{path}_host.pkl", "rb") as f:
+    own = host_file(path)
+    if os.path.exists(own):
+        with open(own, "rb") as f:
             restored = dict(restored, host=pickle.load(f))
+    elif os.path.exists(host_file(path, 0)):
+        raise FileNotFoundError(f"{own} is missing beside {host_file(path, 0)}: "
+                                "this rank's host state was not saved")
     return restored, step
 
 
@@ -169,18 +194,28 @@ def restore_train_state(savepath: str, step: Optional[int] = None,
 
 
 def save_unet(savepath: str, unet: torch.nn.Module, epoch: int = 0,
-              params: Optional[Mapping[str, torch.Tensor]] = None) -> str:
+              params: Optional[Mapping[str, torch.Tensor]] = None,
+              cache: str = "logs") -> str:
     """Pickle the UNet's parameters as savepath/unet_{epoch}.pkl in the Flax
     layout; ``params`` (a state mapping of ``unet``, e.g. a LoRA merge)
-    defaults to ``unet.state_dict()``. Returns the file's path."""
+    defaults to ``unet.state_dict()``. A gs:// savepath is written to a
+    local copy under ``cache``/<bucket path> and then to the bucket
+    (ddpo_tpu/utils/checkpoints.py:234-252). Rank 0 writes (the parameters
+    are the same on every rank). Returns the local file's path."""
     from ddpo_torch.models.convert import to_flax
 
-    os.makedirs(savepath, exist_ok=True)
-    fullpath = os.path.join(savepath, f"unet_{epoch}.pkl")
+    remote = fs.is_remote(savepath)
+    local = os.path.join(cache, savepath.replace("gs://", "")) if remote else savepath
+    fullpath = os.path.join(local, f"unet_{epoch}.pkl")
+    if process_index() != 0:
+        return fullpath
+    os.makedirs(local, exist_ok=True)
     tree = to_flax(unet.state_dict() if params is None else params, unet)
     with open(fullpath + ".tmp", "wb") as f:
         pickle.dump(tree, f)
     os.replace(fullpath + ".tmp", fullpath)
+    if remote:
+        fs.put_file(fullpath, os.path.join(savepath, f"unet_{epoch}.pkl"))
     return fullpath
 
 

@@ -18,6 +18,7 @@ import os
 import pickle
 import re
 import shutil
+from typing import Callable, Optional
 
 builtin_open = open
 
@@ -95,7 +96,8 @@ def put_file(local: str, remote: str) -> None:
 _UPLOADED: dict = {}
 
 
-def put_dir(local: str, remote: str, only_newer: bool = True) -> int:
+def put_dir(local: str, remote: str, only_newer: bool = True,
+            exclude: Optional[Callable[[str], bool]] = None) -> int:
     """Recursively upload local -> remote; returns the file count copied.
 
     only_newer skips files unchanged since this process last uploaded them
@@ -103,6 +105,7 @@ def put_dir(local: str, remote: str, only_newer: bool = True) -> int:
     async_to_bucket). The first sync of a process uploads everything once —
     O(run artifacts) per restart, vs O(epochs^2) for unconditional re-upload
     over a long run (reference uses gsutil rsync, serialization.py:383-399).
+    ``exclude(rel_path)`` skips the files it is true for.
     """
     copied = 0
     seen = _UPLOADED.setdefault((os.path.abspath(local), remote), {})
@@ -110,6 +113,8 @@ def put_dir(local: str, remote: str, only_newer: bool = True) -> int:
         for f in files:
             src = os.path.join(root, f)
             rel = os.path.relpath(src, local)
+            if exclude is not None and exclude(rel):
+                continue
             stamp = (os.path.getmtime(src), os.path.getsize(src))
             if only_newer and seen.get(rel) == stamp:
                 continue

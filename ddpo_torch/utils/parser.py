@@ -11,10 +11,10 @@ parser is not available here):
      value,
   4. resolve "f:"-prefixed lazy f-strings against the merged namespace
      (e.g. "f:models/{iteration+1}" — how RWR iterations chain),
-  5. seed (single process: rank 0, so seed == base_seed),
+  5. seed: base_seed (rank 0's, broadcast when drawn) + the rank,
   6. savepath = logbase/savepath (+ mkdir when local); loadpath/modelpath
      joined under logbase unless absolute,
-  7. provenance: git commit + diff snapshot, args.json dump.
+  7. provenance: git commit + diff snapshot, args.json dump (rank 0).
 """
 
 from __future__ import annotations
@@ -27,7 +27,9 @@ import random
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch.distributed
 
+from ddpo_torch.parallel.collectives import process_count, process_index
 from ddpo_torch.utils import filesystem as fs
 from ddpo_torch.utils.git_utils import get_git_rev, save_git_diff
 from ddpo_torch.utils.logger import init_logging
@@ -134,13 +136,19 @@ class Parser:
 
     @staticmethod
     def _set_seed(args: Args) -> None:
+        """base_seed is the same on every rank (model init: replicas start
+        equal); seed = base_seed + rank (prompts, shuffles, sampler noise:
+        each rank draws its own), as ddpo_tpu/utils/parser.py:140-150. An
+        unset --seed is drawn on rank 0 and broadcast."""
         seed = getattr(args, "seed", None)
         if seed is None:
-            seed = np.random.randint(0, int(1e6))
-        # Single process: rank 0, so the per-process seed equals base_seed.
-        # Seeds the host-side prompt sampling only; model init and the
-        # sampler noise take explicit torch.Generators built from args.seed.
+            seed = int(np.random.randint(0, int(1e6)))
+            if process_count() > 1:
+                box = [seed]
+                torch.distributed.broadcast_object_list(box, src=0)
+                seed = box[0]
         args.set("base_seed", seed)
+        seed = seed + process_index()
         args.set("seed", seed)
         random.seed(seed)
         np.random.seed(seed)
@@ -163,7 +171,7 @@ class Parser:
     def _provenance(args: Args) -> None:
         args.set("commit", get_git_rev())
         try:
-            if not fs.is_remote(args.savepath):
+            if not fs.is_remote(args.savepath) and process_index() == 0:
                 save_git_diff(os.path.join(args.savepath, "diff.txt"))
         except Exception:
             pass
@@ -171,7 +179,7 @@ class Parser:
     @staticmethod
     def _save_args(args: Args) -> None:
         savepath = getattr(args, "savepath", None)
-        if savepath is None or fs.is_remote(savepath):
+        if savepath is None or fs.is_remote(savepath) or process_index() != 0:
             return
         os.makedirs(savepath, exist_ok=True)  # savepath may lack a logbase
         payload = {

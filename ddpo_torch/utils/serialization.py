@@ -10,6 +10,8 @@ says so, as JAX does, and builds the stack at the full SD-1.4 geometry
 a seeded ``torch.Generator``. ``load_unet`` overlays a finetuned UNet on
 that stack, and ``save_stable_diffusion_export`` writes the stack in the
 diffusers-Flax msgpack layout, which either package's loader reads.
+``sync_to_bucket`` / ``async_to_bucket`` stream a run's artifacts to its
+gs:// savepath.
 
 The random initialisation mirrors Flax's defaults, which the JAX package's
 random model uses: lecun-normal (truncated) kernels, zero biases, ones and
@@ -22,6 +24,8 @@ from __future__ import annotations
 
 import math
 import os
+import re
+import threading
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -38,6 +42,8 @@ from ddpo_torch.models import (
 )
 from ddpo_torch.models.clip import CLIPVisionEmbeddings
 from ddpo_torch.models.layers import GroupNorm
+from ddpo_torch.parallel.collectives import process_index
+from ddpo_torch.utils import filesystem as fs
 from ddpo_torch.models.tokenizer import get_tokenizer, warn_if_fallback
 
 
@@ -84,6 +90,8 @@ def resolve_device(device: Any) -> torch.device:
     For "cuda" it is also the port's device setup: fp32 matmuls and
     convolutions stay IEEE fp32 (PyTorch lets cuDNN run them in TF32 by
     default), so every entry point computes what chip_smoke.py checks.
+    Under a launcher that sets LOCAL_RANK, "cuda" is cuda:LOCAL_RANK, made
+    the current device.
     """
     device = torch.device(device)
     if device.type == "cuda":
@@ -92,6 +100,9 @@ def resolve_device(device: Any) -> torch.device:
                 "device 'cuda' was asked for, but torch finds no CUDA device; "
                 "pass --device cpu (device='cpu') to run on the CPU"
             )
+        if device.index is None and "LOCAL_RANK" in os.environ:
+            device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+            torch.cuda.set_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return device
@@ -257,3 +268,29 @@ def save_stable_diffusion_export(savepath: str, models) -> str:
         write_msgpack(os.path.join(subdir, fname),
                       to_flax(module.state_dict(), module, keep_bf16=True))
     return savepath
+
+
+def _other_ranks_file(rel: str) -> bool:
+    """A host pickle of a rank r > 0: that rank uploads its own."""
+    return re.search(r"_host_p\d+\.pkl$", rel) is not None
+
+
+def sync_to_bucket(localpath: str, savepath: str) -> int:
+    """Synchronous artifact sync localpath -> savepath (local or gs://),
+    incremental (``fs.put_dir``), without the other ranks' host pickles
+    (each rank uploads its own). Reference: utils/serialization.py:374-381;
+    ddpo_tpu/utils/serialization.py:225-232."""
+    return fs.put_dir(localpath, savepath, exclude=_other_ranks_file)
+
+
+def async_to_bucket(localpath: str, savepath: str, wait: bool = False):
+    """``sync_to_bucket`` on a background thread, on rank 0 only (reference
+    utils/serialization.py:383-399: an async gsutil rsync). Returns the
+    thread (None on the other ranks); ``wait`` joins it."""
+    if process_index() != 0:
+        return None
+    thread = threading.Thread(target=sync_to_bucket, args=(localpath, savepath), daemon=True)
+    thread.start()
+    if wait:
+        thread.join()
+    return thread

@@ -148,14 +148,17 @@ def test_sigterm_checkpoints_and_exits(workdir, monkeypatch):
     assert len(rewards_resumed) == 3 and rewards_resumed[:2] == rewards
 
 
-def test_unported_options_raise(workdir):
-    from ddpo_torch.pipelines import policy_gradient
+def test_unported_options_raise(workdir, monkeypatch):
+    """What is still not ported refuses by name: the resident inner loop,
+    the tp/sp meshes, and generate under more than one process."""
+    from ddpo_torch.pipelines import generate, policy_gradient
 
-    for flags in (["--resident_inner_loop", "True"],
-                  ["--mesh_sp", "2"], ["--grad_reduce_dtype", "bfloat16"],
-                  ["--profile_dir", "prof"]):
+    for flags in (["--resident_inner_loop", "True"], ["--mesh_sp", "2"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             policy_gradient.main(COMMON + ["--num_train_epochs", "1"] + flags)
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="WORLD_SIZE > 1"):
+        generate.main(["--dataset", "debug-animals", "--device", "cpu"])
 
 
 def test_checkpoints_background_write_prune_and_error(tmp_path):

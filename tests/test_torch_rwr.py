@@ -350,7 +350,7 @@ def test_step_and_reward_feed_contiguous_nchw(tiny):
         return torch.zeros_like(x, requires_grad=True)
 
     state = SimpleNamespace(params=params, apply_fn=apply,
-                            apply_gradients=lambda grads: None)
+                            apply_gradients=lambda grads, reduce="mean": None)
     sched = TorchDDPM()
     diffusion.train_step(state, tiny.t_text, batch, sched.create_state(), sched, False, 5.0,
                          generator=torch.Generator().manual_seed(0))
