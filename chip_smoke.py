@@ -163,6 +163,31 @@ Phases, in order; any failure exits non-zero:
      all-reduce's bytes and seconds, the seconds per update, the epoch
      walls, each rank's peak memory and launches. Each rank's whole output
      goes to chiprun_out/phase13/.
+  14. the sp mesh axis, two ranks of one sp group on the one card (gloo):
+     (k) the kernels at the sp path's new shapes against their plain
+     versions: flash forward and backward at local Sq != Sk (2, 2048 x 4096,
+     8, 40) and (2, 512 x 1024, 8, 80) in bf16; conv3x3 and the s8 tap-GEMM
+     on a halo'd (4, 320, 34, 64) frame, the SAME map's first and last rows
+     dropped, against the plain VALID-over-H conv (and conv3x3 bit for bit
+     against the unsharded map's rows, the s8 kernel against
+     conv3x3_w8a8(padding=VALID_ROWS)); (a) one DDPO epoch of
+     ``policy_gradient --mesh_sp 2`` (the spatial mode) as phase 13's but
+     cut to --train_timestep_ratio 0.1 (10 updates), inside
+     batch_invariant(): both ranks print the same rewards, parameter digests
+     and initial noise, the first minibatch recomputes on-policy (|dlogp| <=
+     1e-5, clipfrac 0), each rank launches phase 7's kernels with flash_fwd
+     at 10 a sharded UNet forward, and makes exactly 49 halo, 3 top-halo, 61
+     all-reduce and 16 K/V-gather collectives a forward and one output
+     gather an apply (outside remat), and their transposes a backward (but
+     the output gather's, a slice, and conv_in's halo: the latents need no
+     gradient); printed: those per forward with
+     their bytes and seconds, the ms of a sampler UNet step, s an update,
+     the gradient all-reduce's bytes and seconds, peak memory per rank;
+     (b, c) ``ddpo_torch.bench.sp_check`` on two ranks: the sharded UNet's
+     eps at the rollout's 2B = 4 and one update's gradients, spatial (b) and
+     attention (c) modes, against the unsharded ones within 2^-6 of their
+     max, with 10 flash_fwd launches a forward. Each rank's output goes to
+     chiprun_out/phase14/.
 
 The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}. With no CUDA device, or run
@@ -174,6 +199,7 @@ Run from the repository root: python3 chip_smoke.py
 from __future__ import annotations
 
 import contextlib
+import glob
 import json
 import os
 import shutil
@@ -381,7 +407,17 @@ def phase_build():
     return kl
 
 
-def check_flash(results):
+# (B, Sq, Sk, H, D): the UNet's three self-attention levels at 512 px
+# with the 2B = 8 CFG batch, then ragged lengths the kernel masks itself
+FLASH_CASES = [(8, 4096, 4096, 8, 40), (8, 1024, 1024, 8, 80), (8, 256, 256, 8, 160),
+               (2, 1000, 1000, 8, 40), (2, 300, 700, 8, 80)]
+# the trainer's 2B = 4 at the same levels, ragged lengths, and D = 256, the
+# widest the gate admits
+FLASH_BWD_CASES = [(4, 4096, 4096, 8, 40), (4, 1024, 1024, 8, 80), (4, 256, 256, 8, 160),
+                   (2, 1000, 1000, 8, 40), (2, 300, 700, 8, 80), (2, 300, 300, 2, 256)]
+
+
+def check_flash(results, cases=FLASH_CASES, dtypes=None, tag=""):
     import torch
     import torch.nn.functional as F
 
@@ -392,12 +428,8 @@ def check_flash(results):
     )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    # (B, Sq, Sk, H, D): the UNet's three self-attention levels at 512 px
-    # with the 2B = 8 CFG batch, then ragged lengths the kernel masks itself
-    cases = [(8, 4096, 4096, 8, 40), (8, 1024, 1024, 8, 80), (8, 256, 256, 8, 160),
-             (2, 1000, 1000, 8, 40), (2, 300, 700, 8, 80)]
     bounds = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-4)}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes or (torch.bfloat16, torch.float32):
         for b, sq, sk, h, d in cases:
             q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype)
             k = torch.randn((b, sk, h, d), generator=gen, device="cuda").to(dtype)
@@ -411,7 +443,7 @@ def check_flash(results):
             err_lse = (lse - ref_lse).abs().max().item()
             bound, bound_lse = bounds[dtype]
             name = str(dtype).replace("torch.", "")
-            line = (f"flash {name} B{b} Sq{sq} Sk{sk} H{h} D{d}: max|out-ref| "
+            line = (f"{tag}flash {name} B{b} Sq{sq} Sk{sk} H{h} D{d}: max|out-ref| "
                     f"{err:.3e} (bound {bound:g}), max|lse-ref| {err_lse:.3e} "
                     f"(bound {bound_lse:g})")
             if not (err <= bound and err_lse <= bound_lse):
@@ -447,7 +479,7 @@ def check_flash(results):
             torch.cuda.empty_cache()
 
 
-def check_flash_bwd(results):
+def check_flash_bwd(results, cases=FLASH_BWD_CASES, dtypes=None, tag=""):
     import torch
     import torch.nn.functional as F
 
@@ -462,12 +494,7 @@ def check_flash_bwd(results):
     )
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    # (B, Sq, Sk, H, D): the UNet's three self-attention levels at 512 px
-    # with the trainer's 2B = 4 CFG batch, ragged lengths the kernels mask
-    # themselves, and D = 256, the widest the gate admits
-    cases = [(4, 4096, 4096, 8, 40), (4, 1024, 1024, 8, 80), (4, 256, 256, 8, 160),
-             (2, 1000, 1000, 8, 40), (2, 300, 700, 8, 80), (2, 300, 300, 2, 256)]
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes or (torch.bfloat16, torch.float32):
         for b, sq, sk, h, d in cases:
             q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype)
             k = torch.randn((b, sk, h, d), generator=gen, device="cuda").to(dtype)
@@ -485,7 +512,7 @@ def check_flash_bwd(results):
             bound = 1e-4 if dtype == torch.float32 else 1e-2 * max(1.0, peak)
             same = all(torch.equal(g, g2) for g, g2 in zip(grads, again))
             name = str(dtype).replace("torch.", "")
-            line = (f"flash_bwd {name} B{b} Sq{sq} Sk{sk} H{h} D{d}: max|dq,dk,dv - ref| "
+            line = (f"{tag}flash_bwd {name} B{b} Sq{sq} Sk{sk} H{h} D{d}: max|dq,dk,dv - ref| "
                     f"{errs[0]:.3e} {errs[1]:.3e} {errs[2]:.3e} (bound {bound:.3g}, "
                     f"max|ref| {peak:.3f}); two calls equal: {same}")
             if b == 4 and dtype == torch.bfloat16:
@@ -2490,17 +2517,17 @@ def rank_values(outs, pattern, cast=str):
     return found
 
 
-def run_ranks(tag, argv, cwd, env, timeout):
-    """Two ranks of the DDPO driver on the one card (LOCAL_RANK 0 each);
-    each rank's whole output goes to chiprun_out/phase13/."""
+def run_ranks(tag, argv, cwd, env, timeout, module="ddpo_torch.pipelines.policy_gradient"):
+    """Two ranks of ``module`` (the DDPO driver) on the one card (LOCAL_RANK 0
+    each); each rank's whole output goes to chiprun_out/phase<tag's phase>/."""
     from ddpo_torch.parallel.launch import launch
 
     os.makedirs(cwd, exist_ok=True)
     start = time.perf_counter()
-    results = launch([sys.executable, "-m", "ddpo_torch.pipelines.policy_gradient", *argv],
+    results = launch([sys.executable, "-m", module, *argv],
                      2, timeout=timeout, env=env, cwd=cwd, local_rank=lambda r: 0)
     wall = time.perf_counter() - start
-    logdir = os.path.join(REPO, "chiprun_out", "phase13")
+    logdir = os.path.join(REPO, "chiprun_out", f"phase{tag[:2]}")
     os.makedirs(logdir, exist_ok=True)
     for rank, (rc, out) in enumerate(results):
         with open(os.path.join(logdir, f"{tag}_rank{rank}.log"), "w") as f:
@@ -2647,6 +2674,244 @@ def phase_ddpo_ranks(unet_gn, vae_gn, unet_conv, smi):
                                       for i, (name, t) in enumerate(marks[1:])))
 
 
+# ---- phase 14: the sp mesh axis, two ranks on the one card ----
+
+# self-attentions per UNet forward sharded over sp = 2 at 512 px that meet
+# the flash gate: local Sq 2048 and 512 (down 0-1 x 2, up 2-3 x 3); the
+# 16x16 level's 128 and the mid block's 32 take the plain path
+FLASH_PER_SP_FORWARD = 10
+# collectives per sharded UNet forward at SD-1.4: a halo a stride-1 3x3
+# conv, a top halo a stride-2 conv, an all-reduce a GroupNorm, a K/V gather
+# a self-attention, the output gather (once an apply: outside the remat
+# checkpoint); an update's backward transposes all but the output gather
+# (its backward is a slice) and conv_in's halo (the latents need no gradient)
+SP_PER_UNET_FORWARD = {"halo": 49, "halo_top": 3, "psum": 61, "gather_kv": 16, "gather_out": 1}
+SP_PER_UNET_BACKWARD = {"halo": 48, "halo_top": 3, "psum": 61, "gather_kv": 16}
+# (B, Sq, Sk, H, D) at the trainer's 2B = 2 (train batch 1): the two levels
+# whose local queries meet the flash gate, against the gathered K/V
+SP_FLASH_CASES = [(2, 2048, 4096, 8, 40), (2, 512, 1024, 8, 80)]
+# cut: 5 of 50 timesteps trained (phase 13 trains 10), so phase 14 keeps the
+# script well inside its limit on a slow host
+PHASE14_ARGV = ["--dataset", "compressed-animals", "--sample_batch_size", "2",
+                "--train_batch_size", "1", "--train_timestep_ratio", "0.1", "--seed", "0",
+                "--mesh_sp", "2", "--num_train_epochs", "1"]
+
+
+def check_sp_kernels(flash_results, bwd_results, conv_results, s8_results, smi):
+    """14k: the kernels at the sp path's new shapes against their plain
+    versions: flash forward and backward at local Sq != Sk (bf16); conv3x3
+    and the s8 tap-GEMM on a halo'd (4, 320, 34, 64) frame with the SAME
+    map's first and last rows dropped, against the plain VALID-over-H conv,
+    and bit for bit against the unsharded map's rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from ddpo_torch.ops.conv import conv3x3_direct, conv3x3_reference
+    from ddpo_torch.ops.quant import (VALID_ROWS, conv3x3_w8a8, quantize_symmetric, tap_gemm_s8,
+                                      tap_gemm_s8_reference, weight_codes)
+
+    check_flash(flash_results, SP_FLASH_CASES, (torch.bfloat16,), "14k ")
+    check_flash_bwd(bwd_results, SP_FLASH_CASES, (torch.bfloat16,), "14k ")
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    n, cin, h, w, cout = 4, 320, 64, 64, 320
+    rows = h // 2
+    x = torch.randn((n, cin, h, w), generator=gen, device="cuda").to(torch.bfloat16)
+    weight = (torch.randn((cout, cin, 3, 3), generator=gen, device="cuda")
+              * (9 * cin) ** -0.5).to(torch.bfloat16)
+    bias = torch.randn(cout, generator=gen, device="cuda")
+    # shard 0 of 2: zero top row (the global pad), its 32 rows, shard 1's first
+    xh = F.pad(x, (0, 0, 1, 1))[:, :, :rows + 2].contiguous()
+
+    def halo_conv():
+        return conv3x3_direct(xh, weight)[:, :, 1:-1]
+
+    out = halo_conv()
+    ref = conv3x3_reference(xh.float(), weight.float())[:, :, 1:-1]  # the plain VALID rows
+    whole = conv3x3_direct(x, weight)[:, :, :rows]
+    peak = ref.abs().max().item()
+    err = (out.float() - ref).abs().max().item()
+    bound = 1e-2 * max(1.0, peak)
+    same = torch.equal(out, whole)
+    line = (f"14k conv3x3 bf16 halo'd x{tuple(xh.shape)} -> {cout}, rows 1..{rows} kept: "
+            f"max|out-ref| {err:.3e} (bound {bound:.3g}, max|ref| {peak:.2f}); equal to the "
+            f"unsharded map's rows bit for bit: {same}")
+    if not (err <= bound and same):
+        fail(line)
+    flops = 2.0 * n * rows * w * 9 * cin * cout
+    k_ms, p_ms = timed_pair(halo_conv, lambda: conv3x3_reference(xh, weight)[:, :, 1:-1], 10)
+    lib_ms = median_ms(lambda: F.conv2d(xh, weight, padding=(0, 1)), 10)
+    bound_ms, bound_by = roofline(flops, (xh.numel() + weight.numel() + out.numel()) * 2)
+    conv_results.append({"shape": [n, cin, rows + 2, w, cout], "dtype": "bfloat16",
+                         "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                         "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+    log(line + f"; kernel (SAME on the frame, 2 rows dropped) {k_ms:.3f} ms, plain "
+        f"{p_ms:.3f} ms, F.conv2d VALID over H {lib_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}) for the kept rows ({smi})")
+
+    xq, sx = quantize_symmetric(xh, (1, 2, 3))  # the scale is the halo'd shard's
+    sx = sx.reshape(-1)
+    wq, sw = weight_codes(weight)
+
+    def halo_s8():
+        return tap_gemm_s8(xq, wq, sx, sw, bias, torch.bfloat16)[:, :, 1:-1]
+
+    out = halo_s8()
+    ref = tap_gemm_s8_reference(xq, wq, sx, sw, bias, torch.bfloat16)[:, :, 1:-1]
+    op = conv3x3_w8a8(xh, weight, bias, padding=VALID_ROWS)
+    err = (out.float() - ref.float()).abs().max().item()
+    same = torch.equal(out, op)
+    line = (f"14k conv3x3_s8 bf16 out halo'd x{tuple(xh.shape)} -> {cout}: max|kernel - plain| "
+            f"{err:g} (bound 0: the same codes); conv3x3_w8a8(padding=VALID_ROWS) equal: {same}")
+    if not (err == 0 and same):
+        fail(line)
+    k_ms, p_ms = timed_pair(halo_s8, lambda: tap_gemm_s8_reference(
+        xq, wq, sx, sw, bias, torch.bfloat16)[:, :, 1:-1], 10)
+    nbytes = xq.numel() + wq.numel() + out.numel() * 2 + 4 * (sx.numel() + sw.numel() + cout)
+    bound_ms, bound_by = roofline(flops, nbytes, "int8")
+    s8_results.append({"shape": [n, cin, rows + 2, w, cout], "dtype": "bfloat16",
+                       "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": None,
+                       "bound_ms": bound_ms, "bound_by": bound_by})
+    log(line + f"; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}) ({smi})")
+    del x, xh, weight, xq, wq, out, ref, op, whole
+    torch.cuda.empty_cache()
+
+
+def sp_comm_expected(forwards, applies, updates):
+    """The sp collectives' calls of ``forwards`` sharded UNet forwards (remat
+    recomputes included) in ``applies`` applies, and ``updates`` backwards."""
+    want = {k: v * (applies if k == "gather_out" else forwards)
+            for k, v in SP_PER_UNET_FORWARD.items()}
+    want.update({f"{k}.bwd": v * updates for k, v in SP_PER_UNET_BACKWARD.items()})
+    return want
+
+
+def phase_sp_ranks(unet_gn, vae_gn, unet_conv, smi):
+    """14a: one DDPO epoch on two ranks of one sp group (spatial mode);
+    14b/14c: ddpo_torch.bench.sp_check, the sharded UNet's eps and an
+    update's gradients against the unsharded ones, in both modes."""
+    import numpy as np
+    import torch
+
+    from ddpo_torch.pipelines import policy_gradient
+
+    torch.cuda.empty_cache()
+    args = policy_gradient.Parser().parse_args("pg", list(PHASE14_ARGV), setup=False)
+    steps, n_sample = args.n_inference_steps, args.num_sample_batches_per_epoch
+    num_ts = int(steps * args.train_timestep_ratio)
+    n_updates = args.sample_batch_size * n_sample // args.train_batch_size * num_ts
+    forwards = steps * n_sample + 2 * n_updates  # sampler + trainer forward and remat
+    log(f"14: two ranks, one sp group (dp 1 x sp 2, --sp_mode spatial) on one card, "
+        f"--dataset compressed-animals at SD-1.4 width, sample batch {args.sample_batch_size}, "
+        f"train batch {args.train_batch_size}, {steps} steps, CFG {args.guidance_scale}; cut: "
+        f"--train_timestep_ratio {args.train_timestep_ratio} ({n_updates} updates)")
+    want = expected(
+        flash_fwd=FLASH_PER_SP_FORWARD * forwards,
+        flash_bwd_dq=FLASH_PER_SP_FORWARD * n_updates,
+        flash_bwd_dkv=FLASH_PER_SP_FORWARD * n_updates,
+        gn_stats=unet_gn * forwards + vae_gn * n_sample,
+        conv3x3=unet_conv * forwards,
+    )
+    want_comm = sp_comm_expected(forwards, steps * n_sample + n_updates, n_updates)
+    work = tempfile.mkdtemp(prefix="chip_smoke_sp_")
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               DDPO_BUCKET=os.path.join(work, "bucket"))
+    marks = [("start", time.perf_counter())]
+    cwd = os.path.join(work, "host")
+    outs, wall = run_ranks("14a", PHASE14_ARGV, cwd, env, timeout=480)
+    marks.append(("14a", time.perf_counter()))
+
+    rewards = rank_values(outs, r"epoch (\d+) mean reward: (\S+)")
+    noise = rank_values(outs, r"initial noise digest (\w+)")
+    digests = rank_values(outs, r"epoch (\d+) params digest (\w+)")
+    modes = rank_values(outs, r"(sp=2 spatial)")
+    samples = rank_values(outs, r"sample batch \d+: \d+ samples in (\S+)s", float)
+    updates = rank_values(outs, r"epoch 0\.0: .*\| (\S+)s, (\S+) s an update \((\d+)\)")
+    reduces = rank_values(outs, r"gradient all-reduce \((\w+), (\w+)\): (\d+) calls, (\d+) bytes "
+                                r"each, seconds (.*)")
+    ends = rank_values(outs, r"rank (\d+): peak memory (\S+) GiB \| kernel launches (\{.*\})")
+    comms = rank_values(outs, r"rank \d+: sp collectives \(calls, bytes, seconds\) (\{.*\})",
+                        json.loads)
+    if rewards[0] != rewards[1] or len(rewards[0]) != 1:
+        fail(f"14a: the sp ranks' rewards differ: {rewards}")
+    if digests[0] != digests[1] or len(digests[0]) != 1:
+        fail(f"14a: the sp ranks' parameter digests differ: {digests}")
+    if noise[0] != noise[1] or len(noise[0]) != 1:
+        fail(f"14a: the sp ranks of one dp slice must draw the same noise: {noise}")
+    if not all(modes) or not all(len(c) == 1 for c in comms) or not all(len(e) == 1 for e in ends):
+        fail(f"14a: a rank did not run the spatial mode or print its collectives and launches")
+    found = glob.glob(os.path.join(cwd, "logs", "**", "train_info", "0_0_0.npy"), recursive=True)
+    if len(found) != 1:
+        fail(f"14a: expected one train_info/0_0_0.npy under {cwd}/logs, found {found}")
+    infos = np.load(found[0], allow_pickle=True).item()
+    first_dlogp = (2.0 * args.train_batch_size * num_ts * infos["approx_kl"][0]) ** 0.5
+    log(f"14a: first minibatch (2B = {2 * args.train_batch_size} sharded against the "
+        f"sampler's 2B = {2 * args.sample_batch_size} sharded) approx_kl "
+        f"{infos['approx_kl'][0]:.3e}, clipfrac {infos['clipfrac'][0]:.3f}, max|dlogp| <= "
+        f"{first_dlogp:.3e} (bound 1e-5)")
+    if not (first_dlogp <= 1e-5 and infos["clipfrac"][0] == 0.0):
+        fail("14a: the first minibatch's recompute is off-policy")
+    log(f"14a: rewards {rewards[0]}, params digests {digests[0]}, initial noise digests "
+        f"{noise[0]} (equal on both sp ranks) ({smi})")
+    for rank in range(2):
+        comm = comms[rank][0]
+        calls = {k: v[0] for k, v in comm.items() if not k.startswith("shard_in")}
+        if calls != want_comm:
+            fail(f"14a: rank {rank} made the collectives {calls}, expected {want_comm}")
+        per_fwd = {k: (SP_PER_UNET_FORWARD[k], comm[k][1] / comm[k][0] * SP_PER_UNET_FORWARD[k],
+                       comm[k][2] / comm[k][0] * SP_PER_UNET_FORWARD[k])
+                   for k in SP_PER_UNET_FORWARD}
+        fwd_bytes = sum(b for _, b, _ in per_fwd.values())
+        fwd_secs = sum(sec for _, _, sec in per_fwd.values())
+        bwd = {k: v for k, v in comm.items() if k.endswith(".bwd")}
+        log(f"14a rank {rank}: collectives a UNet forward (calls, bytes this rank put in, s) "
+            + ", ".join(f"{k} {c} / {b:.0f} B / {sec:.5f} s" for k, (c, b, sec) in per_fwd.items())
+            + f"; in all {sum(c for c, _, _ in per_fwd.values())} calls, {fwd_bytes:.0f} B, "
+            f"{fwd_secs:.4f} s a forward (means over the epoch's {forwards} forwards: sampler "
+            f"steps at 2B = {2 * args.sample_batch_size}, the trainer's forward and remat at 2B "
+            f"= {2 * args.train_batch_size}); the backwards' over {n_updates} updates "
+            f"(calls, bytes, s) {bwd} ({smi})")
+        step_ms = 1e3 * samples[rank][0] / steps
+        _, per_update, n = updates[rank][0]
+        _, dtype, red_calls, nbytes, secs = reduces[rank][0]
+        log(f"14a rank {rank}: sampler {samples[rank][0]:.2f} s for {steps} steps = "
+            f"{step_ms:.1f} ms a sampler UNet step (the batch's VAE decode and collectives "
+            f"included); "
+            f"{per_update} s an update ({n}); gradient all-reduce ({dtype}) {red_calls} calls of "
+            f"{int(nbytes)} bytes, seconds {secs}; peak memory {ends[rank][0][1]} GiB ({smi})")
+        launched = json.loads(ends[rank][0][2])
+        log(f"14a rank {rank}: launches {launched}, expected {want}")
+        if launched != want:
+            fail(f"14a: rank {rank} launched {launched}, expected {want}")
+    log(f"14a: {wall:.1f} s from launch to exit ({smi})")
+
+    outs, wall = run_ranks("14b", [], os.path.join(work, "check"), env, timeout=300,
+                           module="ddpo_torch.bench.sp_check")
+    marks.append(("14b+c", time.perf_counter()))
+    reports = rank_values(outs, r"^SP_CHECK (\{.*\})$", json.loads)
+    if not all(len(r) == 1 for r in reports):
+        fail("14b: a rank printed no SP_CHECK line")
+    for rank, (rep,) in enumerate(reports):
+        for mode, tag in (("spatial", "14b"), ("attention", "14c")):
+            m = rep[mode]
+            flash = m["launches_forward"].get("flash_fwd", 0)
+            log(f"{tag} rank {rank} ({mode}, 2B = {rep['batch_2B']}, bf16, batch_invariant()): "
+                f"eps max|d| {m['eps_max_rel']:.3e} of max|eps|, an update's gradients max|d| "
+                f"{m['grads_max_rel']:.3e} of max|g| (bound 2^-6 = {2 ** -6:g}); a forward "
+                f"{m['forward_ms']:.2f} ms sharded against {rep['unsharded_forward_ms']:.2f} ms "
+                f"unsharded (both ranks on the one card); flash_fwd {flash} a forward; "
+                f"collectives a forward {m['comm_forward']} ({smi})")
+            if "module_table" in m:
+                differ = {k: v["differ"] for k, v in m["module_table"].items() if v["differ"]}
+                log(f"{tag} rank {rank}: module families whose bits for sample 0 differ at the "
+                    f"trainer's 2B = 2 from the sampler's 2B = {rep['batch_2B']}: {differ}")
+            if not m["passed"] or flash != FLASH_PER_SP_FORWARD:
+                fail(f"{tag}: rank {rank} {mode}: {m}")
+    shutil.rmtree(work, ignore_errors=True)
+    log("phase 14 wall: " + ", ".join(f"{name} {t - marks[i][1]:.1f} s"
+                                      for i, (name, t) in enumerate(marks[1:])))
+
+
 def main() -> None:
     try:
         import torch
@@ -2657,6 +2922,7 @@ def main() -> None:
     if not os.path.isdir(os.path.join(REPO, "ddpo_torch", "csrc")):
         fail(f"ddpo_torch/csrc not found beside {__file__}: run from the repository")
     sys.path.insert(0, REPO)
+    started = time.perf_counter()
     bucket = tempfile.mkdtemp(prefix="chip_smoke_")
     os.environ["DDPO_BUCKET"] = bucket
 
@@ -2686,6 +2952,8 @@ def main() -> None:
     shutil.rmtree(bucket, ignore_errors=True)
     del serving_images
     phase_ddpo_ranks(unet_gn, vae_gn, unet_conv, smi)
+    check_sp_kernels(flash_results, bwd_results, conv_results, s8_results, smi)
+    phase_sp_ranks(unet_gn, vae_gn, unet_conv, smi)
 
     def headline(results, shape):
         return next(r for r in results if r["shape"] == shape and r["dtype"] == "bfloat16")
@@ -2743,7 +3011,9 @@ def main() -> None:
         "library_ms are the whole backward (dq, dk and dv); times at the headline shapes: "
         "flash (8, 4096, 8, 40) and (4, 4096, 8, 40), GroupNorm (8, 320, 64, 64), conv "
         "(8, 320, 64, 64) -> 320 and the probes' (16, 320, 64, 64) -> 320, bf16 (the s8 "
-        "conv: int8 codes in, bf16 out)")
+        "conv: int8 codes in, bf16 out); max_abs_err over every case, phase 14k's sp shapes "
+        "included")
+    log(f"chip_smoke wall: {time.perf_counter() - started:.1f} s ({smi})")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

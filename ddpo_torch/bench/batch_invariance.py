@@ -104,12 +104,13 @@ def module_table(unet: nn.Module, latents, t, context, rows: torch.Tensor) -> Di
 
     attention = layers.attention
 
-    def traced_attention(q, k, v, scale=None):
-        out = attention(q, k, v, scale)
+    def traced_attention(q, k, v, scale=None, **kw):
+        out = attention(q, k, v, scale, **kw)
         if live[0]:
-            name = ("flash attention" if q.is_cuda and q.shape[1] >= 256 and k.shape[1] >= 256
-                    else f"plain attention Sk = {k.shape[1]}")
-            _add(table, name, out[rows], attention(take(q), take(k), take(v), scale))
+            sk = k.shape[1] * (kw["spatial"].size if kw.get("spatial") else 1)
+            name = ("flash attention" if q.is_cuda and q.shape[1] >= 256 and sk >= 256
+                    else f"plain attention Sk = {sk}")
+            _add(table, name, out[rows], attention(take(q), take(k), take(v), scale, **kw))
         return out
 
     handles = [m.register_forward_hook(hook) for m in unet.modules()

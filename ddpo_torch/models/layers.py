@@ -8,6 +8,17 @@ softmax are fp32 (ddpo_torch/ops).
 Module and parameter names follow diffusers' torch layout (to_q, to_out.0,
 ff.net.0.proj, norm1.weight, ...), so models/convert.py maps the JAX
 package's Flax trees, and diffusers checkpoints, onto them by name.
+
+``spatial`` (JAX's ``spatial_axis`` field; None, or an ops.spatial.Axis set
+on the built modules by ``UNet2DCondition.set_spatial``): the module runs
+on this rank's rows of a map whose H is sharded over the axis
+(parallel/spatial.py). Conv3x3 exchanges halo rows, GroupNorm all-reduces
+its moments, CrossAttention gathers K/V for self-attention only, and the
+stride-2 conv of Downsample2D takes the top halo row and pads (0, 1), and
+the transformer blocks' Linears run batch-invariantly at the sharded
+shapes (ops/invariance.py ``linear``); the blocks built from them
+(ResnetBlock2D, Transformer2D, Upsample2D, whose nearest 2x upsample is
+shard-local) follow. The parameters do not change.
 """
 
 from __future__ import annotations
@@ -19,9 +30,23 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ddpo_torch.ops import invariance
 from ddpo_torch.ops.attention import attention
 from ddpo_torch.ops.conv import conv3x3, library_conv
 from ddpo_torch.ops.groupnorm import group_norm
+from ddpo_torch.ops.spatial import halo_top_row
+
+
+class Linear(nn.Linear):
+    """nn.Linear of the transformer blocks; under ``spatial`` it goes
+    through ops/invariance.py ``linear``."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
+        self.spatial = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return invariance.linear(x, self.weight, self.bias, self.spatial is not None)
 
 
 class Conv3x3(nn.Conv2d):
@@ -35,9 +60,10 @@ class Conv3x3(nn.Conv2d):
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__(in_channels, out_channels, 3, padding=1)
         self.quant = False
+        self.spatial = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv3x3(x, self.weight, self.bias, quant=self.quant)
+        return conv3x3(x, self.weight, self.bias, quant=self.quant, spatial=self.spatial)
 
 
 def timestep_embedding(
@@ -90,11 +116,13 @@ class GroupNorm(nn.Module):
         self.num_groups = num_groups
         self.eps = eps
         self.silu = silu
+        self.spatial = None
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return group_norm(x, self.weight, self.bias, self.num_groups, self.eps, self.silu)
+        return group_norm(x, self.weight, self.bias, self.num_groups, self.eps, self.silu,
+                          spatial=self.spatial)
 
 
 class ResnetBlock2D(nn.Module):
@@ -139,26 +167,30 @@ class CrossAttention(nn.Module):
         context_dim = context_dim or query_dim
         self.heads = heads
         self.dim_head = dim_head
-        self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(context_dim, inner, bias=False)
-        self.to_v = nn.Linear(context_dim, inner, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(inner, inner)])
+        self.to_q = Linear(query_dim, inner, bias=False)
+        self.to_k = Linear(context_dim, inner, bias=False)
+        self.to_v = Linear(context_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([Linear(inner, inner)])
+        self.spatial = None
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        # under spatial sharding self-attention gathers K/V; the text
+        # context of cross-attention is whole on every rank
+        spatial = self.spatial if context is None else None
         context = x if context is None else context
         b, sq, _ = x.shape
         sk = context.shape[1]
         q = self.to_q(x).reshape(b, sq, self.heads, self.dim_head)
         k = self.to_k(context).reshape(b, sk, self.heads, self.dim_head)
         v = self.to_v(context).reshape(b, sk, self.heads, self.dim_head)
-        out = attention(q, k, v).reshape(b, sq, self.heads * self.dim_head)
+        out = attention(q, k, v, spatial=spatial).reshape(b, sq, self.heads * self.dim_head)
         return self.to_out[0](out)
 
 
 class GEGLU(nn.Module):
     def __init__(self, dim: int, inner: int):
         super().__init__()
-        self.proj = nn.Linear(dim, inner * 2)
+        self.proj = Linear(dim, inner * 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, gate = self.proj(x).chunk(2, dim=-1)
@@ -173,7 +205,7 @@ class GEGLUFeedForward(nn.Module):
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         inner = dim * mult
-        self.net = nn.ModuleList([GEGLU(dim, inner), nn.Identity(), nn.Linear(inner, dim)])
+        self.net = nn.ModuleList([GEGLU(dim, inner), nn.Identity(), Linear(inner, dim)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.net:
@@ -226,12 +258,21 @@ class Transformer2D(nn.Module):
 
 
 class StridedConv3x3(nn.Conv2d):
-    """3x3 stride-2 conv (padding 1 or 0) through ops/conv.py's library_conv."""
+    """3x3 stride-2 conv (padding 1 or 0) through ops/conv.py's library_conv.
+
+    Under ``spatial`` the shard takes only the previous shard's last row and
+    pads (0, 1): with even local H every stride-2 window that starts in a
+    shard ends in it, and global SAME padding at even H never reads the
+    bottom pad row."""
 
     def __init__(self, channels: int, padding: int = 1):
         super().__init__(channels, channels, 3, stride=2, padding=padding)
+        self.spatial = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.spatial is not None:
+            return library_conv(halo_top_row(x, self.spatial), self.weight, self.bias,
+                                stride=2, padding=(0, 1))
         return library_conv(x, self.weight, self.bias, stride=2, padding=self.padding[0])
 
 

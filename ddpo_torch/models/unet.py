@@ -184,6 +184,16 @@ class UNet2DCondition(nn.Module):
                 up.conv.quant = quant
         return self
 
+    def set_spatial(self, axis) -> "UNet2DCondition":
+        """JAX's ``unet.clone(spatial_axis=axis)`` on the built module: every
+        conv, GroupNorm, self-attention and stride-2 conv runs on this
+        rank's rows of an H sharded over ``axis`` (an ops.spatial.Axis;
+        None undoes it). The parameters do not change. Returns the module."""
+        for m in self.modules():
+            if hasattr(m, "spatial"):
+                m.spatial = axis
+        return self
+
     def forward(
         self,
         sample: torch.Tensor,  # (B, C, H, W)

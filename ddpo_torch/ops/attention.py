@@ -20,6 +20,19 @@ Kernels (each replaces a Pallas kernel of the JAX package):
 In bf16 both files run every product on the tensor cores; fp32 runs on the
 CUDA cores, where the fp32 bounds hold.
 
+``attention(..., spatial=axis)`` (JAX's ``spatial_axis``, self-attention
+of a UNet whose H is sharded over the axis): K/V are all-gathered over the
+axis (ops/spatial.py ``gather_kv``) and the dispatch runs on the local
+shapes, Sq local and Sk whole. At SD-1.4 with sp = 2 the local Sq is 2048,
+512, 128 and 32 against Sk 4096, 1024, 256 and 64, so the flash kernels
+take the two top levels (10 of the 16 self-attentions) and the 16x16 level
+the plain path.
+
+``set_attention_sharding(mesh, batch_axis, heads_axis, seq_axis)`` is JAX's
+context for the attention mode of sp: while set, a self-attention whose
+sequence splits over ``seq_axis`` runs parallel/sequence.py's
+``sequence_parallel_attention``. The heads axis is tp, not ported yet.
+
 Under autograd the gate goes through ``FlashAttention``, whose backward
 follows JAX's ``_use_pallas_bwd``: the backward kernels for bf16, autograd
 through ``attention_reference`` for fp32. Inside
@@ -35,6 +48,7 @@ from typing import Optional, Tuple
 import torch
 
 from ddpo_torch.ops import _build, invariance
+from ddpo_torch.ops.spatial import gather_kv
 
 
 def attention_reference(
@@ -233,10 +247,58 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+# the attention mode's context (set_attention_sharding), read at each call
+_SHARD_CTX: Optional[dict] = None
+
+
+def set_attention_sharding(mesh=None, batch_axis: Optional[str] = None,
+                           heads_axis: Optional[str] = None,
+                           seq_axis: Optional[str] = None) -> None:
+    """Shard self-attention over mesh axes (a None mesh disables).
+
+    ``mesh`` is a parallel.mesh.Mesh. ``seq_axis``: the query sequence
+    splits over it and each rank attends with its rows to the whole K/V
+    (parallel/sequence.py). ``batch_axis`` is accepted as JAX's is: each
+    rank already holds only its dp rows. A ``heads_axis`` over more than
+    one rank is tp, which is not ported yet.
+    """
+    global _SHARD_CTX
+    if mesh is None:
+        _SHARD_CTX = None
+        return
+    if heads_axis and mesh.shape.get(heads_axis, 1) > 1:
+        raise NotImplementedError("set_attention_sharding: the heads axis (tp) is not "
+                                  "ported yet")
+    _SHARD_CTX = {"mesh": mesh, "seq": seq_axis}
+
+
+def _sharded_self_attention(q, k, v, scale):
+    """The attention mode's self-attention, or None where the context has
+    nothing to shard (a size-1 axis, or a sequence that does not split)."""
+    mesh, seq = _SHARD_CTX["mesh"], _SHARD_CTX["seq"]
+    n = mesh.shape.get(seq, 1) if seq else 1
+    if n == 1 or q.shape[1] % n or k.shape[1] % n:
+        return None
+    from ddpo_torch.parallel.sequence import sequence_parallel_attention
+
+    return sequence_parallel_attention(mesh, q, k, v, scale, axis=seq)
+
+
 def attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None,
+    spatial=None,
 ) -> torch.Tensor:
-    """Dispatching entry point used by the models (JAX's gate minus on_tpu)."""
+    """Dispatching entry point used by the models (JAX's gate minus on_tpu).
+
+    ``spatial``: the axis the sequence is sharded over (module docstring).
+    """
+    if spatial is not None:
+        k, v = gather_kv(k, v, spatial)
+        return attention(q, k, v, scale)
+    if _SHARD_CTX is not None and q.shape[1] == k.shape[1]:
+        out = _sharded_self_attention(q, k, v, scale)
+        if out is not None:
+            return out
     use_flash = (
         q.is_cuda
         and q.shape[1] >= 256

@@ -32,16 +32,29 @@ batch, as ``Conv3x3Direct``'s).
 
 ``conv3x3(..., quant=True)`` runs the W8A8 int8 conv of ops/quant.py
 instead, whatever the switch and the mode.
+
+``conv3x3(..., spatial=axis)`` is JAX's ``spatial_axis``: x is this rank's
+rows of a map whose H is sharded over the axis (ops/spatial.py). The shard
+takes one halo row from each neighbour, then convolves VALID over H and
+SAME over W: the library conv with padding (0, 1), or the kernels' SAME
+map on the (H_local + 2)-row frame with the first and last output rows
+dropped. Each kept pixel reads the same nine taps in the same order, so
+that is the VALID conv bit for bit, at the cost of two rows a shard
+computed and dropped (6% at 32 local rows, 50% at 4). The backward is the
+library conv's gradient, with zero cotangent on the dropped rows.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from ddpo_torch.ops import _build, invariance
+from ddpo_torch.ops.spatial import halo_exchange_rows
+
+Padding = Union[int, Tuple[int, int]]
 
 # offsets of the 9 taps in csrc/conv3x3.cu: (dy - 1, dx - 1), (dy - 1, 0), (0, 0)
 TAP_MAPS = {"shift3x3": 0, "rows": 1, "none": 2}
@@ -138,7 +151,7 @@ def conv3x3_direct(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return tap_gemm(x.contiguous(), weight_kn(weight), "shift3x3", "conv3x3")
 
 
-def _library_grads(ctx, x, weight, g, stride: int, padding: int):
+def _library_grads(ctx, x, weight, g, stride: int, padding: Padding):
     """The library conv's input and weight gradients, where asked for."""
     gx = gw = None
     if ctx.needs_input_grad[0]:
@@ -165,9 +178,9 @@ class Conv3x3Direct(torch.autograd.Function):
 
 
 def library_conv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
-                 stride: int = 1, padding: int = 1) -> torch.Tensor:
-    """``F.conv2d``; inside ``batch_invariant()`` on the card its forward
-    makes one cuDNN call an image."""
+                 stride: int = 1, padding: Padding = 1) -> torch.Tensor:
+    """``F.conv2d`` (``padding`` an int or (H, W)); inside ``batch_invariant()``
+    on the card its forward makes one cuDNN call an image."""
     if x.is_cuda and invariance.enabled() and x.shape[0] > 1:
         return ConvPerImage.apply(x, weight, bias, stride, padding)
     return F.conv2d(x, weight, bias, stride=stride, padding=padding)
@@ -195,7 +208,7 @@ class ConvPerImage(torch.autograd.Function):
 
 def conv3x3(
     x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
-    quant: bool = False,
+    quant: bool = False, spatial=None,
 ) -> torch.Tensor:
     """x (N, Cin, H, W), weight (Cout, Cin, 3, 3) -> (N, Cout, H, W).
 
@@ -203,16 +216,25 @@ def conv3x3(
     it takes precedence over ``set_conv_kernel_enabled`` and
     ``batch_invariant()``, as in JAX (the s8 kernel has no float variant to
     switch to, and its integer sums are batch invariant already).
+
+    ``spatial``: an ops.spatial.Axis over which x's H is sharded (module
+    docstring).
     """
+    rows = 1  # padding over H: SAME, or VALID over a halo'd shard
+    if spatial is not None:
+        x = halo_exchange_rows(x, spatial)
+        rows = 0
     if quant:
         from ddpo_torch.ops.quant import conv3x3_w8a8
 
-        return conv3x3_w8a8(x, weight, bias)
+        return conv3x3_w8a8(x, weight, bias, padding=((rows, rows), (1, 1)))
     use_kernel = _CONV_OVERRIDE or (
         _CONV_OVERRIDE is None and x.is_cuda and invariance.enabled())
     if not use_kernel:
-        return library_conv(x, weight, bias)
+        return library_conv(x, weight, bias, padding=(rows, 1))
     out = Conv3x3Direct.apply(x, weight.to(x.dtype))
+    if not rows:  # the SAME map's first and last rows read the zero pad: drop them
+        out = out[:, :, 1:-1].contiguous()
     if bias is not None:
         out = out + bias.to(out.dtype)[:, None, None]
     return out

@@ -13,6 +13,13 @@ its forward is ``group_stats`` and its backward the analytic one of JAX's
 (no grad mode, or an x that needs no gradient) ``group_norm`` calls
 ``group_stats`` itself: the same numbers.
 
+``spatial`` (JAX's ``spatial_axis``): x is this rank's rows of a map
+whose H is sharded over an ops.spatial.Axis. The statistics are computed
+on the local rows as usual, all-reduced over the axis
+(``spatial.psum_moments``, one collective a call), and the denominator
+counts every shard's rows. ``group_norm_silu`` under spatial takes this
+path too, never the fused kernel, which computes its own statistics.
+
 ``group_norm_silu`` follows JAX's opt-in: by default it is
 ``group_norm(silu=True)``; with ``use_kernel=True`` a CUDA tensor runs the
 fused kernel (csrc/gn_silu.cu, replacing the Pallas ``_gn_silu_kernel``:
@@ -30,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ddpo_torch.ops import _build
+from ddpo_torch.ops.spatial import psum_moments
 
 
 def num_groups_for(channels: int, num_groups: int) -> int:
@@ -115,11 +123,12 @@ class GroupStats(torch.autograd.Function):
         return gx.to(x.dtype).reshape(x.shape), None
 
 
-def _normalize(x, sums, sq_sums, scale, bias, g, eps, silu):
+def _normalize(x, sums, sq_sums, scale, bias, g, eps, silu, shards: int = 1):
     """Normalize, affine and optional SiLU from the group sums, in fp32;
-    var = E[x^2] - E[x]^2 as in the JAX package; the output has x's dtype."""
+    var = E[x^2] - E[x]^2 as in the JAX package; the output has x's dtype.
+    ``shards``: the sums cover that many shards of x's size."""
     n, c = x.shape[:2]
-    denom = float(x.numel() // n // g)
+    denom = float(x.numel() // n // g) * shards
     mean = sums / denom
     var = sq_sums / denom - mean**2
     rstd = torch.rsqrt(var + eps)
@@ -139,17 +148,22 @@ def group_norm(
     num_groups: int = 32,
     eps: float = 1e-5,
     silu: bool = False,
+    spatial=None,
 ) -> torch.Tensor:
     """GroupNorm over an NCHW (or N, C, ...) tensor with fp32 statistics.
 
     var = E[x^2] - E[x]^2 as in the JAX package; the output has x's dtype.
+    ``spatial``: the axis x's H is sharded over (module docstring).
     """
     g = num_groups_for(x.shape[1], num_groups)
     if torch.is_grad_enabled() and x.requires_grad:
         sums, sq_sums = GroupStats.apply(x, g)
     else:  # the same numbers without autograd's bookkeeping (the sampler's path)
         sums, sq_sums = group_stats(x, g)
-    return _normalize(x, sums, sq_sums, scale, bias, g, eps, silu)
+    shards = 1
+    if spatial is not None:
+        sums, sq_sums, shards = psum_moments(sums, sq_sums, spatial)
+    return _normalize(x, sums, sq_sums, scale, bias, g, eps, silu, shards)
 
 
 def group_norm_silu_reference(x, scale, bias, num_groups: int = 32, eps: float = 1e-5):
@@ -202,8 +216,12 @@ def group_norm_silu(
     num_groups: int = 32,
     eps: float = 1e-5,
     use_kernel: Optional[bool] = None,
+    spatial=None,
 ) -> torch.Tensor:
     """Fused GroupNorm + SiLU, JAX's ``group_norm_silu``.
+
+    ``spatial``: ``group_norm(silu=True, spatial=...)``, whatever
+    ``use_kernel`` says (the statistics need the cross-shard sum).
 
     ``use_kernel`` None means False, as in JAX, where XLA's fusion matched
     the kernel. With ``use_kernel=True`` and channels that split into
@@ -212,8 +230,8 @@ def group_norm_silu(
     JAX's VMEM budget (map size, c % 128, s % 8) is the TPU's and is not
     carried over: the kernel takes every NCHW map.
     """
-    if not use_kernel or x.shape[1] % num_groups or x.device.type == "cpu":
-        return group_norm(x, scale, bias, num_groups, eps, silu=True)
+    if spatial is not None or not use_kernel or x.shape[1] % num_groups or x.device.type == "cpu":
+        return group_norm(x, scale, bias, num_groups, eps, silu=True, spatial=spatial)
     if x.device.type != "cuda":
         raise ValueError(f"no gn_silu kernel for device {x.device}")
     return gn_silu_kernel(x, scale, bias, num_groups, eps)

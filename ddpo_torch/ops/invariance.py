@@ -13,7 +13,14 @@ Inside ``batch_invariant()``, on CUDA tensors:
     ``set_conv_kernel_enabled(True)``, unless the kernel is forbidden;
   - the other library 3x3 convs (stride 2, or the kernel forbidden) run
     their forward one image a call;
-  - the plain attention runs in pieces of ``ATTENTION_PIECE`` samples.
+  - the plain attention runs in pieces of ``ATTENTION_PIECE`` samples;
+  - under spatial sharding (parallel/spatial.py) the transformer blocks'
+    Linears run in pieces of ``ATTENTION_PIECE`` samples too (``linear``):
+    the sharded shapes put cuBLAS at small M (2B x 32 tokens at the 8x8
+    level with sp = 2), where its kernel, and a row's bits, change with M:
+    one of the 8 Linears at 2B x 32 differs between 2B = 4 and 2B = 2 on
+    the H100 (chip_smoke.py 14b's module table). The unsharded
+    shapes agree (phase 6b), so there they stay one call.
 
 The DDPO driver (pipelines/policy_gradient.py) enters it around the
 sampler's and the trainer's UNet calls; serving does not need it.
@@ -25,6 +32,7 @@ import contextlib
 from typing import Callable, Sequence
 
 import torch
+import torch.nn.functional as F
 
 # samples per plain-attention call inside batch_invariant(): the trainer's
 # 2B at the default train batch of 2, so the update makes one call
@@ -60,3 +68,12 @@ def in_pieces(fn: Callable, tensors: Sequence[torch.Tensor], piece: int) -> torc
         tensors = [torch.cat([t, t.new_zeros((pad, *t.shape[1:]))]) for t in tensors]
     out = torch.cat([fn(*parts) for parts in zip(*(t.split(piece) for t in tensors))])
     return out[:n] if pad else out
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor, bias, sharded: bool) -> torch.Tensor:
+    """``F.linear``; for a ``sharded`` map's tokens (B, S, C) inside
+    ``batch_invariant()`` on the card, in pieces of ``ATTENTION_PIECE``
+    samples, so every call has one M whatever the batch."""
+    if sharded and _ENABLED and x.is_cuda and x.dim() >= 3:
+        return in_pieces(lambda part: F.linear(part, weight, bias), [x], ATTENTION_PIECE)
+    return F.linear(x, weight, bias)

@@ -23,6 +23,14 @@ computed once per weight and kept while the weight lives and is not
 written to (keyed on its ``data_ptr()`` and ``_version``): JAX's scan
 hoists the same quantize out of the sampler's loop.
 
+``padding`` is JAX's, for the spatial path (ops/spatial.py): with
+((0, 0), (1, 1)) the shard has fetched its halo rows and the conv is
+VALID over H. The activation scale is then taken over the halo'd shard,
+as JAX's is (activation scales become shard-local), and the product runs
+the kernel's SAME map on the halo'd frame with its first and last output
+rows dropped: the kept rows read only the frame, so the integer sums, and
+the outputs, are the VALID conv's.
+
 The op's backward raises (JAX's custom_vjp does the same): the int8
 round/clip has no gradient, and training always runs the float convs.
 Only the UNet's stride-1 resnet and upsampler convs take it
@@ -136,13 +144,26 @@ def tap_gemm_s8_reference(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
     return out.to(out_dtype)
 
 
-def _w8a8_forward(x, codes, scales, bias, plain=False):
+SAME = ((1, 1), (1, 1))
+VALID_ROWS = ((0, 0), (1, 1))
+
+
+def _w8a8_forward(x, codes, scales, bias, padding=SAME, plain=False):
     """Quantize x, then the s8 product and epilogue: the kernel on a CUDA
-    tensor, the plain version on a CPU one or when asked for."""
+    tensor, the plain version on a CPU one or when asked for; VALID_ROWS
+    drops the SAME map's first and last rows."""
     xq, sx = quantize_symmetric(x, (1, 2, 3))
     b = None if bias is None else bias.float()
     product = tap_gemm_s8_reference if plain or x.device.type == "cpu" else tap_gemm_s8
-    return product(xq, codes, sx.reshape(-1), scales, b, x.dtype)
+    out = product(xq, codes, sx.reshape(-1), scales, b, x.dtype)
+    return out[:, :, 1:-1].contiguous() if padding == VALID_ROWS else out
+
+
+def _check_padding(padding) -> tuple:
+    padding = tuple(tuple(p) for p in padding)
+    if padding not in (SAME, VALID_ROWS):
+        raise ValueError(f"conv3x3_w8a8 takes padding {SAME} or {VALID_ROWS}, got {padding}")
+    return padding
 
 
 class _Conv3x3W8A8(torch.autograd.Function):
@@ -150,8 +171,8 @@ class _Conv3x3W8A8(torch.autograd.Function):
     custom_vjp does."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, codes, scales):
-        return _w8a8_forward(x, codes, scales, bias)
+    def forward(ctx, x, weight, bias, codes, scales, padding):
+        return _w8a8_forward(x, codes, scales, bias, padding)
 
     @staticmethod
     def backward(ctx, g):
@@ -163,18 +184,18 @@ class _Conv3x3W8A8(torch.autograd.Function):
 
 
 def conv3x3_w8a8(x: torch.Tensor, weight: torch.Tensor,
-                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Stride-1 SAME 3x3 conv on int8 codes: x (N, Cin, H, W) in any float
-    dtype, weight OIHW (Cout, Cin, 3, 3) and bias (Cout,) in any float dtype
-    (the model's layers hold them in x's, as JAX promotes them); returns
-    x's dtype."""
+                 bias: Optional[torch.Tensor] = None, padding=SAME) -> torch.Tensor:
+    """Stride-1 3x3 conv on int8 codes, SAME or (``padding`` VALID_ROWS)
+    VALID over H: x (N, Cin, H, W) in any float dtype, weight OIHW
+    (Cout, Cin, 3, 3) and bias (Cout,) in any float dtype (the model's
+    layers hold them in x's, as JAX promotes them); returns x's dtype."""
     if weight.shape[1:] != (x.shape[1], 3, 3):
         raise ValueError(f"weight {tuple(weight.shape)} does not fit x {tuple(x.shape)}")
     codes, scales = weight_codes(weight)
-    return _Conv3x3W8A8.apply(x, weight, bias, codes, scales)
+    return _Conv3x3W8A8.apply(x, weight, bias, codes, scales, _check_padding(padding))
 
 
 def conv3x3_w8a8_reference(x: torch.Tensor, weight: torch.Tensor,
-                           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                           bias: Optional[torch.Tensor] = None, padding=SAME) -> torch.Tensor:
     """``conv3x3_w8a8`` with the plain version on any device."""
-    return _w8a8_forward(x, *weight_codes(weight), bias, plain=True)
+    return _w8a8_forward(x, *weight_codes(weight), bias, _check_padding(padding), plain=True)

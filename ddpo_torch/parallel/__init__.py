@@ -13,6 +13,9 @@ from ddpo_torch.parallel.collectives import (
     worker_sum,
 )
 from ddpo_torch.parallel.mesh import (
+    Mesh,
+    MeshConfig,
+    create_mesh,
     destroy_distributed,
     global_batch_size,
     gradient_group,
@@ -23,7 +26,7 @@ from ddpo_torch.parallel.mesh import (
 )
 
 __all__ = [
-    "GradientAllReduce", "all_gather_array", "all_gather_strings", "all_processes_equal",
+    "GradientAllReduce", "Mesh", "MeshConfig", "all_gather_array", "create_mesh", "all_gather_strings", "all_processes_equal",
     "destroy_distributed", "digest", "global_batch_size", "gradient_group",
     "local_batch_size", "local_rank", "local_shard", "maybe_initialize_distributed",
     "process_barrier", "process_count",

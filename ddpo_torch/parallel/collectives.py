@@ -55,13 +55,14 @@ def process_count() -> int:
     return dist.get_world_size() if _initialized() else 1
 
 
-def worker_sum(value):
-    """The sum over processes of a scalar (a float back) or of a numpy
-    array (an array back), reduced in float64 on the host."""
+def worker_sum(value, group=None):
+    """The sum over processes (of ``group``, default all) of a scalar (a
+    float back) or of a numpy array (an array back), reduced in float64 on
+    the host."""
     if process_count() == 1:
         return float(value) if np.ndim(value) == 0 else np.asarray(value)
     t = torch.as_tensor(np.asarray(value, dtype=np.float64)).reshape(-1).clone()
-    dist.all_reduce(t)
+    dist.all_reduce(t, group=group)
     out = t.numpy().reshape(np.shape(value))
     return float(out) if np.ndim(value) == 0 else out
 
@@ -93,25 +94,25 @@ def sharded_softmax(x: torch.Tensor, temperature: float = 1.0) -> torch.Tensor:
     return numer / _reduce_scalar(numer.sum(), dist.ReduceOp.SUM)
 
 
-def _gather_objects(obj) -> list:
-    out = [None] * process_count()
-    dist.all_gather_object(out, obj)
+def _gather_objects(obj, group=None) -> list:
+    out = [None] * dist.get_world_size(group)
+    dist.all_gather_object(out, obj, group=group)
     return out
 
 
-def all_gather_array(x: np.ndarray) -> np.ndarray:
-    """Every rank's rows of ``x``, concatenated in rank order (JAX's
-    ``process_allgather(x, tiled=True)``)."""
+def all_gather_array(x: np.ndarray, group=None) -> np.ndarray:
+    """Every rank's (of ``group``, default all) rows of ``x``, concatenated
+    in rank order (JAX's ``process_allgather(x, tiled=True)``)."""
     if process_count() == 1:
         return np.asarray(x)
-    return np.concatenate([np.asarray(p) for p in _gather_objects(np.asarray(x))])
+    return np.concatenate([np.asarray(p) for p in _gather_objects(np.asarray(x), group)])
 
 
-def all_gather_strings(strings) -> List[str]:
-    """Every rank's strings, concatenated in rank order."""
+def all_gather_strings(strings, group=None) -> List[str]:
+    """Every rank's (of ``group``, default all) strings, in rank order."""
     if process_count() == 1:
         return list(strings)
-    return [s for part in _gather_objects([str(s) for s in strings]) for s in part]
+    return [s for part in _gather_objects([str(s) for s in strings], group) for s in part]
 
 
 def _tensor_sums(t: torch.Tensor) -> torch.Tensor:
@@ -230,7 +231,10 @@ class GradientAllReduce:
     global-norm clip (training/policy_gradient.py ``AccumulatingTrainState``).
     The gradients are cast to ``reduce_dtype`` (None: their own dtype) into
     flat buckets of about ``bucket_bytes``, summed across ranks, divided by
-    the world size for "mean", and cast back into the gradient tensors:
+    ``divisor`` (default the world size) for "mean", and cast back into the
+    gradient tensors. Under spatial sharding each sp rank holds a partial
+    gradient, so the mean over dp is the sum over the world divided by dp:
+    ``divisor=dp``. The rest is
     JAX's ``grad_reduce_dtype`` (ddpo_tpu/training/policy_gradient.py
     local_grads) with fp32 the GSPMD global-batch mean. ``calls`` keeps
     (bytes moved per rank, seconds) of each call, the card synchronized
@@ -238,12 +242,13 @@ class GradientAllReduce:
     """
 
     def __init__(self, group, backend: str, reduce_dtype: Optional[torch.dtype] = None,
-                 bucket_bytes: int = BUCKET_BYTES):
+                 bucket_bytes: int = BUCKET_BYTES, divisor: Optional[int] = None):
         self.collective = _Collective(group, backend)
         self.backend = backend
         self.reduce_dtype = reduce_dtype
         self.bucket_bytes = bucket_bytes
         self.world = dist.get_world_size(group) if _initialized() else 1
+        self.divisor = divisor or self.world
         self.calls: List[tuple] = []
 
     @torch.no_grad()
@@ -259,7 +264,7 @@ class GradientAllReduce:
             if self.world > 1:  # one process: the cast to reduce_dtype and back alone
                 self.collective(flat, dist.all_reduce)
                 if op == "mean":
-                    flat.div_(self.world)
+                    flat.div_(self.divisor)
             offset = 0
             for k in names:
                 n = grads[k].numel()

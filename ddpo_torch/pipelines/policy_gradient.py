@@ -6,10 +6,10 @@ for the CPU. Under ``torchrun`` (or any launcher that sets RANK,
 WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT) it is data-parallel
 over processes, rank r on cuda:LOCAL_RANK:
 
-  - each rank samples its own batch (its own prompts, seed base_seed + r,
-    and its own sampler noise), the ranks gather rewards and prompts so
-    that every rank computes the same advantages, and each trains on its
-    own rows; the gradients are averaged over ranks once per optimizer
+  - each rank samples its own batch (its own prompts, seed base_seed + r
+    without sp, and its own sampler noise), the ranks gather rewards and
+    prompts so that every rank computes the same advantages, and each
+    trains on its own rows; the gradients are averaged over ranks once per optimizer
     step (parallel/collectives.py ``GradientAllReduce``, in
     ``--grad_reduce_dtype`` when given), over NCCL when every rank has a
     card of its own, else over gloo (parallel/mesh.py ``gradient_group``);
@@ -55,9 +55,25 @@ over processes, rank r on cuda:LOCAL_RANK:
     its own host pickle) and once more, blocking, at the end; ``--resume``
     on a fresh host fetches the checkpoints from the bucket first;
   - ``--profile_dir`` traces epoch start_epoch + 1 with torch.profiler, one
-    Chrome trace per rank.
+    Chrome trace per rank;
+  - ``--mesh_sp n`` lays the ranks out as JAX's (dp, sp) mesh
+    (parallel/mesh.py: rank r has dp_index r // n, sp_index r % n; WORLD_SIZE
+    must divide by n): the n ranks of an sp group share one dp slice, its
+    prompts, noise and seed (base_seed + dp_index), and split the UNet.
+    ``--sp_mode spatial`` (JAX's default) shards the latent's H over the
+    group (parallel/spatial.py: halo convs, all-reduced GroupNorm moments,
+    gathered K/V); each rank's gradients are its rows' part, so the reduce
+    sums over sp and averages over dp. When the geometry check rejects it,
+    the driver falls back to ``--sp_mode attention``, JAX's fallback: the
+    activations are whole on every sp rank and only the self-attention
+    splits its queries (parallel/sequence.py), so the gradients are whole
+    and the reduce is the mean over the world; the reward callbacks then
+    run on the main thread, since the attention context's collectives must
+    come in the same order on every rank. Rewards and prompts are gathered
+    once per dp group, and the infos are averaged over dp.
 
-Not ported yet, each raising: resident_inner_loop and mesh_tp/mesh_sp > 1.
+Not ported yet, each raising: resident_inner_loop and mesh_tp > 1 (with or
+without sp). ``--grad_reduce_dtype`` under sp is refused, as JAX asserts.
 
 Run: python -m ddpo_torch.pipelines.policy_gradient --dataset compressed-animals
 """
@@ -84,14 +100,17 @@ from ddpo_torch import training
 from ddpo_torch.models.lora import init_lora, merge_lora, n_lora_params, target_paths
 from ddpo_torch.models.tokenizer import make_uncond_ids
 from ddpo_torch.ops.invariance import batch_invariant
+from ddpo_torch.ops.attention import set_attention_sharding
+from ddpo_torch.ops.spatial import comm_counts, validate_spatial_geometry
 from ddpo_torch.parallel import (
     GradientAllReduce,
+    MeshConfig,
+    create_mesh,
     all_gather_array,
     all_gather_strings,
     all_processes_equal,
     destroy_distributed,
     digest,
-    global_batch_size,
     gradient_group,
     local_batch_size,
     local_shard,
@@ -101,6 +120,7 @@ from ddpo_torch.parallel import (
     process_index,
     worker_sum,
 )
+from ddpo_torch.parallel.spatial import levels_of, spatial_apply
 from ddpo_torch.sampling import SamplerConfig, sample_trajectories, vae_decode
 from ddpo_torch.training.optim import build_optimizer
 from ddpo_torch.training.policy_gradient import (
@@ -141,18 +161,49 @@ def _dtype(name: str) -> torch.dtype:
 REDUCE_DTYPES = {"none": None, "float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+SP_MODES = ("spatial", "attention")
+
+
 def _check_ported(args) -> None:
     not_ported = {
         "--resident_inner_loop": args.resident_inner_loop,
-        "--mesh_tp/--mesh_sp > 1": args.mesh_tp > 1 or args.mesh_sp > 1,
+        "--mesh_tp > 1 with --mesh_sp > 1": args.mesh_tp > 1 and args.mesh_sp > 1,
+        "--mesh_tp > 1": args.mesh_tp > 1,
     }
     for what, asked in not_ported.items():
         if asked:
             raise NotImplementedError(f"{what} is not ported yet")
 
 
+class _InlineExecutor:
+    """``submit`` runs the call at once, on this thread (the reward
+    callbacks of the attention mode)."""
+
+    def submit(self, fn, *args) -> futures.Future:
+        done = futures.Future()
+        done.set_result(fn(*args))
+        return done
+
+    def shutdown(self) -> None:
+        pass
+
+
+def gradient_reduce(mesh, spatial: bool, group, backend: str,
+                    reduce_dtype: Optional[torch.dtype] = None) -> Optional[GradientAllReduce]:
+    """The train state's gradient reduce: None in one process without a
+    reduce dtype (JAX's dp = 1 shard_map casts, so one process still casts
+    to it and back). In the spatial mode each sp rank's gradients are its
+    rows' part, so the reduce sums over the world and divides by dp (the
+    sum over sp, the mean over dp); otherwise the gradients are whole and
+    it is the mean over the world."""
+    if process_count() == 1 and reduce_dtype is None:
+        return None
+    return GradientAllReduce(group, backend, reduce_dtype, divisor=mesh.dp if spatial else None)
+
+
 def make_train_apply(unet: torch.nn.Module, compute_dtype: torch.dtype,
-                     remat: bool, base: Optional[Dict[str, torch.Tensor]] = None) -> Callable:
+                     remat: bool, base: Optional[Dict[str, torch.Tensor]] = None,
+                     spatial=None) -> Callable:
     """The trainer's UNet apply over a dict of master parameters.
 
     Each master is cast to ``compute_dtype`` at use, inside the call (as
@@ -164,7 +215,14 @@ def make_train_apply(unet: torch.nn.Module, compute_dtype: torch.dtype,
     With ``base`` (LoRA) the params are the adapters: ``merge_lora`` puts
     them onto the frozen base first, outside the checkpoint, so the
     backward recomputes the UNet but not the merge.
+
+    With ``spatial`` (an ops.spatial.Axis, which ``unet`` is set to) the
+    apply takes the full latents and runs the UNet on this rank's rows
+    (parallel/spatial.py ``spatial_apply``), the checkpoint around the
+    sharded UNet call.
     """
+    if spatial is not None:
+        unet.set_spatial(spatial)
 
     def run(params, latents, t, context):
         cast = {k: p.to(compute_dtype) for k, p in params.items()}
@@ -173,9 +231,15 @@ def make_train_apply(unet: torch.nn.Module, compute_dtype: torch.dtype,
     def apply(params: Dict[str, torch.Tensor], latents, t, context):
         if base is not None:
             params = merge_lora(base, params)
-        if remat:
-            return checkpoint(run, params, latents, t, context, use_reentrant=False)
-        return run(params, latents, t, context)
+
+        def call(x, t, context):
+            if remat:
+                return checkpoint(run, params, x, t, context, use_reentrant=False)
+            return run(params, x, t, context)
+
+        if spatial is not None:
+            return spatial_apply(call, spatial, levels_of(unet))(latents, t, context)
+        return call(latents, t, context)
 
     return apply
 
@@ -228,14 +292,20 @@ def _fetch_checkpoints(savepath: str, ckpt_root: str) -> None:
 
 def main(argv=None):
     maybe_initialize_distributed()
+    set_attention_sharding(None)  # a previous run's context must not leak into this one
     args = Parser().parse_args("pg", argv)
     device = resolve_device(args.device)
     _check_ported(args)
-    rank, world = process_index(), process_count()
+    if args.sp_mode not in SP_MODES:
+        raise ValueError(f"--sp_mode {args.sp_mode!r} is not one of {SP_MODES}")
     reduce_dtype = REDUCE_DTYPES[args.grad_reduce_dtype]
     if reduce_dtype is not None:
         assert args.fused_train_loop, "--grad_reduce_dtype requires the fused train loop"
+        assert args.mesh_sp == 1, "--grad_reduce_dtype supports pure-dp meshes"
+    mesh = create_mesh(MeshConfig(sp=args.mesh_sp, tp=args.mesh_tp), device)
+    rank, world = process_index(), process_count()
     group, backend = gradient_group(device)
+    sp_spatial = mesh.sp > 1 and args.sp_mode == "spatial"
 
     # per rank (one device a rank), as JAX's per-process local batch
     sample_bs = local_batch_size(args.sample_batch_size)
@@ -244,10 +314,12 @@ def main(argv=None):
     total_samples_per_epoch = args.num_sample_batches_per_epoch * sample_bs
     print(f"[ pg ] device: {device} | rank {rank} of {world} | gradient all-reduce: "
           f"{backend}, {args.grad_reduce_dtype}")
+    print(f"[ pg ] mesh: dp={mesh.dp} sp={mesh.sp} tp={mesh.tp} ({world} processes; "
+          f"dp_index {mesh.dp_index}, sp_index {mesh.sp_index})")
     print(
         f"[ pg ] sample batch: {sample_bs} | train batch: {train_bs} | "
         f"effective: {train_effective_bs} | samples/epoch: {total_samples_per_epoch} "
-        f"(per rank; global sample batch {global_batch_size(args.sample_batch_size)})"
+        f"(per dp slice; global sample batch {args.sample_batch_size * mesh.dp})"
     )
     assert args.sample_batch_size >= args.train_batch_size
     assert args.sample_batch_size % args.train_batch_size == 0
@@ -277,6 +349,17 @@ def main(argv=None):
     models.vae.to(sample_dtype)
     unet = models.unet
     print(f"[ pg ] unet params: {sum(p.numel() for p in unet.parameters()) / 1e6:.1f}M")
+    if sp_spatial:
+        # the spatial mode needs H divisible at every UNet level; fall back
+        # to the attention mode (any geometry), as JAX does
+        try:
+            validate_spatial_geometry(args.resolution // 8, "sp", mesh.sp,
+                                      levels=levels_of(unet))
+        except ValueError as e:
+            print(f"[ pg ] sp_mode=spatial rejected ({e}); "
+                  "falling back to sp_mode=attention")
+            sp_spatial = False
+    sp_axis = mesh.axis("sp") if sp_spatial else None
     lora_base = None
     if args.lora_rank > 0:
         # frozen weights take no optimizer update, so they need no fp32
@@ -300,6 +383,16 @@ def main(argv=None):
     # the sampler's UNet at the sampling dtype, refreshed from the trained
     # values once per epoch
     sample_unet = sampler_unet(unet, sample_dtype, own)
+    sample_apply = sample_unet
+    if sp_spatial:
+        sample_unet.set_spatial(sp_axis)
+        sample_apply = spatial_apply(sample_unet, sp_axis, levels_of(unet))
+        print(f"[ pg ] sp={mesh.sp} spatial: the UNet runs on this rank's latent rows "
+              "(halo convs + all-reduced GroupNorm moments + gathered K/V)")
+    elif mesh.sp > 1:
+        set_attention_sharding(mesh, batch_axis="dp", seq_axis="sp")
+        print(f"[ pg ] sp={mesh.sp} attention: self-attention splits its queries over sp; "
+              "the rest computes whole on every sp rank")
 
     scheduler = models.scheduler
     sched_state = scheduler.set_timesteps(
@@ -313,10 +406,9 @@ def main(argv=None):
     fused = args.fused_train_loop
     # over ranks, or in one process a cast to --grad_reduce_dtype and back
     # (JAX's dp = 1 shard_map)
-    grad_reduce = (GradientAllReduce(group, backend, reduce_dtype)
-                   if world > 1 or reduce_dtype is not None else None)
+    grad_reduce = gradient_reduce(mesh, sp_spatial, group, backend, reduce_dtype)
     state = AccumulatingTrainState(
-        apply_fn=make_train_apply(unet, train_dtype, args.remat, lora_base),
+        apply_fn=make_train_apply(unet, train_dtype, args.remat, lora_base, sp_axis),
         params=params,
         tx=build_optimizer(args),
         # the fp32 accumulation buffer (3.4 GB at SD-1.4 scale) exists only
@@ -378,7 +470,8 @@ def main(argv=None):
             vae=models.vae, cache=args.cache
         )
     }
-    executor = futures.ThreadPoolExecutor(max_workers=2)
+    executor = (_InlineExecutor() if mesh.sp > 1 and not sp_spatial
+                else futures.ThreadPoolExecutor(max_workers=2))
 
     per_prompt_stats = None
     if args.per_prompt_stats_bufsize is not None:
@@ -386,10 +479,11 @@ def main(argv=None):
             args.per_prompt_stats_bufsize, args.per_prompt_stats_min_count
         )
 
-    # the sampler's noise, from this rank's seed (base_seed + rank): each
-    # rank draws its own, as JAX's global-mesh key gives each dp slice its
-    # own; host-side RNGs (prompts, shuffles) are python's and numpy's,
-    # seeded by the parser from the same seed
+    # the sampler's noise, from this rank's seed (base_seed + dp_index): each
+    # dp slice draws its own, as JAX's global-mesh key gives each dp slice
+    # its own, and the sp ranks of a slice the same; host-side RNGs
+    # (prompts, shuffles) are python's and numpy's, seeded by the parser
+    # from the same seed
     sample_gen = torch.Generator(device=device).manual_seed(args.seed)
 
     mean_rewards, std_rewards = [], []
@@ -452,7 +546,7 @@ def main(argv=None):
             timer()
             with batch_invariant():
                 traj = sample_trajectories(
-                    sample_unet, scheduler, sched_state, prompt_embeds, sample_uncond,
+                    sample_apply, scheduler, sched_state, prompt_embeds, sample_uncond,
                     sampler_config, generator=sample_gen,
                 )
             images = vae_decode(models.vae, traj["final_latents"]).cpu().numpy()
@@ -491,10 +585,12 @@ def main(argv=None):
         samples["rewards"] = np.asarray(samples["rewards"], dtype=np.float64).reshape(
             len(samples["prompts"]), -1
         )[:, 0]
-        # every rank's rewards and prompts, so that all compute the same
-        # advantages; each then takes its own rows
-        rewards = all_gather_array(samples["rewards"])
-        all_prompts = np.array(all_gather_strings(samples["prompts"].tolist()))
+        # every dp slice's rewards and prompts (once, over this rank's dp
+        # group), so that all compute the same advantages; each then takes
+        # its dp slice's rows
+        rewards = all_gather_array(samples["rewards"], group=mesh.dp_group)
+        all_prompts = np.array(all_gather_strings(samples["prompts"].tolist(),
+                                                  group=mesh.dp_group))
 
         if per_prompt_stats is not None:
             advantages = per_prompt_stats.update(all_prompts, rewards)
@@ -506,8 +602,8 @@ def main(argv=None):
         else:
             advantages = (rewards - rewards.mean()) / (rewards.std() + 1e-8)
 
-        samples["advantages"] = torch.as_tensor(local_shard(advantages), dtype=torch.float32,
-                                                device=device)
+        samples["advantages"] = torch.as_tensor(local_shard(advantages, mesh),
+                                                dtype=torch.float32, device=device)
         mean_rewards.append(float(rewards.mean()))
         std_rewards.append(float(rewards.std()))
         print(f"[ pg ] epoch {epoch} mean reward: {rewards.mean():.4f}")
@@ -584,8 +680,10 @@ def main(argv=None):
                                                   **step_kwargs)
                             infos.append({k: float(v) for k, v in info.items()})
             train_time = timer()
-            # the global batch's infos: the mean of the ranks' (equal rows)
-            infos = {k: worker_sum(np.stack([i[k] for i in infos])) / world for k in infos[0]}
+            # the global batch's infos: the mean of the dp slices' (equal
+            # rows; the sp ranks of a slice hold the same infos)
+            infos = {k: worker_sum(np.stack([i[k] for i in infos]), group=mesh.dp_group) / mesh.dp
+                     for k in infos[0]}
             all_processes_equal(infos, "train infos")
             n_updates = n_batches * num_train_ts
             print(
@@ -661,6 +759,10 @@ def main(argv=None):
 
     if prev_sigterm is not None:
         signal.signal(signal.SIGTERM, prev_sigterm)
+    set_attention_sharding(None)
+    if mesh.sp > 1:
+        print(f"[ pg ] rank {rank}: sp collectives (calls, bytes, seconds) "
+              f"{json.dumps(comm_counts(), sort_keys=True)}")
     if lora_base is not None:
         # the merged UNet in the reference format, for generate --iteration
         # (the adapters alone stay in the full-state checkpoints)

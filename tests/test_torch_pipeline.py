@@ -150,12 +150,21 @@ def test_sigterm_checkpoints_and_exits(workdir, monkeypatch):
 
 def test_unported_options_raise(workdir, monkeypatch):
     """What is still not ported refuses by name: the resident inner loop,
-    the tp/sp meshes, and generate under more than one process."""
+    the tp mesh (alone and with sp), and generate under more than one
+    process. sp runs, but one process cannot hold a mesh of two (JAX's
+    mesh ValueError), and --grad_reduce_dtype under sp is refused, as JAX
+    asserts."""
     from ddpo_torch.pipelines import generate, policy_gradient
 
-    for flags in (["--resident_inner_loop", "True"], ["--mesh_sp", "2"]):
+    for flags in (["--resident_inner_loop", "True"], ["--mesh_tp", "2"],
+                  ["--mesh_tp", "2", "--mesh_sp", "2"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             policy_gradient.main(COMMON + ["--num_train_epochs", "1"] + flags)
+    with pytest.raises(ValueError, match=r"mesh 0x2x1 != 1 devices"):
+        policy_gradient.main(COMMON + ["--num_train_epochs", "1", "--mesh_sp", "2"])
+    with pytest.raises(AssertionError, match="supports pure-dp meshes"):
+        policy_gradient.main(COMMON + ["--num_train_epochs", "1", "--mesh_sp", "2",
+                                       "--grad_reduce_dtype", "bfloat16"])
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="WORLD_SIZE > 1"):
         generate.main(["--dataset", "debug-animals", "--device", "cpu"])
