@@ -6,11 +6,12 @@ Phases, in order; any failure exits non-zero:
      port's device setup (utils/serialization.py resolve_device) must have
      turned TF32 off.
   2. build: nvcc builds ddpo_torch/csrc/*.cu for sm_90a; cuobjdump -sass on
-     the library says which kernel functions hold tensor-core (HMMA, and
-     for int8 IMMA) instructions: every instantiation of the bf16 flash
-     forward, the bf16 flash backward (dq and dk/dv), the tap-GEMM and the
-     s8 tap-GEMM must; ptxas's registers and spills of each of those
-     instantiations.
+     the library counts each kernel function's tensor-core instructions
+     (HMMA and IMMA: mma.sync; HGMMA and IGMMA: wgmma): every instantiation
+     of the bf16 flash forward and backward (dq and dk/dv) must hold HMMA,
+     of the bf16 tap-GEMM HGMMA and of the s8 tap-GEMM IGMMA; ptxas's
+     registers and spills of each of those instantiations, and the places
+     where it serialized a wgmma.
   3. kernels: each forward kernel against its plain PyTorch version at the
      main path's shapes, with the bound stated, plus kernel and plain times;
      the bf16 flash forward and gn_stats on image 0 of each 8-image case
@@ -45,6 +46,11 @@ Phases, in order; any failure exits non-zero:
      driver's setting, where none may differ; the first minibatch's
      recompute at 2B = 4 against the 2B = 16 rollout must give |dlogp| <=
      1e-5 and clipfrac 0; the times of both settings.
+  6c. what batch_invariant() costs the sampler: rollout + decode of the
+     DDPO sample batch (8 samples, 2B = 16, 50 steps) with the mode off and
+     on in turns (off, on, on, off) in one process, and one UNet forward at
+     2B = 16 each way under torch.profiler, device time by kernel family
+     (the tap-GEMM apart from cuDNN's convs).
   3c. gn_silu: the fused GroupNorm+SiLU kernel, through
      group_norm_silu(use_kernel=True), at every GN+SiLU input shape of the
      UNet (2B = 8) and the VAE decoder (batch 4), bf16 and some fp32, and a
@@ -56,7 +62,9 @@ Phases, in order; any failure exits non-zero:
   3d. conv3x3: the tap-GEMM kernel at every Conv3x3 input shape of the UNet
      (2B = 8) and the VAE decoder (batch 4), bf16, fp32 cases and an odd
      map; against the fp32 9-tap plain version; times beside F.conv2d; in
-     bf16, image 0 alone against its slice of the batched call, bit for bit.
+     bf16, image 0 alone against its slice of the batched call, bit for bit;
+     the weight layout kernel against its plain version. With --parent DIR,
+     each bf16 shape and 12a's s8 shapes beside DIR's kernels (in turns).
   3e. the conv probes p1, p2, p6, p7: ddpo_torch.bench.conv_probe.main at
      JAX's shape (B16, 64x64, 320 -> 320, bf16), then each probe against
      its plain version; library times: the p0 einsum for p1, F.conv2d with
@@ -128,13 +136,16 @@ Phases, in order; any failure exits non-zero:
      on (c)'s images, ms a batch on the card, each within 1e-4 of the same
      function with device="cpu" (max|d| over the batch's largest |score|).
   12. the serving extras at SD-1.4 width: (a) the s8 tap-GEMM
-     (csrc/conv3x3_s8.cu) against its plain version on the same int8 codes
-     at four of the quantized UNet's conv shapes (2B = 8), bf16 and fp32
-     out with a bias, and a ragged case: max |d| must be 0, two calls and
-     image 0 alone give the same bits; kernel, plain, cuDNN's bf16 conv and
-     im2col + torch._int_mm (a yardstick, checked against the exact sums)
-     times, the quantize pass over x and the bound (operations over the
-     1979 TOPS int8 peak against bytes); (b) generate at 512 px, batch 4,
+     (csrc/conv3x3_s8.cu), which quantizes x as it stages it, against its
+     plain version (the codes in torch, then their exact sums) on the same
+     x and scale at four of the quantized UNet's conv shapes (2B = 8), bf16
+     and fp32 out with a bias, and a ragged case in bf16 and fp32 x: max |d|
+     must be 0, two calls and image 0 alone give the same bits; kernel,
+     plain, cuDNN's bf16 conv and im2col + torch._int_mm (a yardstick,
+     checked against the exact sums) times, the scale's reduction and
+     reduction + kernel, the plain quantize pass it replaces, and the bound
+     (operations over the 1979 TOPS int8 peak against bytes); (b) generate
+     at 512 px, batch 4,
      seed 0: DDIM-50 and DPM++-20, each bf16 and --quant int8 in turns
      (bf16, int8, int8, bf16), images/s and the launches (47 conv3x3_s8 a
      UNet forward), then the final latents' relative L2 distances of int8
@@ -193,7 +204,9 @@ The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}. With no CUDA device, or run
 outside the repository, it fails before printing any result.
 
-Run from the repository root: python3 chip_smoke.py
+Run from the repository root: python3 chip_smoke.py. With --parent DIR (an
+earlier checkout, e.g. the parent commit unpacked with git archive), 3d and
+12a also time that checkout's tap-GEMMs in turns with this one's.
 """
 
 from __future__ import annotations
@@ -320,9 +333,14 @@ def phase_device():
     return smi
 
 
-# kernel functions that must run their products on the tensor cores
-TENSOR_CORE_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
-                       "flash_bwd_dkv_mma_kernel", "tap_gemm_mma_kernel", "tap_gemm_s8_kernel")
+# kernel functions that must run their products on the tensor cores, with
+# the SASS instruction each of their instantiations must hold: mma.sync
+# (HMMA) for the flash kernels, wgmma for the tap-GEMMs (HGMMA bf16, IGMMA
+# s8), so that a build which quietly lost wgmma fails
+TENSOR_CORE_KERNELS = {"flash_fwd_mma_kernel": "HMMA", "flash_bwd_dq_mma_kernel": "HMMA",
+                       "flash_bwd_dkv_mma_kernel": "HMMA", "tap_gemm_wgmma_kernel": "HGMMA",
+                       "tap_gemm_s8_wgmma_kernel": "IGMMA"}
+TENSOR_CORE_OPS = ("HMMA", "IMMA", "HGMMA", "IGMMA")
 
 
 def kernel_name(mangled: str) -> str:
@@ -346,7 +364,7 @@ def ptxas_instantiations(build_log: str, names):
         if m:
             name, entry = kernel_name(m.group(1)), None
             if name in names:
-                args = re.search(re.escape(name) + r"I((?:Li\d+E)+)E", m.group(1))
+                args = re.search(re.escape(name) + r"I((?:L[ib]\d+E)+)E", m.group(1))
                 entry = [tuple(int(x) for x in re.findall(r"\d+", args.group(1))) if args else (),
                          0, 0, 0]
                 table.setdefault(name, []).append(entry)
@@ -357,9 +375,10 @@ def ptxas_instantiations(build_log: str, names):
     return {name: sorted(tuple(e) for e in rows) for name, rows in table.items()}
 
 
-def sass_hmma(path: str):
-    """{kernel function: [HMMA or IMMA count of each instantiation]} from
-    cuobjdump -sass of the built library; fails if cuobjdump is missing."""
+def sass_tensor_ops(path: str):
+    """{kernel function: [{HMMA, IMMA, HGMMA, IGMMA: count} of each
+    instantiation]} from cuobjdump -sass of the built library; fails if
+    cuobjdump is missing."""
     import re
 
     from ddpo_torch.ops import _build
@@ -371,12 +390,15 @@ def sass_hmma(path: str):
         fail("cuobjdump not found beside nvcc or on PATH: cannot read the SASS")
     sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True, check=True).stdout
     counts, name = {}, None
+    pattern = re.compile(r"\b(" + "|".join(TENSOR_CORE_OPS) + r")\b")
     for line in sass.splitlines():
         if "Function :" in line:
             name = kernel_name(line.split("Function :")[1].strip())
-            counts.setdefault(name, []).append(0)
-        elif name is not None and re.search(r"\b[HI]MMA\b", line):
-            counts[name][-1] += 1
+            counts.setdefault(name, []).append(dict.fromkeys(TENSOR_CORE_OPS, 0))
+        elif name is not None:
+            m = pattern.search(line)
+            if m:
+                counts[name][-1][m.group(1)] += 1
     return counts
 
 
@@ -393,14 +415,19 @@ def phase_build():
                      and "0 bytes spill stores, 0 bytes spill loads" not in l})
     log(f"ptxas: {len(regs)} kernels, {min(regs, default=0)}..{max(regs, default=0)} "
         f"registers per thread; spills: {spills or 'none'} (full log: {kl.path}.log)")
-    hmma = sass_hmma(kl.path)
-    for name, per in sorted(hmma.items()):
-        log(f"sass: {name}: {len(per)} instantiations, {sum(n > 0 for n in per)} with HMMA "
-            f"or IMMA ({min(per)}..{max(per)} such instructions each)")
-    for name in TENSOR_CORE_KERNELS:
-        if name not in hmma or not all(hmma[name]):
-            fail(f"{name}: every instantiation must hold tensor-core instructions, got "
-                 f"{hmma.get(name)}")
+    tensor_ops = sass_tensor_ops(kl.path)
+    for name, per in sorted(tensor_ops.items()):
+        held = {op: [c[op] for c in per] for op in TENSOR_CORE_OPS if any(c[op] for c in per)}
+        if held:
+            log(f"sass: {name}: {len(per)} instantiations; tensor-core instructions each: "
+                + ", ".join(f"{op} {min(n)}..{max(n)}" for op, n in held.items()))
+    for name, op in TENSOR_CORE_KERNELS.items():
+        per = tensor_ops.get(name)
+        if not per or not all(c[op] for c in per):
+            fail(f"{name}: every instantiation must hold {op} instructions, got {per}")
+    serialized = [l.strip() for l in kl.log.splitlines() if "serialized" in l]
+    log(f"ptxas: wgmma serialized in {len(serialized)} places" +
+        (f": {serialized[:3]}" if serialized else ""))
     for name, rows in sorted(ptxas_instantiations(kl.log, TENSOR_CORE_KERNELS).items()):
         log(f"ptxas {name} <template args>: registers, spill store/load bytes: " + "; ".join(
             f"<{','.join(map(str, args))}> {regs}, {st}/{ld}" for args, regs, st, ld in rows))
@@ -793,7 +820,8 @@ def check_conv3x3(results, model_shapes):
     import torch
     import torch.nn.functional as F
 
-    from ddpo_torch.ops.conv import conv3x3_direct, conv3x3_reference, weight_kn
+    from ddpo_torch.ops.conv import (_lay_out, conv3x3_direct, conv3x3_reference, padded,
+                                     tap_weight_reference)
 
     gen = torch.Generator(device="cuda").manual_seed(9)
     odd = (2, 96, 13, 17, 40)
@@ -837,19 +865,68 @@ def check_conv3x3(results, model_shapes):
             f"{p_ms:.3f} ms, F.conv2d {lib_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
         del x, weight, out
         torch.cuda.empty_cache()
-    # conv3x3_direct lays the OIHW weight out as (9 Cin, Cout) on each call:
-    # the transpose kernel against torch's strided copy, at the widest weight
+    # the weight's layout (padded (Cout, 9, Cin)), made once per weight
+    # version: the layout kernel against its plain version and torch's copy
+    # of the same permute and pad, at the widest weight
     n, cin, h, w, cout = max(model_shapes, key=lambda t: t[1] * t[4])
     weight = torch.randn((cout, cin, 3, 3), generator=gen, device="cuda").to(torch.bfloat16)
-    if not torch.equal(weight_kn(weight), weight.permute(2, 3, 1, 0).reshape(-1, cout)):
-        fail("weight_kn differs from the permute")
-    k_ms, p_ms = timed_pair(lambda: weight_kn(weight),
-                            lambda: weight.permute(2, 3, 1, 0).contiguous(), 10)
-    log(f"conv weight layout ({cout}, {cin}, 3, 3) -> ({9 * cin}, {cout}) bf16: transpose kernel "
-        f"{k_ms:.4f} ms ({4 * weight.numel() / k_ms / 1e6:.0f} GB/s), permute + contiguous "
-        f"{p_ms:.4f} ms; equal")
+    strides = (9 * cin, 1, 9)
+    if not torch.equal(_lay_out(weight, cout, cin, strides), tap_weight_reference(weight)):
+        fail("the conv weight layout kernel differs from its plain version")
+    k_ms, p_ms = timed_pair(lambda: _lay_out(weight, cout, cin, strides),
+                            lambda: tap_weight_reference(weight), 10)
+    log(f"conv weight layout ({cout}, {cin}, 3, 3) -> ({padded(cout)}, 9 * {padded(cin)}) bf16, "
+        f"once per weight version: layout kernel {k_ms:.4f} ms "
+        f"({4 * weight.numel() / k_ms / 1e6:.0f} GB/s), permute + pad {p_ms:.4f} ms; equal")
     del weight
     torch.cuda.empty_cache()
+
+
+def compare_parent(parent, conv_shapes, smi):
+    """3d and 12a beside an earlier checkout's kernels (``--parent DIR``, e.g.
+    the parent commit unpacked with git archive): ddpo_torch/bench/tap_gemm.py
+    times the bf16 conv at every model shape, the fp32 one at the UNet's
+    64x64 level and the s8 conv at S8_SHAPES,
+    once against DIR's ddpo_torch and once against this one's, in turns
+    (parent, this, this, parent), each a process of its own."""
+    bench = os.path.join(REPO, "ddpo_torch", "bench", "tap_gemm.py")
+    shapes_file = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_parent_"), "shapes.json")
+    with open(shapes_file, "w") as f:
+        json.dump({"bf16": [list(s) for s in conv_shapes], "fp32": [list(conv_shapes[1])],
+                   "s8": [list(s) for s in S8_SHAPES]}, f)
+    runs = {"parent": [], "this": []}
+    for who in ("parent", "this", "this", "parent"):
+        root = os.path.abspath(parent) if who == "parent" else REPO
+        proc = subprocess.run([sys.executable, bench, shapes_file], cwd=root, capture_output=True,
+                              text=True, timeout=900,
+                              env=dict(os.environ, PYTHONPATH=root))
+        if proc.returncode != 0:
+            fail(f"tap_gemm bench on the {who} checkout failed:\n{proc.stderr[-3000:]}")
+        runs[who].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+
+    def mean(who, kind, shape, key):
+        return sum(r[kind][shape][key] for r in runs[who]) / 2
+
+    for shape in runs["this"][0]["bf16"]:
+        new, old = mean("this", "bf16", shape, "ms"), mean("parent", "bf16", shape, "ms")
+        lib = mean("this", "bf16", shape, "cudnn_ms")
+        log(f"3d against the parent, conv3x3 bf16 {shape}: kernel {new:.4f} ms (parent "
+            f"{old:.4f}, {old / new:.2f}x), F.conv2d {lib:.4f} ms ({smi})")
+    for shape in runs["this"][0]["fp32"]:
+        new, old = mean("this", "fp32", shape, "ms"), mean("parent", "fp32", shape, "ms")
+        log(f"3d against the parent, conv3x3 fp32 (FMA) {shape}: kernel {new:.4f} ms (parent "
+            f"{old:.4f}, {old / new:.2f}x), F.conv2d {mean('this', 'fp32', shape, 'cudnn_ms'):.4f} "
+            f"ms ({smi})")
+    for shape in runs["this"][0]["s8"]:
+        new, old = (mean(w, "s8", shape, "with_quantize_ms") for w in ("this", "parent"))
+        k_new, k_old = (mean(w, "s8", shape, "ms") for w in ("this", "parent"))
+        q_new, q_old = (mean(w, "s8", shape, "quantize_ms") for w in ("this", "parent"))
+        lib = mean("this", "s8", shape, "cudnn_ms")
+        log(f"12a against the parent, conv3x3_s8 {shape}: the scale's reduction + the kernel "
+            f"with the quantize fused {new:.4f} ms (reduction {q_new:.4f}, kernel {k_new:.4f}) "
+            f"against the parent's quantize pass + kernel {old:.4f} ms (pass {q_old:.4f}, kernel "
+            f"{k_old:.4f}), {old / new:.2f}x; cuDNN bf16 {lib:.4f} ms ({smi})")
+    return runs
 
 
 def phase_probes(results):
@@ -918,13 +995,14 @@ def phase_probes(results):
 
 
 # kernel families of the device-time breakdown: the first family whose
-# words a kernel's lower-cased name holds (convs before GEMMs: cuDNN's
-# implicit-GEMM convs and the tap-GEMM name both)
+# words a kernel's lower-cased name holds (the tap-GEMM before the convs,
+# convs before GEMMs: cuDNN's implicit-GEMM convs name both)
 KERNEL_FAMILIES = (
     ("flash backward", ("flash_bwd",)),
     ("flash forward", ("flash_fwd",)),
     ("GroupNorm kernels", ("gn_stats", "gn_silu")),
-    ("convs", ("conv", "fprop", "dgrad", "wgrad", "tap_gemm", "nchwtonhwc", "nhwctonchw")),
+    ("tap-GEMM", ("tap_gemm", "tap_weight")),
+    ("convs", ("conv", "fprop", "dgrad", "wgrad", "nchwtonhwc", "nhwctonchw")),
     ("GEMMs", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk")),
     ("softmax and layer norm", ("softmax", "layer_norm", "layernorm")),
     ("elementwise and copies", ("elementwise", "copy", "memcpy", "memset", "reduce", "fill",
@@ -1173,6 +1251,67 @@ def phase_batch_invariance(models, conv_kernel=False):
     if not (port["max_dlogp"] <= 1e-5 and port["clipfrac"] == 0.0):
         fail(f"{tag}: the first minibatch's recompute is off-policy at the trainer's shapes")
     return results
+
+
+def phase_invariance_cost(models, smi):
+    """6c: what batch_invariant() costs the DDPO sampler: rollout + decode of
+    its batch (8 samples, 2B = 16 UNet calls, 50 CFG steps at 5.0, eta 1,
+    the decode outside the mode as in the driver) with the mode off and on,
+    in turns (off, on, on, off), one seed, in one process; then one UNet
+    forward at 2B = 16 each way under torch.profiler, by kernel family."""
+    import torch
+
+    from ddpo_torch.models.tokenizer import make_uncond_ids
+    from ddpo_torch.ops.invariance import batch_invariant
+    from ddpo_torch.sampling import SamplerConfig, sample_trajectories, vae_decode
+    from ddpo_torch.training import make_prompts
+
+    batch, steps = 8, 50
+    prompts, _, _ = make_prompts("imagenet_animals", batch)
+    with torch.no_grad():
+        embeds = models.text_encoder(torch.as_tensor(models.tokenizer(prompts), device="cuda"))
+        uncond = models.text_encoder(
+            torch.as_tensor(make_uncond_ids(models.tokenizer, batch), device="cuda"))
+    config = SamplerConfig(num_inference_steps=steps, guidance_scale=5.0, eta=1.0)
+    state = models.scheduler.create_state("cuda")
+
+    def rollout(on):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        with torch.no_grad():
+            with batch_invariant(on):
+                traj = sample_trajectories(models.unet, models.scheduler, state, embeds, uncond,
+                                           config,
+                                           generator=torch.Generator(device="cuda").manual_seed(0))
+            images = vae_decode(models.vae, traj["final_latents"])
+        torch.cuda.synchronize()
+        if not torch.isfinite(images).all():
+            fail("6c: the rollout's images are not finite")
+        return time.perf_counter() - start, traj["final_latents"]
+
+    walls, finals = {False: [], True: []}, {}
+    for on in (False, True, True, False):
+        wall, final = rollout(on)
+        walls[on].append(wall)
+        finals.setdefault(on, final)
+    off, on = (sum(walls[k]) / 2 for k in (False, True))
+    rel = ((finals[True].float() - finals[False].float()).norm()
+           / finals[False].float().norm()).item()
+    log(f"6c rollout + decode of 8 samples (2B = 16, 50 steps) in turns: batch_invariant() off "
+        f"{walls[False][0]:.3f} / {walls[False][1]:.3f} s, on {walls[True][0]:.3f} / "
+        f"{walls[True][1]:.3f} s; on against off {100 * (on / off - 1):+.1f}% (ROADMAP's bound "
+        f"+10%); final latents' relative L2 on against off {rel:.2e} ({smi})")
+    latents = torch.randn((2 * batch, 4, 64, 64), generator=torch.Generator(device="cuda")
+                          .manual_seed(3), device="cuda").to(torch.bfloat16)
+    t = torch.full((2 * batch,), 500, device="cuda")
+    context = torch.cat([uncond, embeds])
+    for mode in (False, True):
+        with torch.no_grad(), batch_invariant(mode):
+            models.unet(latents, t, context)  # warm
+            _, breakdown = device_breakdown(lambda: models.unet(latents, t, context))
+        log(f"6c one UNet forward at 2B = 16, batch_invariant() {'on' if mode else 'off'}: "
+            f"{breakdown}")
+    return off, on
 
 
 def phase_train(init_params, unet_gn, vae_gn, unet_conv):
@@ -2225,68 +2364,83 @@ def int_mm_conv(xq, wq):
 
 
 def check_conv3x3_s8(results, smi):
-    """12a: the s8 tap-GEMM against its plain version on the same codes,
-    bf16 and fp32 out with a bias; max |d| must be 0. Times beside cuDNN's
-    bf16 conv, im2col + _int_mm and the plain version."""
+    """12a: the s8 tap-GEMM, which quantizes x while it stages it, against
+    its plain version (the codes in torch, then their exact sums) on the
+    same x and scale, bf16 and fp32 out with a bias, bf16 and fp32 x; max
+    |d| must be 0. Times beside cuDNN's bf16 conv, im2col + _int_mm and the
+    plain version; the scale's reduction + the kernel against the quantize
+    pass the kernel no longer needs."""
     import torch
     import torch.nn.functional as F
 
-    from ddpo_torch.ops.quant import (quantize_symmetric, tap_gemm_s8, tap_gemm_s8_reference,
+    from ddpo_torch.ops.quant import (activation_scale, quantize_symmetric, quantize_with_scale,
+                                      tap_gemm_s8, tap_gemm_s8_plain, tap_gemm_s8_reference,
                                       weight_codes)
 
     gen = torch.Generator(device="cuda").manual_seed(12)
-    cases = [(shape, dtype) for shape in S8_SHAPES for dtype in (torch.bfloat16, torch.float32)]
-    cases += [((2, 40, 13, 17, 24), torch.bfloat16)]  # Cin not a multiple of 16, ragged maps
-    for shape, dtype in cases:
+    cases = [(shape, dtype, torch.bfloat16) for shape in S8_SHAPES
+             for dtype in (torch.bfloat16, torch.float32)]
+    # Cin not a multiple of 16, ragged maps; an fp32 x
+    cases += [((2, 40, 13, 17, 24), torch.bfloat16, torch.bfloat16),
+              ((2, 40, 13, 17, 24), torch.bfloat16, torch.float32)]
+    for shape, dtype, xdtype in cases:
         n, cin, h, w, cout = shape
         name = dtype_name(dtype)
-        x = torch.randn((n, cin, h, w), generator=gen, device="cuda").to(torch.bfloat16)
+        x = torch.randn((n, cin, h, w), generator=gen, device="cuda").to(xdtype)
+        x[-1, 0, 0, 0] = -x[-1].abs().max()  # a value at -absmax
         weight = (torch.randn((cout, cin, 3, 3), generator=gen, device="cuda")
                   * (9 * cin) ** -0.5).to(torch.bfloat16)
         bias = torch.randn(cout, generator=gen, device="cuda")
-        xq, sx = quantize_symmetric(x, (1, 2, 3))
-        sx = sx.reshape(-1)
+        sx = activation_scale(x)
+        if not torch.equal(sx, quantize_symmetric(x, (1, 2, 3))[1].reshape(-1)):
+            fail(f"12a: activation_scale differs from quantize_symmetric's scale at {shape}")
         wq, sw = weight_codes(weight)
-        out = tap_gemm_s8(xq, wq, sx, sw, bias, dtype)
-        again = tap_gemm_s8(xq, wq, sx, sw, bias, dtype)
-        alone = tap_gemm_s8(xq[:1].contiguous(), wq, sx[:1].contiguous(), sw, bias, dtype)
-        ref = tap_gemm_s8_reference(xq, wq, sx, sw, bias, dtype)
+        out = tap_gemm_s8(x, wq, sx, sw, bias, dtype)
+        again = tap_gemm_s8(x, wq, sx, sw, bias, dtype)
+        alone = tap_gemm_s8(x[:1].contiguous(), wq, sx[:1].contiguous(), sw, bias, dtype)
+        ref = tap_gemm_s8_plain(x, wq, sx, sw, bias, dtype)
         err = (out.float() - ref.float()).abs().max().item()
         same = torch.equal(out, again) and torch.equal(alone, out[:1])
-        line = (f"12a conv3x3_s8 {name} out x{(n, cin, h, w)} -> {cout}: max|kernel - plain| "
-                f"{err:g} (bound 0: the same codes); two calls and image 0 alone equal: {same}")
+        line = (f"12a conv3x3_s8 {dtype_name(xdtype)} x, {name} out x{(n, cin, h, w)} -> {cout}: "
+                f"max|kernel - plain| {err:g} (bound 0: the same codes); two calls and image 0 "
+                f"alone equal: {same}")
         if not (err == 0 and same and out.dtype == dtype):
             fail(line)
         entry = {"shape": list(shape), "dtype": name, "max_abs_err": err}
         if shape in S8_SHAPES and dtype == torch.bfloat16:
             ops = 2.0 * n * h * w * 9 * cin * cout
-            nbytes = (xq.numel() + wq.numel() + out.numel() * out.element_size()
+            # x read once (bf16), the codes of the weight, the output
+            nbytes = (x.numel() * x.element_size() + wq.numel() + out.numel() * out.element_size()
                       + 4 * (sx.numel() + sw.numel() + bias.numel()))
             bound_ms, bound_by = roofline(ops, nbytes, "int8")
             iters = 5 if ops > 1e11 else 10
-            k_ms, p_ms = timed_pair(lambda: tap_gemm_s8(xq, wq, sx, sw, bias, dtype),
-                                    lambda: tap_gemm_s8_reference(xq, wq, sx, sw, bias, dtype),
-                                    iters)
+            k_ms, p_ms = timed_pair(lambda: tap_gemm_s8(x, wq, sx, sw, bias, dtype),
+                                    lambda: tap_gemm_s8_plain(x, wq, sx, sw, bias, dtype), iters)
             b16 = bias.to(torch.bfloat16)
             cudnn_ms = median_ms(lambda: F.conv2d(x, weight, b16, padding=1), iters)
+            xq = quantize_with_scale(x, sx)
             sums = int_mm_conv(xq, wq)
             exact = tap_gemm_s8_reference(xq, wq, torch.ones_like(sx), torch.ones_like(sw),
                                           None, torch.float32)
             if not torch.equal(sums.float().view(n, h, w, cout).permute(0, 3, 1, 2), exact):
                 fail(f"im2col + _int_mm differs from the exact sums at {shape}")
             int_mm_ms = median_ms(lambda: int_mm_conv(xq, wq), iters)
+            scale_ms = median_ms(lambda: activation_scale(x), iters)
+            fused_ms = median_ms(lambda: tap_gemm_s8(x, wq, activation_scale(x), sw, bias, dtype),
+                                 iters)
             quant_ms = median_ms(lambda: quantize_symmetric(x, (1, 2, 3)), iters)
             entry.update(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by,
                          library_ms=None, cudnn_bf16_ms=cudnn_ms, int_mm_ms=int_mm_ms,
-                         quantize_ms=quant_ms)
-            line += (f"; kernel {k_ms:.4f} ms ({ops / k_ms / 1e9:.1f} TOPS), bound "
-                     f"{bound_ms:.4f} ms ({bound_by}), plain {p_ms:.4f} ms, cuDNN bf16 F.conv2d "
-                     f"{cudnn_ms:.4f} ms, im2col + _int_mm {int_mm_ms:.4f} ms; the quantize "
-                     f"pass over x {quant_ms:.4f} ms a call ({smi})")
-            del sums, exact
+                         scale_ms=scale_ms, with_scale_ms=fused_ms, quantize_pass_ms=quant_ms)
+            line += (f"; kernel (quantize fused) {k_ms:.4f} ms ({ops / k_ms / 1e9:.1f} TOPS), "
+                     f"bound {bound_ms:.4f} ms ({bound_by}), plain {p_ms:.4f} ms; the scale's "
+                     f"reduction {scale_ms:.4f} ms, reduction + kernel {fused_ms:.4f} ms against "
+                     f"cuDNN bf16 F.conv2d {cudnn_ms:.4f} ms; the plain quantize pass the kernel "
+                     f"replaces {quant_ms:.4f} ms; im2col + _int_mm {int_mm_ms:.4f} ms ({smi})")
+            del sums, exact, xq
         log(line)
         results.append(entry)
-        del x, weight, xq, wq, out, again, alone, ref
+        del x, weight, wq, out, again, alone, ref
         torch.cuda.empty_cache()
 
 
@@ -2707,8 +2861,8 @@ def check_sp_kernels(flash_results, bwd_results, conv_results, s8_results, smi):
     import torch.nn.functional as F
 
     from ddpo_torch.ops.conv import conv3x3_direct, conv3x3_reference
-    from ddpo_torch.ops.quant import (VALID_ROWS, conv3x3_w8a8, quantize_symmetric, tap_gemm_s8,
-                                      tap_gemm_s8_reference, weight_codes)
+    from ddpo_torch.ops.quant import (VALID_ROWS, activation_scale, conv3x3_w8a8, tap_gemm_s8,
+                                      tap_gemm_s8_plain, weight_codes)
 
     check_flash(flash_results, SP_FLASH_CASES, (torch.bfloat16,), "14k ")
     check_flash_bwd(bwd_results, SP_FLASH_CASES, (torch.bfloat16,), "14k ")
@@ -2748,15 +2902,14 @@ def check_sp_kernels(flash_results, bwd_results, conv_results, s8_results, smi):
         f"{p_ms:.3f} ms, F.conv2d VALID over H {lib_ms:.3f} ms, bound {bound_ms:.4f} ms "
         f"({bound_by}) for the kept rows ({smi})")
 
-    xq, sx = quantize_symmetric(xh, (1, 2, 3))  # the scale is the halo'd shard's
-    sx = sx.reshape(-1)
+    sx = activation_scale(xh)  # the scale is the halo'd shard's
     wq, sw = weight_codes(weight)
 
     def halo_s8():
-        return tap_gemm_s8(xq, wq, sx, sw, bias, torch.bfloat16)[:, :, 1:-1]
+        return tap_gemm_s8(xh, wq, sx, sw, bias, torch.bfloat16)[:, :, 1:-1]
 
     out = halo_s8()
-    ref = tap_gemm_s8_reference(xq, wq, sx, sw, bias, torch.bfloat16)[:, :, 1:-1]
+    ref = tap_gemm_s8_plain(xh, wq, sx, sw, bias, torch.bfloat16)[:, :, 1:-1]
     op = conv3x3_w8a8(xh, weight, bias, padding=VALID_ROWS)
     err = (out.float() - ref.float()).abs().max().item()
     same = torch.equal(out, op)
@@ -2764,16 +2917,16 @@ def check_sp_kernels(flash_results, bwd_results, conv_results, s8_results, smi):
             f"{err:g} (bound 0: the same codes); conv3x3_w8a8(padding=VALID_ROWS) equal: {same}")
     if not (err == 0 and same):
         fail(line)
-    k_ms, p_ms = timed_pair(halo_s8, lambda: tap_gemm_s8_reference(
-        xq, wq, sx, sw, bias, torch.bfloat16)[:, :, 1:-1], 10)
-    nbytes = xq.numel() + wq.numel() + out.numel() * 2 + 4 * (sx.numel() + sw.numel() + cout)
+    k_ms, p_ms = timed_pair(halo_s8, lambda: tap_gemm_s8_plain(
+        xh, wq, sx, sw, bias, torch.bfloat16)[:, :, 1:-1], 10)
+    nbytes = 2 * xh.numel() + wq.numel() + out.numel() * 2 + 4 * (sx.numel() + sw.numel() + cout)
     bound_ms, bound_by = roofline(flops, nbytes, "int8")
     s8_results.append({"shape": [n, cin, rows + 2, w, cout], "dtype": "bfloat16",
                        "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": None,
                        "bound_ms": bound_ms, "bound_by": bound_by})
     log(line + f"; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound_ms:.4f} ms "
         f"({bound_by}) ({smi})")
-    del x, xh, weight, xq, wq, out, ref, op, whole
+    del x, xh, weight, wq, out, ref, op, whole
     torch.cuda.empty_cache()
 
 
@@ -2913,6 +3066,12 @@ def phase_sp_ranks(unet_gn, vae_gn, unet_conv, smi):
 
 
 def main() -> None:
+    args = sys.argv[1:]
+    parent = None
+    if args[:1] == ["--parent"] and len(args) == 2:
+        parent = args[1]
+    elif args:
+        fail(f"usage: python3 chip_smoke.py [--parent DIR], got {args}")
     try:
         import torch
     except ImportError:
@@ -2937,11 +3096,14 @@ def main() -> None:
     gn_shapes, conv_shapes = collect_model_shapes()
     silu_launches = check_gn_silu(silu_results, gn_shapes)
     check_conv3x3(conv_results, conv_shapes)
+    if parent:
+        compare_parent(parent, conv_shapes, smi)
     phase_probes(probe_results)
     serving_counts, serving_ips, _, serving_images = phase_serving(unet_gn, vae_gn)
     rollout = phase_rollout()
     init_params, _ = phase_onpolicy(rollout, unet_gn)
     phase_batch_invariance(rollout[0])
+    phase_invariance_cost(rollout[0], smi)
     del rollout
     counts, full_update_s = phase_train(init_params, unet_gn, vae_gn, unet_conv)
     phase_lora(unet_gn, vae_gn, unet_conv, full_update_s)
@@ -3011,8 +3173,8 @@ def main() -> None:
         "library_ms are the whole backward (dq, dk and dv); times at the headline shapes: "
         "flash (8, 4096, 8, 40) and (4, 4096, 8, 40), GroupNorm (8, 320, 64, 64), conv "
         "(8, 320, 64, 64) -> 320 and the probes' (16, 320, 64, 64) -> 320, bf16 (the s8 "
-        "conv: int8 codes in, bf16 out); max_abs_err over every case, phase 14k's sp shapes "
-        "included")
+        "conv: bf16 x in, quantized while staged, bf16 out; its bound counts x's bf16 bytes); "
+        "max_abs_err over every case, phase 14k's sp shapes included")
     log(f"chip_smoke wall: {time.perf_counter() - started:.1f} s ({smi})")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

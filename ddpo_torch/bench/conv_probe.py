@@ -35,7 +35,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from ddpo_torch.ops.conv import conv3x3_direct, tap_gemm
+from ddpo_torch.ops.conv import conv3x3_direct, tap_gemm, tap_weight_kn
 
 B, H, W, CIN, COUT = 16, 64, 64, 320, 320
 ITERS = 10
@@ -87,7 +87,7 @@ def _probe(reference, tap_map, counter):
             return reference(x, w)
         if w.shape[-1] * x.shape[1] * 9 != w.numel():
             raise ValueError(f"weight {tuple(w.shape)} does not fit x {tuple(x.shape)}")
-        return tap_gemm(x, w, tap_map, counter)
+        return tap_gemm(x, tap_weight_kn(w), w.shape[-1], tap_map, counter)
 
     probe.__doc__ = (f"{counter}: x (B, Cin, H, W) -> (B, Cout, H, W) in x's dtype; the "
                      f"kernel on a CUDA tensor, {reference.__name__} on a CPU tensor.")
@@ -142,6 +142,8 @@ def main() -> Dict[str, float]:
     w9 = (torch.randn((9, cin, cout), generator=gen, device="cuda") * 0.02).to(dtype)
     x_nhwc = x.permute(0, 2, 3, 1).contiguous()
     w_oihw = w9.reshape(3, 3, cin, cout).permute(3, 2, 0, 1).contiguous()
+    # the probes' weights, made once: the kernels' layout of each is then made once
+    w3, w2 = w9.reshape(3, 3 * cin, cout), w9.reshape(9 * cin, cout)
     flops = 2.0 * b * h * w * 9 * cin * cout
     a = torch.randn((8192, 8192), generator=gen, device="cuda").to(dtype)
 
@@ -151,10 +153,10 @@ def main() -> Dict[str, float]:
         ("p2", "+ dy row shifts", lambda: p2(x, w9), flops),
         ("p3", "direct conv kernel", lambda: conv3x3_direct(x, w_oihw), flops),
         ("p4", "torch.matmul 8192^3", lambda: torch.matmul(a, a), 2.0 * 8192**3),
-        ("p5", "im2col + matmul K=9Cin", lambda: p5_im2col(x_nhwc, w9.reshape(9 * cin, cout)),
+        ("p5", "im2col + matmul K=9Cin", lambda: p5_im2col(x_nhwc, w2),
          flops),
-        ("p6", "dx folded, K=3Cin", lambda: p6(x, w9.reshape(3, 3 * cin, cout)), flops),
-        ("p7", "full fold, K=9Cin", lambda: p7(x, w9.reshape(9 * cin, cout)), flops),
+        ("p6", "dx folded, K=3Cin", lambda: p6(x, w3), flops),
+        ("p7", "full fold, K=9Cin", lambda: p7(x, w2), flops),
         ("conv2d", "F.conv2d (cuDNN)", lambda: F.conv2d(x, w_oihw, padding=1), flops),
     ]
     results = {}

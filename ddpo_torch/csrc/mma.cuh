@@ -1,6 +1,7 @@
-// Tensor-core building blocks shared by the bf16 kernels and the s8 tap-GEMM
-// (sm_80 and up): cp.async staging, ldmatrix fragment loads, the m16n8k16
-// bf16 mma with fp32 accumulators and the m16n8k32 s8 mma with int32 ones.
+// Tensor-core building blocks of the bf16 flash kernels and the tap-GEMMs
+// (sm_80 and up): cp.async staging, ldmatrix fragment loads (the tap-GEMMs'
+// wgmma A fragments too: see wgmma.cuh), the m16n8k16 bf16 mma with fp32
+// accumulators.
 //
 // Fragment layout of mma.sync.m16n8k16 for lane l, g = l / 4, t = l % 4:
 //   A (16 x 16, row-major) a0..a3: (g, 2t..2t+1), (g+8, 2t..), (g, 8+2t..),
@@ -68,22 +69,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a * b, one 16 x 8 x 32 product of int8 codes with int32 accumulators.
-// Fragments for lane l, g = l / 4, t = l % 4, four int8 a register (the
-// lowest k in the lowest byte): A (16 x 32, row-major) a0..a3: (g, 4t..4t+3),
-// (g+8, 4t..), (g, 16+4t..), (g+8, 16+4t..); B (32 x 8, k x n) b0, b1:
-// (4t..4t+3, g), (16+4t.., g); C as in the bf16 product. An ldmatrix of
-// 8 x 16-byte rows gives lane l the 4 bytes 4t..4t+3 of row g: the A and B
-// fragments of int8 rows held k-contiguous.
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

@@ -89,13 +89,13 @@ class KernelLibrary:
         # x, w, out, dtype, tap map, B, Cin, H, W, Cout, stream
         lib.ddpo_tap_gemm.argtypes = [p, p, p, i32, i32] + [i32] * 5 + [p]
         lib.ddpo_tap_gemm.restype = i32
-        # xq, wq (Cout, 9 * Cin), sx, sw, bias or null, out, out dtype, B, Cin, H, W,
-        # Cout, stream
-        lib.ddpo_tap_gemm_s8.argtypes = [p] * 6 + [i32] * 6 + [p]
+        # x, wq (Cout, 9, Cin16), sx, sw, bias or null, out, x dtype, bias dtype,
+        # out dtype, B, Cin, H, W, Cout, stream
+        lib.ddpo_tap_gemm_s8.argtypes = [p] * 6 + [i32] * 8 + [p]
         lib.ddpo_tap_gemm_s8.restype = i32
-        # w (OIHW), out (9 * Cin, Cout), dtype, Cout, Cin, stream
-        lib.ddpo_conv_weight_kn.argtypes = [p, p, i32, i32, i32, p]
-        lib.ddpo_conv_weight_kn.restype = i32
+        # w, out (Cout8, 9, Cin8), dtype, Cout, Cin, strides of (co, tap, ci), stream
+        lib.ddpo_conv_tap_weight.argtypes = [p, p, i32, i32, i32, i64, i64, i64, p]
+        lib.ddpo_conv_tap_weight.restype = i32
         lib.ddpo_error_string.argtypes = [i32]
         lib.ddpo_error_string.restype = ctypes.c_char_p
         self.lib = lib

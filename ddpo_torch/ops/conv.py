@@ -15,9 +15,16 @@ x's dtype, as JAX adds it. Under autograd the product goes through
 differentiates its XLA conv.
 
 ``tap_gemm`` launches the kernel for ``conv3x3_direct`` and for the conv
-probes of ddpo_torch/bench/conv_probe.py; ``weight_kn`` lays the OIHW weight
-out as the kernel's (9 * Cin, Cout) operand, on the card with a transpose
-kernel of its own.
+probes of ddpo_torch/bench/conv_probe.py. ``tap_weight`` lays the OIHW
+weight out as the kernel's operand: (Cout, 9, Cin), K = (tap, cin)
+contiguous for each output (the weight tile a TMA load brings in), Cout and
+Cin padded with zeros to multiples of 8 (16-byte rows), on the card with a
+layout kernel of its own. The layout is made once per weight and kept while
+the weight lives and is not written to (keyed on its ``data_ptr()`` and
+``_version``, as ops/quant.py keeps the int8 codes): the sampler's 50 steps
+lay each conv's weight out once, not 50 times. The trainer's convs see a
+fresh bf16 cast of the fp32 masters at every call, so they lay it out at
+every call, as before.
 
 ``library_conv`` is the library branch of every 3x3 conv of the models,
 stride 1 and 2. cuDNN gives an image other bits in another batch: on the
@@ -46,7 +53,8 @@ library conv's gradient, with zero cotangent on the dropped rows.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+import weakref
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -61,6 +69,9 @@ TAP_MAPS = {"shift3x3": 0, "rows": 1, "none": 2}
 
 _CONV_OVERRIDE: Optional[bool] = None
 
+# id(source weight) -> (weakref to it, data_ptr, _version, its tap_weight layout)
+_TAP_WEIGHTS: Dict[int, tuple] = {}
+
 
 def set_conv_kernel_enabled(value: Optional[bool]) -> None:
     """Force (True) or forbid (False) the direct kernel, or restore the
@@ -69,29 +80,36 @@ def set_conv_kernel_enabled(value: Optional[bool]) -> None:
     _CONV_OVERRIDE = value
 
 
-def tap_gemm(x: torch.Tensor, w_kn: torch.Tensor, tap_map: str, counter: str) -> torch.Tensor:
-    """out[b, :, p] = sum over the 9 taps t and cin of x[b, cin, p + offset_t]
-    * w_kn[t * Cin + cin, :], zero outside the map; on CUDA tensors only.
+def padded(n: int) -> int:
+    """Cin and Cout of the laid-out weight: multiples of 8."""
+    return (n + 7) // 8 * 8
 
-    x: contiguous (B, Cin, H, W); w_kn: contiguous, 9 * Cin * Cout values in
-    (tap, cin, cout) order; the result (B, Cout, H, W) has x's dtype.
-    ``counter`` names the entry of ``_build.launches`` this launch adds to.
+
+def tap_gemm(x: torch.Tensor, w_nk: torch.Tensor, cout: int, tap_map: str,
+             counter: str) -> torch.Tensor:
+    """out[b, co, p] = sum over the 9 taps t and cin of x[b, cin, p + offset_t]
+    * w_nk[co, t * padded(Cin) + cin], zero outside the map; on CUDA tensors
+    only.
+
+    x: contiguous (B, Cin, H, W); w_nk: ``tap_weight``'s contiguous
+    (padded(cout), 9 * padded(Cin)) in x's dtype; the result (B, cout, H, W)
+    has x's dtype. ``counter`` names the entry of ``_build.launches`` this
+    launch adds to.
     """
-    if not (x.is_cuda and w_kn.device == x.device):
-        raise ValueError(f"tap_gemm runs on one CUDA device, got {x.device} and {w_kn.device}")
-    if w_kn.dtype != x.dtype:
-        raise TypeError(f"x is {x.dtype} but the weight is {w_kn.dtype}")
+    if not (x.is_cuda and w_nk.device == x.device):
+        raise ValueError(f"tap_gemm runs on one CUDA device, got {x.device} and {w_nk.device}")
+    if w_nk.dtype != x.dtype:
+        raise TypeError(f"x is {x.dtype} but the weight is {w_nk.dtype}")
     code = _build.dtype_code(x.dtype)
-    if x.dim() != 4 or not x.is_contiguous() or not w_kn.is_contiguous():
+    if x.dim() != 4 or not x.is_contiguous() or not w_nk.is_contiguous():
         raise ValueError("tap_gemm needs a contiguous NCHW x and a contiguous weight")
     b, cin, h, w = x.shape
-    if w_kn.numel() % (9 * cin):
-        raise ValueError(f"weight {tuple(w_kn.shape)} is not (9 * {cin}, Cout)")
-    cout = w_kn.numel() // (9 * cin)
+    if tuple(w_nk.shape) != (padded(cout), 9 * padded(cin)):
+        raise ValueError(f"weight {tuple(w_nk.shape)} is not ({padded(cout)}, 9 * {padded(cin)})")
     out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device)
     kl = _build.load_library()
     err = kl.lib.ddpo_tap_gemm(
-        x.data_ptr(), w_kn.data_ptr(), out.data_ptr(), code, TAP_MAPS[tap_map],
+        x.data_ptr(), w_nk.data_ptr(), out.data_ptr(), code, TAP_MAPS[tap_map],
         b, cin, h, w, cout, _build.stream_handle(x.device),
     )
     kl.check(err, f"{counter} launch")
@@ -99,25 +117,65 @@ def tap_gemm(x: torch.Tensor, w_kn: torch.Tensor, tap_map: str, counter: str) ->
     return out
 
 
-def weight_kn(weight: torch.Tensor) -> torch.Tensor:
-    """OIHW (Cout, Cin, 3, 3) -> (9 * Cin, Cout) in (dy, dx, cin) order: the
-    tap-GEMM's (K, N) operand, JAX's HWIO. On a CUDA tensor a transpose
-    kernel in csrc/conv3x3.cu does it, faster than torch's strided copy of
-    the permute (chip_smoke.py times both); on a CPU tensor the permute."""
-    if weight.device.type == "cpu":
-        return weight.permute(2, 3, 1, 0).reshape(-1, weight.shape[0]).contiguous()
-    if weight.device.type != "cuda" or weight.dim() != 4 or weight.shape[2:] != (3, 3):
-        raise ValueError(f"weight_kn takes a CUDA OIHW 3x3 weight, got {tuple(weight.shape)} "
-                         f"on {weight.device}")
-    weight = weight.contiguous()
+def tap_weight_reference(weight: torch.Tensor) -> torch.Tensor:
+    """The layout's plain version: OIHW (Cout, Cin, 3, 3) -> (padded(Cout),
+    9 * padded(Cin)), row co holding taps (dy, dx) in order, each its Cin
+    values then zeros; rows past Cout are zeros."""
     cout, cin = weight.shape[:2]
-    out = torch.empty((9 * cin, cout), dtype=weight.dtype, device=weight.device)
+    w = F.pad(weight.permute(0, 2, 3, 1), (0, padded(cin) - cin, 0, 0, 0, 0, 0,
+                                            padded(cout) - cout))
+    return w.reshape(padded(cout), -1).contiguous()
+
+
+def cached_per_version(store: Dict[int, tuple], source: torch.Tensor, make: Callable):
+    """``make()``, computed once while ``source`` lives and is not written to:
+    kept in ``store`` under id(source) with a weak reference to it and its
+    ``data_ptr()`` and ``_version``, dropped when it dies."""
+    key = (source.data_ptr(), source._version)
+    entry = store.get(id(source))
+    if entry is not None and entry[0]() is source and entry[1:3] == key:
+        return entry[3]
+    value = make()
+    ident = id(source)
+    store[ident] = (weakref.ref(source, lambda _: store.pop(ident, None)), *key, value)
+    return value
+
+
+def _lay_out(w: torch.Tensor, cout: int, cin: int, strides) -> torch.Tensor:
+    """The layout kernel on ``w``, whose element (co, tap, ci) sits at the
+    element strides (s_co, s_tap, s_ci)."""
+    out = torch.empty((padded(cout), 9 * padded(cin)), dtype=w.dtype, device=w.device)
     kl = _build.load_library()
-    kl.check(kl.lib.ddpo_conv_weight_kn(weight.data_ptr(), out.data_ptr(),
-                                        _build.dtype_code(weight.dtype), cout, cin,
-                                        _build.stream_handle(weight.device)),
+    kl.check(kl.lib.ddpo_conv_tap_weight(w.data_ptr(), out.data_ptr(), _build.dtype_code(w.dtype),
+                                         cout, cin, *strides, _build.stream_handle(w.device)),
              "conv weight layout launch")
     return out
+
+
+def tap_weight(weight: torch.Tensor) -> torch.Tensor:
+    """OIHW (Cout, Cin, 3, 3) -> the tap-GEMM's (padded(Cout), 9 * padded(Cin))
+    operand: on a CUDA tensor the layout kernel's, made once per weight
+    version; on a CPU tensor ``tap_weight_reference``."""
+    if weight.device.type == "cpu":
+        return tap_weight_reference(weight.detach())
+    if weight.device.type != "cuda" or weight.dim() != 4 or weight.shape[2:] != (3, 3):
+        raise ValueError(f"tap_weight takes a CUDA OIHW 3x3 weight, got {tuple(weight.shape)} "
+                         f"on {weight.device}")
+    cout, cin = weight.shape[:2]
+    return cached_per_version(_TAP_WEIGHTS, weight, lambda: _lay_out(
+        weight.detach().contiguous(), cout, cin, (9 * cin, 1, 9)))
+
+
+def tap_weight_kn(w_kn: torch.Tensor) -> torch.Tensor:
+    """The same operand from a (9, Cin, Cout)-ordered weight of 9 * Cin * Cout
+    values, (tap, cin) major, as the conv probes take theirs (any shape
+    that reshapes to (9 * Cin, Cout) with Cout last); once per weight."""
+    cout = w_kn.shape[-1]
+    cin = w_kn.numel() // (9 * cout)
+    if w_kn.device.type == "cpu":
+        return tap_weight_reference(w_kn.detach().reshape(3, 3, cin, cout).permute(3, 2, 0, 1))
+    return cached_per_version(_TAP_WEIGHTS, w_kn, lambda: _lay_out(
+        w_kn.detach().contiguous(), cout, cin, (1, cin * cout, cout)))
 
 
 def conv3x3_reference(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -148,7 +206,8 @@ def conv3x3_direct(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"no conv3x3 kernel for device {x.device}")
     if weight.shape[1:] != (x.shape[1], 3, 3):
         raise ValueError(f"weight {tuple(weight.shape)} does not fit x {tuple(x.shape)}")
-    return tap_gemm(x.contiguous(), weight_kn(weight), "shift3x3", "conv3x3")
+    return tap_gemm(x.contiguous(), tap_weight(weight), weight.shape[0], "shift3x3",
+                    "conv3x3")
 
 
 def _library_grads(ctx, x, weight, g, stride: int, padding: Padding):

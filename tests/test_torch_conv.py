@@ -266,15 +266,45 @@ def test_rollout_with_the_switch_on_matches_jax(switch_on, tiny_unets):
 
 @pytest.mark.parametrize("cin,cout", [(4, 320), (320, 4), (96, 40), (3, 5)])
 def test_weight_kn_is_jax_kfold_layout(cin, cout):
-    """The tap-GEMM's (K, N) weight from an OIHW weight is JAX's HWIO
-    weight reshaped to (9 * Cin, Cout), the K order (dy, dx, cin) of its
-    kfold; on the CPU ``weight_kn`` is the permute the card's transpose
-    kernel repeats."""
+    """The tap-GEMM's weight operand from an OIHW weight is JAX's HWIO weight
+    reshaped to (9 * Cin, Cout), the K order (dy, dx, cin) of its kfold,
+    transposed to output-major rows and padded with zeros to (padded(Cout),
+    9 * padded(Cin)); on the CPU ``tap_weight`` is the plain version the
+    card's layout kernel repeats, and a (9, Cin, Cout)-ordered weight (the
+    probes') gives the same operand."""
     wt = np.random.default_rng(cin + cout).standard_normal((3, 3, cin, cout)).astype(np.float32)
     oihw = torch.from_numpy(wt).permute(3, 2, 0, 1).contiguous()
-    w_kn = tconv.weight_kn(oihw)
-    assert w_kn.shape == (9 * cin, cout) and w_kn.is_contiguous()
-    np.testing.assert_array_equal(w_kn.numpy(), np.asarray(jnp.asarray(wt).reshape(9 * cin, cout)))
+    w_nk = tconv.tap_weight(oihw)
+    cin_p, cout_p = tconv.padded(cin), tconv.padded(cout)
+    assert cin_p % 8 == 0 and cout_p % 8 == 0 and cin_p - cin < 8 and cout_p - cout < 8
+    assert w_nk.shape == (cout_p, 9 * cin_p) and w_nk.is_contiguous()
+    taps = w_nk.numpy().reshape(cout_p, 9, cin_p)
+    kfold = taps[:cout, :, :cin].reshape(cout, 9 * cin).T
+    np.testing.assert_array_equal(kfold, np.asarray(jnp.asarray(wt).reshape(9 * cin, cout)))
+    assert not taps[cout:].any() and not taps[:, :, cin:].any()
+    np.testing.assert_array_equal(tconv.tap_weight_kn(torch.from_numpy(wt).reshape(9, cin, cout)),
+                                  w_nk.numpy())
+
+
+def test_layout_cache_follows_the_weight():
+    """A layout kept per weight is made once while the weight lives
+    unchanged, again after an in-place write, apart for another tensor, and
+    dropped when the weight dies."""
+    store, made = {}, []
+
+    def layout(w):
+        return tconv.cached_per_version(store, w, lambda: made.append(w.clone()) or made[-1])
+
+    w = torch.randn(4, 3, 3, 3)
+    first = layout(w)
+    assert layout(w) is first and len(made) == 1
+    w.mul_(2)
+    second = layout(w)
+    assert second is not first and torch.equal(second, w) and len(made) == 2
+    other = w.clone()
+    assert layout(other) is not second and len(store) == 2
+    del w, other
+    assert store == {}
 
 
 @pytest.mark.parametrize("n", [1, 6])

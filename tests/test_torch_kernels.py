@@ -32,14 +32,18 @@ from ddpo_torch.ops.conv import (
     conv3x3_direct,
     conv3x3_reference,
     set_conv_kernel_enabled,
-    weight_kn,
+    tap_weight,
+    tap_weight_kn,
+    tap_weight_reference,
 )
 from ddpo_torch.ops.quant import (
+    VALID_ROWS,
+    activation_scale,
     conv3x3_w8a8,
     conv3x3_w8a8_reference,
     quantize_symmetric,
     tap_gemm_s8,
-    tap_gemm_s8_reference,
+    tap_gemm_s8_plain,
     weight_codes,
 )
 from ddpo_torch.ops.groupnorm import (
@@ -269,28 +273,67 @@ def test_conv3x3_kernel_matches_plain(cuda, dtype, b, cin, cout, h, w):
     (8, 320, 320, 64, 64, True), (8, 640, 640, 32, 32, False), (8, 1920, 1280, 16, 16, True),
     (8, 2560, 1280, 8, 8, True), (2, 40, 24, 13, 17, True), (1, 3, 5, 1, 1, False)])
 def test_conv3x3_s8_kernel_matches_plain(cuda, dtype, b, cin, cout, h, w, bias):
-    """The s8 tap-GEMM against its plain version on the same codes, bit for
-    bit (integer sums are exact; the epilogue rounds as the plain version
-    does); two calls and image 0 alone give the same bits; Cin not a
-    multiple of 16 (element-wise weight loads), ragged maps and channels
-    are masked in the kernel."""
+    """The s8 tap-GEMM, which makes the codes while it stages x, against its
+    plain version (the codes in torch, then their exact sums) on the same x
+    and scale, bit for bit (integer sums are exact; the epilogue rounds as
+    the plain version does); two calls and image 0 alone give the same bits;
+    Cin not a multiple of 16 (the codes padded at the call), ragged maps and
+    channels are masked in the kernel."""
     gen = torch.Generator(device=cuda).manual_seed(6)
     x = torch.randn((b, cin, h, w), generator=gen, device=cuda).to(dtype)
     weight = (torch.randn((cout, cin, 3, 3), generator=gen, device=cuda)
               * (9 * cin) ** -0.5).to(dtype)
     bvec = torch.randn(cout, generator=gen, device=cuda) if bias else None
-    xq, sx = quantize_symmetric(x, (1, 2, 3))
+    sx = activation_scale(x)
+    assert torch.equal(sx, quantize_symmetric(x, (1, 2, 3))[1].reshape(-1))
     wq, sw = weight_codes(weight)
     before = _build.launch_counts()["conv3x3_s8"]
-    out = tap_gemm_s8(xq, wq, sx.reshape(-1), sw, bvec, dtype)
-    again = tap_gemm_s8(xq, wq, sx.reshape(-1), sw, bvec, dtype)
-    alone = tap_gemm_s8(xq[:1].contiguous(), wq, sx.reshape(-1)[:1].contiguous(), sw, bvec, dtype)
+    out = tap_gemm_s8(x, wq, sx, sw, bvec, dtype)
+    again = tap_gemm_s8(x, wq, sx, sw, bvec, dtype)
+    alone = tap_gemm_s8(x[:1].contiguous(), wq, sx[:1].contiguous(), sw, bvec, dtype)
     assert _build.launch_counts()["conv3x3_s8"] == before + 3
-    ref = tap_gemm_s8_reference(xq, wq, sx.reshape(-1), sw, bvec, dtype)
+    ref = tap_gemm_s8_plain(x, wq, sx, sw, bvec, dtype)
     assert out.dtype == dtype and out.shape == (b, cout, h, w)
     assert torch.equal(out, ref) and torch.equal(out, again) and torch.equal(alone, out[:1])
     # the op end to end: the kernel path equals the plain one on the same x
     assert torch.equal(conv3x3_w8a8(x, weight, bvec), conv3x3_w8a8_reference(x, weight, bvec))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8, 16])
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32])
+def test_conv3x3_s8_bottom_and_edge_values(cuda, b, xdtype):
+    """The 8x8 bottom (2560 -> 1280) at batch 1, 8 and 16, bf16 and fp32 x,
+    with an all-zero image and values at +-absmax: the fused codes equal the
+    plain ones bit for bit, and image 0 alone gives its slice."""
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    x = torch.randn((b, 2560, 8, 8), generator=gen, device=cuda).to(xdtype)
+    x[0, 3, 2, 1] = -x[0].abs().max()
+    if b > 1:
+        x[1] = 0
+    weight = (torch.randn((1280, 2560, 3, 3), generator=gen, device=cuda) * 0.005).to(xdtype)
+    wq, sw = weight_codes(weight)
+    sx = activation_scale(x)
+    out = tap_gemm_s8(x, wq, sx, sw, None, torch.bfloat16)
+    assert torch.equal(out, tap_gemm_s8_plain(x, wq, sx, sw, None, torch.bfloat16))
+    assert torch.equal(tap_gemm_s8(x[:1].contiguous(), wq, sx[:1].contiguous(), sw, None,
+                                   torch.bfloat16), out[:1])
+
+
+@pytest.mark.cuda
+def test_halo_frame_bits(cuda):
+    """The sp path's halo'd frame: the SAME map on a (4, 320, 34, 64) shard
+    with its first and last rows dropped gives the unsharded map's rows bit
+    for bit (bf16 tap-GEMM), and the s8 kernel there equals
+    conv3x3_w8a8(padding=VALID_ROWS)'s plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    x = torch.randn((4, 320, 64, 64), generator=gen, device=cuda).to(torch.bfloat16)
+    weight = (torch.randn((320, 320, 3, 3), generator=gen, device=cuda) * 0.02).to(torch.bfloat16)
+    bias = torch.randn(320, generator=gen, device=cuda)
+    xh = torch.nn.functional.pad(x, (0, 0, 1, 1))[:, :, :34].contiguous()
+    assert torch.equal(conv3x3_direct(xh, weight)[:, :, 1:-1], conv3x3_direct(x, weight)[:, :, :32])
+    assert torch.equal(conv3x3_w8a8(xh, weight, bias, padding=VALID_ROWS),
+                       conv3x3_w8a8_reference(xh, weight, bias, padding=VALID_ROWS))
 
 
 @pytest.mark.cuda
@@ -308,6 +351,8 @@ def test_conv_probes_match_plain(cuda, name):
     ref = getattr(conv_probe, f"{name}_reference")(x.float(), w.float())
     assert out.dtype == torch.bfloat16 and out.shape == ref.shape
     assert (out.float() - ref).abs().max().item() <= _bound(torch.bfloat16, ref)
+    # every tap map is batch invariant: image 0 alone gives its slice
+    assert torch.equal(getattr(conv_probe, name)(x[:1].contiguous(), w), out[:1])
 
 
 @pytest.mark.cuda
@@ -405,11 +450,19 @@ def test_flash_backward_on_tensor_core_forward(cuda, b, sq, sk, h, d):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("cout,cin", [(1280, 2560), (4, 320), (3, 128), (40, 96)])
 def test_conv_weight_layout_kernel(cuda, dtype, cout, cin):
-    """The transpose kernel gives the CPU permute's (9 * Cin, Cout) bit for bit."""
+    """The layout kernel gives the plain (padded(Cout), 9 * padded(Cin))
+    layout bit for bit, from an OIHW weight and from the probes' (9, Cin,
+    Cout) order; it is kept while the weight is unchanged and made again
+    after an in-place write."""
     weight = torch.randn((cout, cin, 3, 3), device=cuda).to(dtype)
-    w_kn = weight_kn(weight)
-    assert w_kn.shape == (9 * cin, cout) and w_kn.dtype == dtype
-    assert torch.equal(w_kn.cpu(), weight_kn(weight.cpu()))
+    w_nk = tap_weight(weight)
+    assert w_nk.dtype == dtype and torch.equal(w_nk.cpu(), tap_weight_reference(weight.cpu()))
+    assert tap_weight(weight) is w_nk
+    w9 = weight.permute(2, 3, 1, 0).reshape(9, cin, cout).contiguous()
+    assert torch.equal(tap_weight_kn(w9), w_nk)
+    weight.mul_(2)
+    again = tap_weight(weight)
+    assert again is not w_nk and torch.equal(again.cpu(), tap_weight_reference(weight.cpu()))
 
 
 @pytest.mark.cuda

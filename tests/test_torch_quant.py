@@ -27,10 +27,13 @@ from ddpo_torch.ops import _build
 from ddpo_torch.ops import conv as tconv
 from ddpo_torch.ops import invariance
 from ddpo_torch.ops.quant import (
+    activation_scale,
     conv3x3_w8a8,
     conv3x3_w8a8_reference,
     quantize_symmetric,
+    quantize_with_scale,
     tap_gemm_s8,
+    tap_gemm_s8_plain,
     tap_gemm_s8_reference,
     weight_codes,
 )
@@ -115,22 +118,73 @@ def test_plain_version_sums_exactly():
 
 
 def test_kernel_wrapper_refuses_rather_than_falls_back():
-    """The s8 kernel's wrapper takes CUDA tensors only: a CPU tensor, wrong
-    codes or mis-shaped scales raise, and nothing launches."""
+    """The s8 kernel's wrapper takes CUDA tensors only: a CPU tensor, an x
+    that is not float, a weight that is not int8 codes or mis-shaped scales
+    raise, and nothing launches."""
     rng = np.random.default_rng(8)
-    xq = torch.from_numpy(rng.integers(-127, 128, (2, 16, 4, 4), dtype=np.int8))
+    x = torch.from_numpy(rng.standard_normal((2, 16, 4, 4)).astype(np.float32))
     wq = torch.from_numpy(rng.integers(-127, 128, (8, 9 * 16), dtype=np.int8))
     sx, sw = torch.ones(2), torch.ones(8)
     before = _build.launch_counts()
     with pytest.raises(ValueError, match="CUDA"):
-        tap_gemm_s8(xq, wq, sx, sw, None, torch.float32)
+        tap_gemm_s8(x, wq, sx, sw, None, torch.float32)
+    with pytest.raises(TypeError, match="float"):
+        tap_gemm_s8(x.to(torch.int8), wq, sx, sw, None, torch.float32)
     with pytest.raises(TypeError, match="int8"):
-        tap_gemm_s8(xq.float(), wq, sx, sw, None, torch.float32)
+        tap_gemm_s8(x, wq.float(), sx, sw, None, torch.float32)
     with pytest.raises(ValueError, match="sw"):
-        tap_gemm_s8(xq, wq, sx, torch.ones(7), None, torch.float32)
+        tap_gemm_s8(x, wq, sx, torch.ones(7), None, torch.float32)
     with pytest.raises(ValueError, match="9"):
-        tap_gemm_s8(xq, wq[:, :-1], sx, sw, None, torch.float32)
+        tap_gemm_s8(x, wq[:, :-1], sx, sw, None, torch.float32)
     assert _build.launch_counts() == before
+
+
+def _edge_images(dtype, seed):
+    """Three images: random, all zeros, and one whose largest |value|
+    occurs at both +absmax and -absmax, with values at half-code steps."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((3, 16, 6, 5)).astype(np.float32) * 3
+    x[1] = 0.0
+    x[2] = np.clip(x[2], -3.5, 3.5)
+    x[2, 0, 0, 0], x[2, 1, 2, 3] = 4.0, -4.0
+    x[2, 2, 1] = np.arange(5, dtype=np.float32) * 4.0 / 127 * 0.5 + 4.0 / 127 * 0.5
+    return torch.from_numpy(x).to(dtype), x
+
+
+@pytest.mark.parametrize("dtype,jdtype", DTYPES)
+def test_activation_scale_is_quantize_symmetric(dtype, jdtype):
+    """The fused path's quantize: one reduction (the infinity norm) for the scale, then
+    quantize_with_scale's fp32 round half to even and clamp, gives
+    quantize_symmetric's scale and codes and JAX's codes, on an all-zero
+    image and on values at +-absmax too."""
+    x, xn = _edge_images(dtype, 9)
+    sx = activation_scale(x)
+    q, scale = quantize_symmetric(x, (1, 2, 3))
+    assert sx.dtype == torch.float32 and sx.shape == (3,)
+    assert torch.equal(sx, scale.reshape(-1))
+    codes = quantize_with_scale(x, sx)
+    assert codes.dtype == torch.int8 and torch.equal(codes, q)
+    jq, _ = jax_quantize_symmetric(jnp.asarray(xn.transpose(0, 2, 3, 1)).astype(jdtype), (1, 2, 3))
+    np.testing.assert_array_equal(codes.numpy().transpose(0, 2, 3, 1), np.asarray(jq))
+    assert not codes[1].any() and codes[2].max() == 127 and codes[2].min() == -127
+
+
+@pytest.mark.parametrize("dtype,jdtype", DTYPES)
+def test_fused_plain_path_matches_jax_codes(dtype, jdtype):
+    """tap_gemm_s8_plain (the kernel's signature: float x and its scale)
+    equals the codes' plain product, and the op built on it equals JAX's
+    conv3x3_w8a8 on the edge images."""
+    x, xn = _edge_images(dtype, 10)
+    w = (np.random.default_rng(11).standard_normal((8, 16, 3, 3)) / 12).astype(np.float32)
+    wq, sw = weight_codes(torch.from_numpy(w))
+    sx = activation_scale(x)
+    got = tap_gemm_s8_plain(x, wq, sx, sw, None, dtype)
+    assert torch.equal(got, tap_gemm_s8_reference(quantize_symmetric(x, (1, 2, 3))[0], wq, sx, sw,
+                                                  None, dtype))
+    jout = jax_conv3x3_w8a8(jnp.asarray(xn.transpose(0, 2, 3, 1)).astype(jdtype),
+                            jnp.asarray(w.transpose(2, 3, 1, 0)))
+    assert _rel_l2(conv3x3_w8a8(x, torch.from_numpy(w)).float().numpy(),
+                   np.asarray(jout.astype(jnp.float32)).transpose(0, 3, 1, 2)) <= 1e-5
 
 
 def test_dispatch_precedence_over_switch_and_invariance():
