@@ -8,22 +8,25 @@ Phases, in order; any failure exits non-zero:
   2. build: nvcc builds ddpo_torch/csrc/*.cu for sm_90a; cuobjdump -sass on
      the library counts each kernel function's tensor-core instructions
      (HMMA and IMMA: mma.sync; HGMMA and IGMMA: wgmma): every instantiation
-     of the bf16 flash forward and backward (dq and dk/dv) must hold HMMA,
-     of the bf16 tap-GEMM HGMMA and of the s8 tap-GEMM IGMMA; ptxas's
-     registers and spills of each of those instantiations, and the places
-     where it serialized a wgmma.
+     of the bf16 flash dK/dV kernel and of the bf16 tap-GEMM must hold
+     HGMMA, of the bf16 flash forward and dQ kernels HMMA and of the s8
+     tap-GEMM IGMMA; ptxas's registers and spills of each of those
+     instantiations, and the places where it serialized a wgmma (none may
+     be in the flash dK/dV kernel).
   3. kernels: each forward kernel against its plain PyTorch version at the
      main path's shapes, with the bound stated, plus kernel and plain times;
      the bf16 flash forward and gn_stats on image 0 of each 8-image case
      alone must give the bits of its slice of the batched call (batch
-     invariance). gn_stats prints each shape's cluster size (blocks a run;
+     invariance). With --parent DIR, the three UNet cases of 3 and 3b
+     beside DIR's flash kernels (in turns). gn_stats prints each shape's cluster size (blocks a run;
      the phase fails unless some shape runs with more than one) and the
      wrapper's host microseconds a call beside var_mean's.
   3b. backward kernels: flash_bwd_dq and flash_bwd_dkv against the plain
      fp32 backward at the trainer's shapes (2B = 4), ragged lengths and
      D = 256, in bf16 and fp32; kernel times beside the plain backward's
      and SDPA's; in bf16, image 0 of each 4-image case alone must give the
-     bits of its slice.
+     bits of its slice, and the dK/dV kernel's producer must load the
+     contiguous cases by TMA.
   4. serving: ddpo_torch.pipelines.generate.main at SD-1.4 width, 512 px,
      50 CFG DDIM steps, 4 images, random weights from a seed; checks the
      images and that the path launched each kernel the expected number of
@@ -205,8 +208,9 @@ last line is {"ok": true, "device": {...}}. With no CUDA device, or run
 outside the repository, it fails before printing any result.
 
 Run from the repository root: python3 chip_smoke.py. With --parent DIR (an
-earlier checkout, e.g. the parent commit unpacked with git archive), 3d and
-12a also time that checkout's tap-GEMMs in turns with this one's.
+earlier checkout, e.g. the parent commit unpacked with git archive), 3, 3b,
+3d and 12a also time that checkout's flash kernels and tap-GEMMs in turns
+with this one's.
 """
 
 from __future__ import annotations
@@ -228,6 +232,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # bf16 and int8 tensor cores, fp32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "int8": 1979e12, "float32": 67e12}
+# exp2 on the SFUs: 16 a clock per SM, 132 SMs, at the clock the bf16 peak
+# implies (989e12 / (132 SMs x 4096 flops a clock))
+SFU_EXP2_PER_S = 16 * 989e12 / 4096
 
 # UNet self-attentions per forward that meet the flash gate at 512 px:
 # down blocks 0-2 (S = 4096, 1024, 256) x 2 and up blocks 1-3 x 3; the
@@ -334,12 +341,14 @@ def phase_device():
 
 
 # kernel functions that must run their products on the tensor cores, with
-# the SASS instruction each of their instantiations must hold: mma.sync
-# (HMMA) for the flash kernels, wgmma for the tap-GEMMs (HGMMA bf16, IGMMA
-# s8), so that a build which quietly lost wgmma fails
+# the SASS instruction each of their instantiations must hold: wgmma (HGMMA
+# bf16, IGMMA s8) for flash dK/dV and the tap-GEMMs, mma.sync (HMMA) for
+# the flash forward and dQ, so that a build which quietly lost wgmma fails
 TENSOR_CORE_KERNELS = {"flash_fwd_mma_kernel": "HMMA", "flash_bwd_dq_mma_kernel": "HMMA",
-                       "flash_bwd_dkv_mma_kernel": "HMMA", "tap_gemm_wgmma_kernel": "HGMMA",
+                       "flash_bwd_dkv_wgmma_kernel": "HGMMA", "tap_gemm_wgmma_kernel": "HGMMA",
                        "tap_gemm_s8_wgmma_kernel": "IGMMA"}
+# kernels in which ptxas may not serialize a wgmma
+NO_SERIALIZED_WGMMA = ("flash_bwd_dkv_wgmma_kernel",)
 TENSOR_CORE_OPS = ("HMMA", "IMMA", "HGMMA", "IGMMA")
 
 
@@ -428,6 +437,9 @@ def phase_build():
     serialized = [l.strip() for l in kl.log.splitlines() if "serialized" in l]
     log(f"ptxas: wgmma serialized in {len(serialized)} places" +
         (f": {serialized[:3]}" if serialized else ""))
+    in_flash = [l for l in serialized if any(n in l for n in NO_SERIALIZED_WGMMA)]
+    if in_flash:
+        fail(f"ptxas serialized wgmma in a flash kernel: {in_flash[:3]}")
     for name, rows in sorted(ptxas_instantiations(kl.log, TENSOR_CORE_KERNELS).items()):
         log(f"ptxas {name} <template args>: registers, spill store/load bytes: " + "; ".join(
             f"<{','.join(map(str, args))}> {regs}, {st}/{ld}" for args, regs, st, ld in rows))
@@ -495,11 +507,13 @@ def check_flash(results, cases=FLASH_CASES, dtypes=None, tag=""):
                 flops = 4.0 * b * h * sq * sk * d
                 nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + 4 * b * h * sq
                 bound_ms, bound_by = roofline(flops, nbytes, name)
+                # the softmax's floor: one exp2 a score on the SFUs
+                sfu_ms = b * h * sq * sk / SFU_EXP2_PER_S * 1e3
                 entry.update(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                             bound_by=bound_by)
+                             bound_by=bound_by, sfu_ms=sfu_ms)
                 line += (f"; kernel {k_ms:.3f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s), "
                          f"plain {p_ms:.3f} ms, SDPA {lib_ms:.3f} ms, bound {bound_ms:.4f} ms "
-                         f"({bound_by})")
+                         f"({bound_by}), the exponentials' floor on the SFUs {sfu_ms:.4f} ms")
             log(line)
             results.append(entry)
             del q, k, v, out, lse, ref, ref_lse
@@ -518,6 +532,7 @@ def check_flash_bwd(results, cases=FLASH_BWD_CASES, dtypes=None, tag=""):
         flash_attention_fwd,
         flash_bwd_dkv,
         flash_bwd_dq,
+        flash_uses_tma,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -542,6 +557,12 @@ def check_flash_bwd(results, cases=FLASH_BWD_CASES, dtypes=None, tag=""):
             line = (f"{tag}flash_bwd {name} B{b} Sq{sq} Sk{sk} H{h} D{d}: max|dq,dk,dv - ref| "
                     f"{errs[0]:.3e} {errs[1]:.3e} {errs[2]:.3e} (bound {bound:.3g}, "
                     f"max|ref| {peak:.3f}); two calls equal: {same}")
+            if dtype == torch.bfloat16:
+                # the main path's contiguous inputs take dK/dV's TMA producer
+                tma = all(flash_uses_tma(t) for t in (q, k, v, do))
+                line += f"; dK/dV producer: {'TMA' if tma else 'plain loads'}"
+                if not tma and d % 8 == 0:
+                    fail(line)
             if b == 4 and dtype == torch.bfloat16:
                 # batch invariance: image 0 alone gives the bits of its slice
                 alone = flash_attention_bwd(q[:1], k[:1], v[:1], out[:1], lse[:1], do[:1])
@@ -883,30 +904,52 @@ def check_conv3x3(results, model_shapes):
 
 
 def compare_parent(parent, conv_shapes, smi):
-    """3d and 12a beside an earlier checkout's kernels (``--parent DIR``, e.g.
-    the parent commit unpacked with git archive): ddpo_torch/bench/tap_gemm.py
-    times the bf16 conv at every model shape, the fp32 one at the UNet's
-    64x64 level and the s8 conv at S8_SHAPES,
-    once against DIR's ddpo_torch and once against this one's, in turns
-    (parent, this, this, parent), each a process of its own."""
-    bench = os.path.join(REPO, "ddpo_torch", "bench", "tap_gemm.py")
-    shapes_file = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_parent_"), "shapes.json")
-    with open(shapes_file, "w") as f:
-        json.dump({"bf16": [list(s) for s in conv_shapes], "fp32": [list(conv_shapes[1])],
-                   "s8": [list(s) for s in S8_SHAPES]}, f)
+    """3, 3b, 3d and 12a beside an earlier checkout's kernels (``--parent
+    DIR``, e.g. the parent commit unpacked with git archive):
+    ddpo_torch/bench/flash.py times the bf16 flash forward, dq and dk/dv at
+    the UNet's three cases of FLASH_CASES and FLASH_BWD_CASES, and
+    ddpo_torch/bench/tap_gemm.py the bf16 conv at every model shape, the
+    fp32 one at the UNet's 64x64 level and the s8 conv at S8_SHAPES, once
+    against DIR's ddpo_torch and once against this one's, in turns (parent,
+    this, this, parent), each a process of its own."""
+    benches = {"flash": os.path.join(REPO, "ddpo_torch", "bench", "flash.py"),
+               "tap_gemm": os.path.join(REPO, "ddpo_torch", "bench", "tap_gemm.py")}
+    folder = tempfile.mkdtemp(prefix="chip_smoke_parent_")
+    shapes = {"flash": {"fwd": [list(c) for c in FLASH_CASES[:3]],
+                        "bwd": [list(c) for c in FLASH_BWD_CASES[:3]]},
+              "tap_gemm": {"bf16": [list(s) for s in conv_shapes], "fp32": [list(conv_shapes[1])],
+                           "s8": [list(s) for s in S8_SHAPES]}}
     runs = {"parent": [], "this": []}
     for who in ("parent", "this", "this", "parent"):
         root = os.path.abspath(parent) if who == "parent" else REPO
-        proc = subprocess.run([sys.executable, bench, shapes_file], cwd=root, capture_output=True,
-                              text=True, timeout=900,
-                              env=dict(os.environ, PYTHONPATH=root))
-        if proc.returncode != 0:
-            fail(f"tap_gemm bench on the {who} checkout failed:\n{proc.stderr[-3000:]}")
-        runs[who].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        result = {}
+        for bench, path in benches.items():
+            shapes_file = os.path.join(folder, f"{bench}.json")
+            with open(shapes_file, "w") as f:
+                json.dump(shapes[bench], f)
+            proc = subprocess.run([sys.executable, path, shapes_file], cwd=root,
+                                  capture_output=True, text=True, timeout=900,
+                                  env=dict(os.environ, PYTHONPATH=root))
+            if proc.returncode != 0:
+                fail(f"{bench} bench on the {who} checkout failed:\n{proc.stderr[-3000:]}")
+            result.update(json.loads(proc.stdout.strip().splitlines()[-1]))
+        runs[who].append(result)
 
     def mean(who, kind, shape, key):
         return sum(r[kind][shape][key] for r in runs[who]) / 2
 
+    for shape in runs["this"][0]["fwd"]:
+        new, old = mean("this", "fwd", shape, "ms"), mean("parent", "fwd", shape, "ms")
+        log(f"3 against the parent, flash_fwd bf16 {shape}: kernel {new:.4f} ms (parent "
+            f"{old:.4f}, {old / new:.2f}x), SDPA {mean('this', 'fwd', shape, 'sdpa_ms'):.4f} ms "
+            f"({smi})")
+    for shape in runs["this"][0]["bwd"]:
+        dkv, dkv_old = (mean(w, "bwd", shape, "dkv_ms") for w in ("this", "parent"))
+        dq, dq_old = (mean(w, "bwd", shape, "dq_ms") for w in ("this", "parent"))
+        log(f"3b against the parent, flash_bwd bf16 {shape}: dkv {dkv:.4f} ms (parent "
+            f"{dkv_old:.4f}, {dkv_old / dkv:.2f}x), dq {dq:.4f} ms (parent {dq_old:.4f}), "
+            f"dq + dkv {dq + dkv:.4f} (parent {dq_old + dkv_old:.4f}), SDPA backward "
+            f"{mean('this', 'bwd', shape, 'sdpa_bwd_ms'):.4f} ms ({smi})")
     for shape in runs["this"][0]["bf16"]:
         new, old = mean("this", "bf16", shape, "ms"), mean("parent", "bf16", shape, "ms")
         lib = mean("this", "bf16", shape, "cudnn_ms")
@@ -924,7 +967,7 @@ def compare_parent(parent, conv_shapes, smi):
         lib = mean("this", "s8", shape, "cudnn_ms")
         log(f"12a against the parent, conv3x3_s8 {shape}: the scale's reduction + the kernel "
             f"with the quantize fused {new:.4f} ms (reduction {q_new:.4f}, kernel {k_new:.4f}) "
-            f"against the parent's quantize pass + kernel {old:.4f} ms (pass {q_old:.4f}, kernel "
+            f"against the parent's {old:.4f} ms (reduction {q_old:.4f}, kernel "
             f"{k_old:.4f}), {old / new:.2f}x; cuDNN bf16 {lib:.4f} ms ({smi})")
     return runs
 

@@ -14,9 +14,11 @@
 // few MB that sit in the 50 MB L2. The exponentials (one per score, in each
 // kernel) weigh less than in the forward, against three or four products.
 //
-// bf16, on the tensor cores (mma.sync.m16n8k16, bf16 in, fp32 accumulate),
-// FlashAttention-2's shape, one owner per output row as in the fp32 kernels:
-//   - flash_bwd_dq_mma_kernel: a block of 4 warps owns 64 query rows, 16 per
+// bf16, on the tensor cores (bf16 in, fp32 accumulate), one owner per
+// output row as in the fp32 kernels:
+//   - flash_bwd_dq_mma_kernel (mma.sync.m16n8k16, FlashAttention-2's shape,
+//     as the forward's; their Hopper redesigns follow on the dK/dV kernel's
+//     helpers): a block of 4 warps owns 64 query rows, 16 per
 //     warp; from Sq = 1024 up and for D <= 80, 128 rows in two m16 tiles a
 //     warp that share every K and V fragment. Q's and dO's A fragments are
 //     loaded once by ldmatrix (kept in registers up to 10 k16 steps a warp,
@@ -30,33 +32,44 @@
 //     straight from its C fragments into the A fragments of dQ += dS K, whose
 //     B fragments come by ldmatrix.trans from the same K tile. The scale
 //     multiplies dQ in fp32 at the end. Keys past Sk give P = 0.
-//   - flash_bwd_dkv_mma_kernel, the transposed form: a warp owns 16 keys, a
-//     block 64 (from Sk = 1024 up and for D <= 48, 32 keys a warp in two m16
-//     tiles that share every Q and dO fragment), and streams Q/dO tiles of
-//     64 queries the same way, with each
-//     tile's lse and delta (64 floats each) staged beside them by 4-byte
-//     cp.async. Per 16 queries: S^T = K Q^T and dP^T = V dO^T from K's and
-//     V's A fragments (in registers up to D = 160); P^T and dS^T then sit in
-//     the C layout that is the A layout of dV += P^T dO and dK += dS^T Q, so
-//     they are rounded to bf16 in registers and never pass through shared
-//     memory; dO's and Q's B fragments come by ldmatrix.trans. Query rows
-//     past Sq give P = 0 by an explicit select, not through a padded lse
-//     (0 * inf and -inf - -inf are NaN). Keys past Sk are never written.
-//   - Registers: a warp's dK and dV for 16 keys are D fp32 a lane, more than
-//     fit above D = 80 beside the fragments. There a block owns 16*NG of the
-//     D columns (NG = ceil(NC / ceil(NC / 5)), a grid dimension over the
-//     column groups) and recomputes S^T and dP^T for each group: at D = 160 two
-//     groups, six products in place of four.
+//   - flash_bwd_dkv_wgmma_kernel (Hopper: wgmma + TMA, flash_tiles.cuh): two
+//     consumer warpgroups own 64 keys each (the wgmma M tile; one above
+//     D = 192, where two stages of Q and dO no longer fit beside two
+//     warpgroups' K and V), and a producer warp streams 64-query
+//     tiles of Q and dO by TMA into a ring of 2-4 stages, with each tile's
+//     lse and delta (64 fp32 each) copied beside them by 4-byte cp.async
+//     that arrive on the same full mbarrier. Per query tile (in halves of
+//     32 above D = 64): S^T = K Q^T and dP^T = V dO^T with K and V as the A
+//     operands from shared memory (SS), Q and dO as K-major B; then P^T =
+//     exp2(s*scale*log2(e) - lse*log2(e)) and dS^T = P^T (dP^T - delta) in
+//     registers, which sit in the C layout that is the A layout of dV +=
+//     P^T dO and dK += dS^T Q, so they are rounded to bf16 in registers
+//     (RS) with dO and Q as MN-major B (tnspB = 1). Query rows past Sq give
+//     P = 0 by an explicit select, not through a padded lse (0 * inf and
+//     -inf - -inf are NaN). Keys past Sk are never written. The two
+//     warpgroups take turns to issue their products (FlashAttention-3's
+//     ping-pong), so one's exponentials run while the other's products do.
+//   - Registers: a thread of the 288-thread block may hold 168. dK and dV
+//     for 64 keys are D fp32 a thread, S^T and dP^T QH/2 each (QH = 64
+//     queries up to D = 64, 32 above). So dK and dV are split into column
+//     groups (a grid dimension) of two 64-column atoms up to D = 96 and of
+//     one above, each group recomputing S^T and dP^T: one group up to
+//     D = 96 (ptxas: D = 40 at 148 registers, D = 80 at 153, no spills),
+//     two up to D = 128, three at D = 160 (168 registers, 16 bytes of
+//     spills; 64-208 bytes at D = 161-192), four above (one consumer
+//     warpgroup, 188-209 registers, none). No instantiation's wgmma is
+//     serialized.
 //   - The only new roundings against the fp32 kernels are P (for dV) and dS
 //     (for dQ and dK) to bf16 as A operands; S and dP are exact bf16
 //     products summed in fp32. tests/test_torch_flash_numerics.py emulates
 //     this arithmetic on the CPU against JAX's kernels.
 // Summation order: each output element has one owner (a lane of the warp
-// that owns its row) and adds its terms in a fixed order: tiles in order, 16
-// rows at a time, the mma's k16 steps in order. No split over keys (dq) or
-// queries (dkv) and no atomics, and nothing depends on the batch or the
-// head, so two calls give the same bits and image i alone gives the bits
-// it gets inside a batch.
+// that owns its row) and adds its terms in a fixed order: tiles in order,
+// 16 rows at a time, the k16 steps in order. No split over keys (dq) or
+// queries (dkv) and no atomics; tile sizes depend on D alone, and nothing
+// on the batch, the head or the row's place in the block, so two calls
+// give the same bits and image i alone gives the bits it gets inside a
+// batch.
 //
 // fp32 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel) stays on the CUDA cores
 // in FMA: TF32 keeps 10 mantissa bits and would break the 1e-4 bounds. The
@@ -71,6 +84,7 @@
 // (B, S, H) strides, so the caller neither pads nor transposes.
 
 #include "common.cuh"
+#include "flash_tiles.cuh"
 #include "mma.cuh"
 
 #include <type_traits>
@@ -401,20 +415,6 @@ constexpr size_t dq_smem_bytes() {
   return sizeof(bf16) * size_t(2 * 16 * kWarps * MI + 4 * BS) * mma_ld<NC>();
 }
 
-// dkv: K and V [64 MI][LD] + Q and dO [2][BS][LD], bf16; lse and delta [2][BS], fp32
-template <int NC, int MI>
-constexpr size_t dkv_smem_bytes() {
-  return sizeof(bf16) * size_t(2 * 16 * kWarps * MI + 4 * BS) * mma_ld<NC>() +
-         sizeof(float) * 4 * BS;
-}
-
-// 16-column chunks of dK and dV a dkv block owns: all of them up to D = 80,
-// else an even share of ceil(NC / 5) groups
-template <int NC>
-__host__ __device__ constexpr int dkv_cols() {
-  return NC <= 5 ? NC : (NC + (NC + 4) / 5 - 1) / ((NC + 4) / 5);
-}
-
 // dQ for 64 * MI query rows of one (head, batch): 4 warps of 16 * MI rows
 template <int NC, int MI>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_mma_kernel(
@@ -588,194 +588,285 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_mma_kernel(
     }
 }
 
-// dK and dV for 64 * MI keys of one (head, batch), columns 16*c0 ..
-// 16*(c0+NG)-1: 4 warps of 16 * MI keys (the MI m16 tiles of a warp share
-// each Q and dO fragment)
-template <int NC, int NG, int MI>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_mma_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
-    int Sq, int Sk, int D, Strides st, float scale, bool vec, int groups) {
-  constexpr int LD = mma_ld<NC>();
-  constexpr int MK = 16 * kWarps * MI;
-  constexpr bool kRegs = NC * MI <= 10;  // K's and V's A fragments in registers
-  static_assert(kThreads == 2 * BS, "one thread stages each lse and delta value");
-  extern __shared__ uint4 smem_u4[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_u4);
-  bf16* vs = ks + MK * LD;
-  bf16* qs = vs + MK * LD;      // [2][BS][LD]
-  bf16* gs = qs + 2 * BS * LD;  // [2][BS][LD]
-  float* stats = reinterpret_cast<float*>(gs + 2 * BS * LD);  // [2][lse BS, delta BS]
+// ---- dK/dV in bf16: wgmma + TMA ----
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tq = lane & 3;
-  const int k0 = blockIdx.x * MK, h = blockIdx.y, b = blockIdx.z / groups;
-  const int c0 = (blockIdx.z - b * groups) * NG;  // first 16-column chunk this block owns
-  const bf16* qb = q + b * st.q_b + h * st.q_h;
-  const bf16* kb = k + b * st.k_b + h * st.k_h;
-  const bf16* vb = v + b * st.v_b + h * st.v_h;
-  const bf16* gb = dout + b * st.do_b + h * st.do_h;
-  // thread tid stages lse (tid < BS) or delta of query row (tid mod BS)
-  const float* stat_src = (tid < BS ? lse : delta) + (int64_t(b) * H + h) * Sq;
+namespace fl = ddpo::flash;
 
-  auto stage_q_tile = [&](int buf, int row0) {
-    stage_rows(qs + buf * BS * LD, qb, st.q_s, row0, BS, Sq, D, LD, vec, tid, kThreads);
-    stage_rows(gs + buf * BS * LD, gb, st.do_s, row0, BS, Sq, D, LD, vec, tid, kThreads);
-    const int row = row0 + (tid & (BS - 1));
-    ddpo::cp_async4(ddpo::smem_addr(stats + buf * 2 * BS + tid),
-                    row < Sq ? stat_src + row : stat_src, row < Sq);
-  };
-
-  for (int i = tid; i < (2 * MK + 4 * BS) * LD / 8; i += kThreads)
-    smem_u4[i] = make_uint4(0, 0, 0, 0);
-  __syncthreads();
-  stage_rows(ks, kb, st.k_s, k0, MK, Sk, D, LD, vec, tid, kThreads);
-  stage_rows(vs, vb, st.v_s, k0, MK, Sk, D, LD, vec, tid, kThreads);
-  stage_q_tile(0, 0);
-  ddpo::cp_async_commit();
-  ddpo::cp_async_wait<0>();
-  __syncthreads();
-
-  const int a_off = warp * 16 * MI * LD + a_frag_off(lane, LD);
-  const uint32_t k_addr = ddpo::smem_addr(ks + a_off), v_addr = ddpo::smem_addr(vs + a_off);
-  uint32_t kf[kRegs ? MI : 1][kRegs ? NC : 1][4], vf[kRegs ? MI : 1][kRegs ? NC : 1][4];
-  if constexpr (kRegs) {
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-      for (int kk = 0; kk < NC; ++kk) {
-        ddpo::ldmatrix_x4(kf[mi][kk], k_addr + (mi * 16 * LD + kk * 16) * 2);
-        ddpo::ldmatrix_x4(vf[mi][kk], v_addr + (mi * 16 * LD + kk * 16) * 2);
-      }
+// Tiles of the bf16 dkv kernel for D padded to 16 * NC, functions of D
+// alone: a consumer warpgroup owns 64 keys; two run in a block where their
+// K and V and two stages of Q and dO fit in shared memory (up to D = 192),
+// else one. Above D = 64 a 64-query tile is taken in halves of 32, so that
+// S^T and dP^T (16 fp32 a thread each) and dK and dV (D fp32) fit in the
+// 168 registers a thread of 288 may hold: dK and dV are split into column
+// groups (grid dimension z) of two atoms up to D = 96 and of one above,
+// each group recomputing S^T and dP^T.
+template <int NC>
+struct DkvTile {
+  static constexpr int NA = fl::atoms<NC>();
+  static constexpr int NCW = NA <= 3 ? 2 : 1;          // consumer warpgroups
+  static constexpr int GA = NC <= 6 ? 2 : 1;           // atoms of dK and dV a group
+  static constexpr int QH = NC <= 4 ? 64 : 32;         // queries a product takes
+  static constexpr int GROUPS = (NA + GA - 1) / GA;    // column groups
+  static constexpr int TILE = NA * 64 * fl::ROW_BYTES;  // 64 rows of one array
+  static constexpr size_t smem(int stages) {
+    // K and V [NCW][NA][64][128], then per stage Q and dO [NA][64][128] and
+    // lse, delta [2][64] fp32; the barriers
+    return 1024 + size_t(2) * NCW * TILE + size_t(stages) * (2 * TILE + 2 * 64 * 4) +
+           8 * (1 + 2 * stages);
   }
-  const int b_off = b_frag_off(lane, LD), bt_off = bt_frag_off(lane, LD);
-  const float scale_log2 = scale * kLog2e;
+};
 
-  float adk[MI][2 * NG][4], adv[MI][2 * NG][4];
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int n = 0; n < 2 * NG; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) adk[mi][n][e] = adv[mi][n][e] = 0.f;
+struct DkvArgs {
+  const bf16 *q, *k, *v, *dout;
+  const float *lse, *delta;
+  bf16 *dk, *dv;
+  int H, Sq, Sk, D;
+  Strides st;
+  float scale;
+  int tma;     // 1: the producer loads by TMA; 0: by plain loads
+  int stages;  // Q/dO tiles in flight
+};
 
-  const int ntiles = (Sq + BS - 1) / BS;
-  for (int t = 0; t < ntiles; ++t) {
-    const int cur = t & 1;
-    if (t + 1 < ntiles) stage_q_tile(cur ^ 1, (t + 1) * BS);
-    ddpo::cp_async_commit();
-    ddpo::cp_async_wait<1>();  // tile t has landed
-    __syncthreads();
-    const bf16* qt = qs + cur * BS * LD;
-    const bf16* gt = gs + cur * BS * LD;
-    const uint32_t q_addr = ddpo::smem_addr(qt + b_off), qt_addr = ddpo::smem_addr(qt + bt_off);
-    const uint32_t g_addr = ddpo::smem_addr(gt + b_off), gt_addr = ddpo::smem_addr(gt + bt_off);
-    const float* lse_t = stats + cur * 2 * BS;
-    const float* dl_t = lse_t + BS;
-    const int rows_left = Sq - t * BS;  // query rows of this tile at or past it are padding
+// One consumer warpgroup's dK and dV over the atoms GRP * GA .. of D, for
+// the 64 keys whose K and V tiles sit at k_base and v_base
+template <int NC, int GRP>
+__device__ __forceinline__ void dkv_consumer(const DkvArgs& a, uint32_t k_base, uint32_t v_base,
+                                             const uint8_t* qs, const uint8_t* gs,
+                                             const float* stats, uint32_t bars, int key0, int b,
+                                             int h) {
+  using Tile = DkvTile<NC>;
+  constexpr int NA = Tile::NA, A0 = Tile::GA * GRP, QH = Tile::QH, KQ = QH / 16;
+  constexpr int GN = NA - A0 < Tile::GA ? NA - A0 : Tile::GA;  // atoms of this group
+  constexpr int N0 = fl::atom_n<NC>(A0), N1 = fl::atom_n<NC>(A0 + GN - 1);
+  const int ST = a.stages;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + ST + s); };
+  const int lane = threadIdx.x & 31, wq = (threadIdx.x >> 5) & 3, g = lane >> 2, tq = lane & 3;
+  const float scale_log2 = a.scale * kLog2e;
+  const fl::Turns turns{int(threadIdx.x) / fl::WG, Tile::NCW};
 
+  float dk[GN][32], dv[GN][32], s[QH / 2], dp[QH / 2];
+  uint32_t pa[KQ][4], da[KQ][4];
 #pragma unroll
-    for (int qc = 0; qc < BS / 16; ++qc) {  // 16 queries at a time
-      // S^T = K Q^T and dP^T = V dO^T: 16 MI keys x 16 queries a warp
-      float s[MI][2][4], dp[MI][2][4];
+  for (int i = 0; i < 32; ++i)
 #pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
+    for (int c = 0; c < GN; ++c) dk[c][i] = dv[c][i] = 0.f;
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
+  for (int i = 0; i < QH / 2; ++i) s[i] = dp[i] = 0.f;
+
+  turns.start();
+  ddpo::mbar_wait(bars, 0);  // K and V
+  const int nt = (a.Sq + 63) / 64;
+  for (int t = 0; t < nt; ++t) {
+    const int st = t % ST;
+    ddpo::mbar_wait(full(st), (t / ST) & 1);
+    const uint32_t qt = ddpo::smem_addr(qs + st * Tile::TILE);
+    const uint32_t gt = ddpo::smem_addr(gs + st * Tile::TILE);
+#pragma unroll 1
+    for (int hq = 0; hq < 64 / QH; ++hq) {  // queries QH hq .. QH hq + QH - 1 of the tile
+      // S^T = K Q^T and dP^T = V dO^T over all of D (K and V the A operands)
+      turns.take();
+      ddpo::fence_operands(s);
+      ddpo::fence_operands(dp);
+      ddpo::wgmma_fence();
 #pragma unroll
-          for (int e = 0; e < 4; ++e) s[mi][j][e] = dp[mi][j][e] = 0.f;
+      for (int kk = 0; kk < NC; ++kk)
+        ddpo::wgmma_ss<QH>(s, fl::k_desc(k_base, 64, kk),
+                           fl::k_desc(qt + QH * hq * fl::ROW_BYTES, 64, kk), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < NC; ++kk) {
-        uint32_t qf4[4], gf4[4];
-        ddpo::ldmatrix_x4(qf4, q_addr + (qc * 16 * LD + kk * 16) * 2);
-        ddpo::ldmatrix_x4(gf4, g_addr + (qc * 16 * LD + kk * 16) * 2);
+      for (int kk = 0; kk < NC; ++kk)
+        ddpo::wgmma_ss<QH>(dp, fl::k_desc(v_base, 64, kk),
+                           fl::k_desc(gt + QH * hq * fl::ROW_BYTES, 64, kk), kk > 0);
+      ddpo::wgmma_commit();
+      ddpo::fence_operands(s);
+      ddpo::fence_operands(dp);
+      turns.pass(false);
+      ddpo::wgmma_wait<0>();
+      ddpo::fence_operands(s);
+      ddpo::fence_operands(dp);
+
+      // P^T = exp2(S^T scale log2(e) - lse log2(e)), dS^T = P^T (dP^T - delta);
+      // the lane holds keys g + 8r and queries QH hq + 8j + 2tq + e of the
+      // tile. Query rows past Sq give P = 0 by this select, not through lse.
+      const float* lse_t = stats + st * 128 + QH * hq;
+      const float* dl_t = lse_t + 64;
+      const int rows_left = a.Sq - t * 64 - QH * hq;
 #pragma unroll
-        for (int mi = 0; mi < MI; ++mi) {
-          uint32_t a[4], va[4];
-          if constexpr (kRegs) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              a[i] = kf[mi][kk][i];
-              va[i] = vf[mi][kk][i];
-            }
-          } else {
-            ddpo::ldmatrix_x4(a, k_addr + (mi * 16 * LD + kk * 16) * 2);
-            ddpo::ldmatrix_x4(va, v_addr + (mi * 16 * LD + kk * 16) * 2);
-          }
-          ddpo::mma_bf16(s[mi][0], a, qf4[0], qf4[1]);
-          ddpo::mma_bf16(s[mi][1], a, qf4[2], qf4[3]);
-          ddpo::mma_bf16(dp[mi][0], va, gf4[0], gf4[1]);
-          ddpo::mma_bf16(dp[mi][1], va, gf4[2], gf4[3]);
-        }
-      }
-      // P^T and dS^T = P^T (dP^T - delta); the lane holds keys g + 8r of
-      // each m16 tile and queries qc*16 + 8j + 2tq + e
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
+      for (int j = 0; j < QH / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int col = qc * 16 + j * 8 + 2 * tq + e;
+          const int col = 8 * j + 2 * tq + e;
           const float l2 = lse_t[col] * kLog2e, dlv = dl_t[col];
 #pragma unroll
-          for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-            for (int r = 0; r < 2; ++r) {
-              float p = ddpo::exp2_ftz(fmaf(s[mi][j][2 * r + e], scale_log2, -l2));
-              if (col >= rows_left) p = 0.f;
-              dp[mi][j][2 * r + e] = p * (dp[mi][j][2 * r + e] - dlv);
-              s[mi][j][2 * r + e] = p;
-            }
+          for (int r = 0; r < 2; ++r) {
+            float p = ddpo::exp2_ftz(fmaf(s[4 * j + 2 * r + e], scale_log2, -l2));
+            if (col >= rows_left) p = 0.f;
+            dp[4 * j + 2 * r + e] = p * (dp[4 * j + 2 * r + e] - dlv);
+            s[4 * j + 2 * r + e] = p;
+          }
         }
-      uint32_t pa[MI][4], da[MI][4];
+      fl::pack_a(pa, s);
+      fl::pack_a(da, dp);
+
+      // dV += P^T dO and dK += dS^T Q over this group's atoms (dO and Q
+      // MN-major), k steps KQ hq .. KQ hq + KQ - 1 of the tile's four
+      const bool last = t == nt - 1 && hq == 64 / QH - 1;
+      turns.take();
+      ddpo::wgmma_fence();
 #pragma unroll
-      for (int mi = 0; mi < MI; ++mi) {
-        pa[mi][0] = ddpo::pack_bf16(s[mi][0][0], s[mi][0][1]);
-        pa[mi][1] = ddpo::pack_bf16(s[mi][0][2], s[mi][0][3]);
-        pa[mi][2] = ddpo::pack_bf16(s[mi][1][0], s[mi][1][1]);
-        pa[mi][3] = ddpo::pack_bf16(s[mi][1][2], s[mi][1][3]);
-        da[mi][0] = ddpo::pack_bf16(dp[mi][0][0], dp[mi][0][1]);
-        da[mi][1] = ddpo::pack_bf16(dp[mi][0][2], dp[mi][0][3]);
-        da[mi][2] = ddpo::pack_bf16(dp[mi][1][0], dp[mi][1][1]);
-        da[mi][3] = ddpo::pack_bf16(dp[mi][1][2], dp[mi][1][3]);
+      for (int kq = 0; kq < KQ; ++kq) {
+        ddpo::wgmma_rs_mn<N0>(dv[0], pa[kq], fl::mn_desc(gt, 64, A0, KQ * hq + kq));
+        if constexpr (GN > 1)
+          ddpo::wgmma_rs_mn<N1>(dv[1], pa[kq], fl::mn_desc(gt, 64, A0 + 1, KQ * hq + kq));
       }
-      // dV += P^T dO and dK += dS^T Q over this block's columns
 #pragma unroll
-      for (int np = 0; np < NG; ++np) {
-        if (NG < NC && c0 + np >= NC) break;  // the last group's share may run past D
-        uint32_t t4[4];
-        ddpo::ldmatrix_x4_trans(t4, gt_addr + (qc * 16 * LD + (c0 + np) * 16) * 2);
+      for (int kq = 0; kq < KQ; ++kq) {
+        ddpo::wgmma_rs_mn<N0>(dk[0], da[kq], fl::mn_desc(qt, 64, A0, KQ * hq + kq));
+        if constexpr (GN > 1)
+          ddpo::wgmma_rs_mn<N1>(dk[1], da[kq], fl::mn_desc(qt, 64, A0 + 1, KQ * hq + kq));
+      }
+      ddpo::wgmma_commit();
 #pragma unroll
-        for (int mi = 0; mi < MI; ++mi) {
-          ddpo::mma_bf16(adv[mi][2 * np], pa[mi], t4[0], t4[1]);
-          ddpo::mma_bf16(adv[mi][2 * np + 1], pa[mi], t4[2], t4[3]);
-        }
-        ddpo::ldmatrix_x4_trans(t4, qt_addr + (qc * 16 * LD + (c0 + np) * 16) * 2);
+      for (int c = 0; c < GN; ++c) {
+        ddpo::fence_operands(dk[c]);
+        ddpo::fence_operands(dv[c]);
+      }
+      turns.pass(last);
+      ddpo::wgmma_wait<0>();
 #pragma unroll
-        for (int mi = 0; mi < MI; ++mi) {
-          ddpo::mma_bf16(adk[mi][2 * np], da[mi], t4[0], t4[1]);
-          ddpo::mma_bf16(adk[mi][2 * np + 1], da[mi], t4[2], t4[3]);
-        }
+      for (int c = 0; c < GN; ++c) {
+        ddpo::fence_operands(dk[c]);
+        ddpo::fence_operands(dv[c]);
+      }
+#pragma unroll
+      for (int kq = 0; kq < KQ; ++kq) {
+        ddpo::fence_operands(pa[kq]);
+        ddpo::fence_operands(da[kq]);
       }
     }
-    __syncthreads();  // this tile's buffers may be refilled
+    ddpo::mbar_arrive(empty(st));
   }
 
 #pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 16 * wq + g + 8 * r;
+    if (key >= a.Sk) continue;
+    const int64_t at = ((int64_t(b) * a.Sk + key) * a.H + h) * a.D;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int key = k0 + (warp * MI + mi) * 16 + g + 8 * r;
-      if (key >= Sk) continue;
-      const int64_t at = ((int64_t(b) * Sk + key) * H + h) * D;
+    for (int c = 0; c < GN; ++c)
 #pragma unroll
-      for (int n = 0; n < 2 * NG; ++n) {
-        const int col = (2 * c0 + n) * 8 + 2 * tq;
-        ddpo::store_pair(dk + at, col, D, adk[mi][n][2 * r] * scale,
-                         adk[mi][n][2 * r + 1] * scale);
-        ddpo::store_pair(dv + at, col, D, adv[mi][n][2 * r], adv[mi][n][2 * r + 1]);
+      for (int j = 0; j < 8; ++j)
+        if (c < GN - 1 ? j < N0 / 8 : j < N1 / 8) {
+          const int col = (A0 + c) * fl::ATOM + 8 * j + 2 * tq;
+          ddpo::store_pair(a.dk + at, col, a.D, dk[c][4 * j + 2 * r] * a.scale,
+                           dk[c][4 * j + 2 * r + 1] * a.scale);
+          ddpo::store_pair(a.dv + at, col, a.D, dv[c][4 * j + 2 * r], dv[c][4 * j + 2 * r + 1]);
+        }
+  }
+}
+
+// dK and dV for 64 * NCW keys of one (head, batch) and one column group:
+// grid (key tiles, H, B * GROUPS)
+template <int NC>
+__global__ void __launch_bounds__(fl::block_threads(DkvTile<NC>::NCW), 1) flash_bwd_dkv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap gmap,
+    const DkvArgs a) {
+  using Tile = DkvTile<NC>;
+  constexpr int NA = Tile::NA, NCW = Tile::NCW, TILE = Tile::TILE;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ks = smem_raw + ((1024 - (ddpo::smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* vs = ks + NCW * TILE;    // K and V: [NCW][NA][64][128]
+  uint8_t* qs = vs + NCW * TILE;    // Q: [stages][NA][64][128]
+  const int ST = a.stages;
+  uint8_t* gs = qs + ST * TILE;     // dO: [stages][NA][64][128]
+  float* stats = reinterpret_cast<float*>(gs + ST * TILE);  // [stages][lse 64, delta 64]
+  const uint32_t bars = ddpo::smem_addr(stats + ST * 128);
+  const uint32_t kv_full = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + ST + s); };
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int k0 = blockIdx.x * 64 * NCW, h = blockIdx.y;
+  const int b = blockIdx.z / Tile::GROUPS, grp = blockIdx.z - b * Tile::GROUPS;
+  const int nt = (a.Sq + 63) / 64;
+
+  if (tid == 0) {
+    ddpo::mbar_init(kv_full, a.tma ? 1 : 32);
+    for (int s = 0; s < ST; ++s) {
+      ddpo::mbar_init(full(s), 32);  // the producer warp's lanes
+      ddpo::mbar_init(empty(s), NCW * fl::WG);
+    }
+    ddpo::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * NCW) {  // the producer warp
+    const float* lse_bh = a.lse + (int64_t(b) * a.H + h) * a.Sq;
+    const float* dl_bh = a.delta + (int64_t(b) * a.H + h) * a.Sq;
+    // lse and delta of query rows row0 .. row0 + 63 (0 past Sq) into stage
+    // s by cp.async, 4 bytes each, the lane's share
+    auto stage_stats = [&](int s, int row0) {
+      for (int i = lane; i < 128; i += 32) {
+        const int row = row0 + (i & 63);
+        const float* src = i < 64 ? lse_bh : dl_bh;
+        ddpo::cp_async4(ddpo::smem_addr(stats + s * 128 + i), row < a.Sq ? src + row : src,
+                        row < a.Sq);
+      }
+    };
+    if (a.tma) {
+      if (lane == 0) {
+        ddpo::mbar_arrive_expect_tx(kv_full, 2 * NCW * TILE);
+        for (int c = 0; c < NCW; ++c) {
+          fl::load_tile(ddpo::smem_addr(ks + c * TILE), &kmap, kv_full, b, h, k0 + 64 * c, 64, NA);
+          fl::load_tile(ddpo::smem_addr(vs + c * TILE), &vmap, kv_full, b, h, k0 + 64 * c, 64, NA);
+        }
+      }
+      for (int t = 0; t < nt; ++t) {
+        const int s = t % ST, use = t / ST;
+        if (use > 0) ddpo::mbar_wait(empty(s), (use - 1) & 1);
+        if (lane == 0) {
+          ddpo::mbar_expect_tx(full(s), 2 * TILE);
+          fl::load_tile(ddpo::smem_addr(qs + s * TILE), &qmap, full(s), b, h, t * 64, 64, NA);
+          fl::load_tile(ddpo::smem_addr(gs + s * TILE), &gmap, full(s), b, h, t * 64, 64, NA);
+        }
+        stage_stats(s, t * 64);
+        ddpo::cp_async_mbar_arrive(full(s));  // once the lane's lse and delta land
+      }
+    } else {
+      const bf16* qb = a.q + b * a.st.q_b + h * a.st.q_h;
+      const bf16* kb = a.k + b * a.st.k_b + h * a.st.k_h;
+      const bf16* vb = a.v + b * a.st.v_b + h * a.st.v_h;
+      const bf16* gb = a.dout + b * a.st.do_b + h * a.st.do_h;
+      for (int c = 0; c < NCW; ++c) {
+        fl::stage_tile(ks + c * TILE, kb, a.st.k_s, k0 + 64 * c, 64, a.Sk, a.D, NA, lane, 32);
+        fl::stage_tile(vs + c * TILE, vb, a.st.v_s, k0 + 64 * c, 64, a.Sk, a.D, NA, lane, 32);
+      }
+      ddpo::fence_proxy_async();
+      ddpo::mbar_arrive(kv_full);
+      for (int t = 0; t < nt; ++t) {
+        const int s = t % ST, use = t / ST;
+        if (use > 0) ddpo::mbar_wait(empty(s), (use - 1) & 1);
+        fl::stage_tile(qs + s * TILE, qb, a.st.q_s, t * 64, 64, a.Sq, a.D, NA, lane, 32);
+        fl::stage_tile(gs + s * TILE, gb, a.st.do_s, t * 64, 64, a.Sq, a.D, NA, lane, 32);
+        stage_stats(s, t * 64);
+        ddpo::fence_proxy_async();
+        ddpo::cp_async_mbar_arrive(full(s));
       }
     }
+    return;
+  }
+
+  const int cw = warp / 4;
+  const uint32_t k_base = ddpo::smem_addr(ks + cw * TILE), v_base = ddpo::smem_addr(vs + cw * TILE);
+  const int key0 = k0 + 64 * cw;
+  if (grp == 0) dkv_consumer<NC, 0>(a, k_base, v_base, qs, gs, stats, bars, key0, b, h);
+  if constexpr (Tile::GROUPS > 1)
+    if (grp == 1) dkv_consumer<NC, 1>(a, k_base, v_base, qs, gs, stats, bars, key0, b, h);
+  if constexpr (Tile::GROUPS > 2)
+    if (grp == 2) dkv_consumer<NC, 2>(a, k_base, v_base, qs, gs, stats, bars, key0, b, h);
+  if constexpr (Tile::GROUPS > 3)
+    if (grp == 3) dkv_consumer<NC, 3>(a, k_base, v_base, qs, gs, stats, bars, key0, b, h);
 }
 
 struct BwdArgs {
@@ -845,41 +936,47 @@ cudaError_t launch_dq_mma(const BwdArgs& a, cudaStream_t stream) {
   return launch_dq_tiles<NC, 1>(a, stream);
 }
 
-template <int NC, int MI>
-cudaError_t launch_dkv_tiles(const BwdArgs& a, cudaStream_t stream) {
-  constexpr int NG = dkv_cols<NC>();
-  const size_t smem = dkv_smem_bytes<NC, MI>();
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_mma_kernel<NC, NG, MI>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (e != cudaSuccess) return e;
-  constexpr int groups = (NC + NG - 1) / NG, keys = 16 * kWarps * MI;
-  const dim3 grid((a.Sk + keys - 1) / keys, a.H, a.B * groups);
-  flash_bwd_dkv_mma_kernel<NC, NG, MI><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse, a.delta,
-      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.H, a.Sq, a.Sk, a.D, a.st,
-      a.scale, a.vec, groups);
-  return cudaGetLastError();
-}
-
-// Two m16 key tiles a warp (128 keys a block) up to D = 48 from Sk = 1024
-// up: half the Q/dO fragment loads per product, faster at the UNet's
-// S = 4096 with the same bits. Above D = 48 the dK and dV accumulators of
-// two tiles pass 255 registers; below Sk = 1024, 128-key blocks leave SMs
-// idle.
 template <int NC>
-cudaError_t launch_dkv_mma(const BwdArgs& a, cudaStream_t stream) {
-  if constexpr (NC <= 3) {
-    if (a.Sk >= 1024) return launch_dkv_tiles<NC, 2>(a, stream);
-  }
-  return launch_dkv_tiles<NC, 1>(a, stream);
+cudaError_t launch_dkv_wgmma(const BwdArgs& args, cudaStream_t stream) {
+  using Tile = DkvTile<NC>;
+  DkvArgs a{};
+  a.q = static_cast<const bf16*>(args.q);
+  a.k = static_cast<const bf16*>(args.k);
+  a.v = static_cast<const bf16*>(args.v);
+  a.dout = static_cast<const bf16*>(args.dout);
+  a.lse = args.lse;
+  a.delta = args.delta;
+  a.dk = static_cast<bf16*>(args.dk);
+  a.dv = static_cast<bf16*>(args.dv);
+  a.H = args.H, a.Sq = args.Sq, a.Sk = args.Sk, a.D = args.D;
+  a.st = args.st;
+  a.scale = args.scale;
+  const Strides& st = args.st;
+  const int64_t strides[12] = {st.q_b, st.q_s, st.q_h, st.k_b, st.k_s, st.k_h,
+                               st.v_b, st.v_s, st.v_h, st.do_b, st.do_s, st.do_h};
+  CUtensorMap maps[4] = {};
+  const void* bases[4] = {args.q, args.k, args.v, args.dout};
+  const int rows[4] = {64, 64, 64, 64}, lens[4] = {args.Sq, args.Sk, args.Sk, args.Sq};
+  a.tma = fl::tensor_maps(maps, bases, strides, 4, args.B, lens, args.H, args.D, rows);
+  a.stages = 4;
+  while (a.stages > 2 && Tile::smem(a.stages) > size_t(fl::SMEM_MAX)) --a.stages;
+  const size_t smem = Tile::smem(a.stages);
+  // above 48 KB a block's dynamic shared memory must be allowed, once
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      flash_bwd_dkv_wgmma_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (allowed != cudaSuccess) return allowed;
+  constexpr int keys = 64 * Tile::NCW;
+  const dim3 grid((args.Sk + keys - 1) / keys, args.H, args.B * Tile::GROUPS);
+  flash_bwd_dkv_wgmma_kernel<NC><<<grid, fl::block_threads(Tile::NCW), smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], a);
+  return cudaGetLastError();
 }
 
 // bf16 takes the tensor-core kernels, fp32 the FMA kernels
 template <typename T, bool DQ, int NC>
 cudaError_t launch_for(const BwdArgs& a, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, bf16>)
-    return DQ ? launch_dq_mma<NC>(a, stream) : launch_dkv_mma<NC>(a, stream);
+    return DQ ? launch_dq_mma<NC>(a, stream) : launch_dkv_wgmma<NC>(a, stream);
   else
     return DQ ? launch_dq<T, NC>(a, stream) : launch_dkv<T, NC>(a, stream);
 }
@@ -937,6 +1034,15 @@ extern "C" int ddpo_flash_bwd_dq(const void* q, const void* k, const void* v,
   BwdArgs a = make_args(q, k, v, dout, lse, delta, B, H, Sq, Sk, D, strides, scale);
   a.dq = dq;
   return run<true>(a, dtype, stream);
+}
+
+// 1 where the bf16 dK/dV kernel's producer loads the (B, S, H, D) array at
+// base with these element strides by TMA, 0 where it stages it by plain
+// loads
+extern "C" int ddpo_flash_tma_ok(const void* base, int B, int S, int H, int D, int64_t sb,
+                                 int64_t ss, int64_t sh) {
+  CUtensorMap map;
+  return ddpo::bshd_tensor_map(&map, base, B, S, H, D, sb, ss, sh, 64) == cudaSuccess;
 }
 
 // As ddpo_flash_bwd_dq; dk, dv: contiguous (B, Sk, H, D) in the input dtype.

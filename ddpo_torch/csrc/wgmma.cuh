@@ -1,22 +1,35 @@
-// Hopper building blocks of the two tap-GEMMs (sm_90a): warpgroup matrix
-// multiplies (wgmma) with A in registers and B in shared memory, the
-// mbarriers that pace their operand pipeline, the TMA load of a weight
-// tile, and the host side's tensor map for it.
+// Hopper building blocks of the tap-GEMMs and the flash kernels (sm_90a):
+// warpgroup matrix multiplies (wgmma) with A in registers (RS) or shared
+// memory (SS) and B in shared memory, the mbarriers that pace their operand
+// pipelines, TMA loads, and the host side's tensor maps.
 //
 // wgmma.m64nNk16 (bf16, fp32 sums) and m64nNk32 (s8, s32 sums): the
 // warpgroup's four warps each own 16 of the 64 rows. A warp's A fragment is
 // mma.sync's (m16n8k16 bf16 or m16n8k32 s8, see mma.cuh), so one ldmatrix.x4
-// of 16 rows x 32 bytes gives it. Accumulator j * 4 + e of lane l (g = l / 4,
+// of 16 rows x 32 bytes gives it, and so does a bf16 C fragment of the same
+// rows (the flash kernels' P): accumulator j * 4 + e of lane l (g = l / 4,
 // t = l % 4) holds row g + 8 * (e / 2), column 8 * j + 2 * t + e % 2.
-// B is N rows of K (K-major), 128 bytes a row, written by TMA with its
-// 128-byte swizzle (16-byte unit u of row n at u ^ (n % 8)); the descriptor
-// says so: SBO 1024 bytes between 8-row groups, layout SWIZZLE_128B, and a
-// k step of 32 bytes adds 2 to its start address.
+// Shared-memory operands are tiles of 128-byte rows written with TMA's
+// 128-byte swizzle (16-byte unit u of row r at u ^ (r % 8)), each 1024-byte
+// aligned:
+//   - K-major (A, or B with rows = N): rows of K, 64 bf16 a row; the
+//     descriptor says SBO 1024 bytes between 8-row groups, layout
+//     SWIZZLE_128B, and a k step of 32 bytes adds 2 to its start address;
+//   - MN-major (B with rows = K: the flash dK/dV kernel's dO and Q in
+//     dV += P^T dO and dK += dS^T Q): rows of N, 64 bf16 a row, 8 rows of K
+//     an 8 x 1024 atom; a k step of 16 rows adds 2048 bytes. Each product's
+//     N stays in one 64-column atom, so only the stride between 8-row
+//     groups of K is read (1024 bytes), and the descriptor puts it in both
+//     offset fields (CUTLASS's make_gmma_desc<Major::MN> calls it SBO; the
+//     stride between atoms along N, LBO, is never used). wgmma's tnspB
+//     immediate is 1.
 #pragma once
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 namespace ddpo {
 
@@ -41,12 +54,41 @@ __device__ __forceinline__ void fence_operands(int (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
+// an RS product's A registers: live, unmoved, until its wait
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
 
 // descriptor of a [rows][128 bytes] K-major tile at shared address addr
 // (1024-aligned), TMA's 128-byte swizzle
 __device__ __forceinline__ uint64_t b_desc_sw128(uint32_t addr) {
   return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) |
          (uint64_t(1) << 62);
+}
+
+// descriptor of an MN-major tile (rows of K, 128 bytes of N each) at shared
+// address addr (1024-aligned), TMA's 128-byte swizzle; see the header
+__device__ __forceinline__ uint64_t desc_sw128_mn(uint32_t addr) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1024 >> 4) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+// generic-proxy writes to shared memory visible to the async proxy (wgmma,
+// TMA); the writer fences before it signals the reader
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- named barriers (ids 1..15; 0 is __syncthreads) ----
+
+// waits until n threads, this one among them, have reached barrier id
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+// counts this thread toward barrier id's n without waiting
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // ---- mbarriers ----
@@ -59,6 +101,20 @@ __device__ __forceinline__ void mbar_fence_init() {
 }
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// the current phase also waits for `bytes` of TMA traffic (no arrival)
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+// one arrival, and `bytes` of TMA traffic to wait for
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// one arrival on bar once every cp.async this thread issued has landed
+// (noinc: the barrier's count includes it)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
 __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
   uint32_t done;
@@ -93,6 +149,17 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// the 4-d tile at coordinates (c0, c1, c2, c3) of the tensor map into
+// shared address dst, completing on bar (whose phase expects its bytes)
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -264,7 +331,76 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[80], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
-// ---- host: the weight's tensor map ----
+// ---- the flash kernels' products, N a template argument ----
+//
+// wgmma_rs_mn<N>: d[0 .. N/2) += a * b, A from registers, B MN-major at
+// the descriptor (tnspB = 1). wgmma_ss<N>: d[0 .. N/2)
+// = (accumulate ? d : 0) + a * b, both from descriptors, both K-major. The
+// accumulator arrays may be longer than N/2 (a 64-column chunk's array
+// serves a narrower last chunk).
+
+#define DDPO_F4(i) "+f"(d[i]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3])
+#define DDPO_F8(i) DDPO_F4(i), DDPO_F4((i) + 4)
+#define DDPO_F16(i) DDPO_F8(i), DDPO_F8((i) + 8)
+#define DDPO_F32(i) DDPO_F16(i), DDPO_F16((i) + 16)
+#define DDPO_R8 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define DDPO_R16 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define DDPO_R24 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23"
+#define DDPO_R32 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define DDPO_WGMMA_RS(N, REGS, A, DESC, PRED, ...)                                       \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " PRED ", 0;\n"                            \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" REGS "}, " A ", " \
+               DESC ", p, 1, 1, 1;\n}\n"                                                       \
+               : __VA_ARGS__                                                                \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate))
+#define DDPO_WGMMA_SS(N, REGS, ADESC, BDESC, PRED, ...)                                     \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " PRED ", 0;\n"                            \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" REGS "}, " ADESC  \
+               ", " BDESC ", p, 1, 1, 0, 0;\n}\n"                                              \
+               : __VA_ARGS__                                                                \
+               : "l"(adesc), "l"(bdesc), "r"(accumulate))
+
+template <int N, int R>
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[R], const uint32_t (&a)[4], uint64_t desc,
+                                            int accumulate = 1) {
+  static_assert(R >= N / 2, "accumulator array too short");
+  if constexpr (N == 16) {
+    DDPO_WGMMA_RS(16, DDPO_R8, "{%8, %9, %10, %11}", "%12", "%13", DDPO_F8(0));
+  } else if constexpr (N == 32) {
+    DDPO_WGMMA_RS(32, DDPO_R16, "{%16, %17, %18, %19}", "%20", "%21", DDPO_F16(0));
+  } else if constexpr (N == 48) {
+    DDPO_WGMMA_RS(48, DDPO_R24, "{%24, %25, %26, %27}", "%28", "%29", DDPO_F16(0), DDPO_F8(16));
+  } else if constexpr (N == 64) {
+    DDPO_WGMMA_RS(64, DDPO_R32, "{%32, %33, %34, %35}", "%36", "%37", DDPO_F32(0));
+  } else {
+    static_assert(N == 64, "wgmma_rs_mn: N is 16, 32, 48 or 64");
+  }
+}
+
+template <int N, int R>
+__device__ __forceinline__ void wgmma_ss(float (&d)[R], uint64_t adesc, uint64_t bdesc,
+                                         int accumulate) {
+  static_assert(R >= N / 2, "accumulator array too short");
+  if constexpr (N == 32) {
+    DDPO_WGMMA_SS(32, DDPO_R16, "%16", "%17", "%18", DDPO_F16(0));
+  } else {
+    static_assert(N == 64, "wgmma_ss: N is 32 or 64");
+    DDPO_WGMMA_SS(64, DDPO_R32, "%32", "%33", "%34", DDPO_F32(0));
+  }
+}
+
+#undef DDPO_WGMMA_RS
+#undef DDPO_WGMMA_SS
+#undef DDPO_F4
+#undef DDPO_F8
+#undef DDPO_F16
+#undef DDPO_F32
+#undef DDPO_R8
+#undef DDPO_R16
+#undef DDPO_R24
+#undef DDPO_R32
+
+// ---- host: tensor maps ----
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -309,6 +445,28 @@ inline cudaError_t weight_tensor_map(CUtensorMap* map, const void* w, int elem_b
                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The tensor map of a bf16 (B, S, H, D) array read through its (b, s, h)
+// element strides (unit d stride): tiles of 64 d values (one 128-byte
+// swizzled row) by `rows` positions of one (b, h). Reads past D or S fill
+// zeros. Fails (so the caller stages by hand) where TMA cannot take the
+// array: a base off 16 bytes, a stride that is not a multiple of 16 bytes.
+inline cudaError_t bshd_tensor_map(CUtensorMap* map, const void* base, int B, int S, int H, int D,
+                                   int64_t sb, int64_t ss, int64_t sh, int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0) return cudaErrorNotSupported;
+  for (int64_t st : {sb, ss, sh})
+    if (st <= 0 || st % 8 != 0) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(H), cuuint64_t(S), cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(sh) * 2, cuuint64_t(ss) * 2, cuuint64_t(sb) * 2};
+  const cuuint32_t box[4] = {64, 1, cuuint32_t(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorNotSupported;
 }
 
 }  // namespace ddpo

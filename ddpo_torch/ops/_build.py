@@ -72,6 +72,9 @@ class KernelLibrary:
         lib.ddpo_flash_bwd_dq.restype = i32
         lib.ddpo_flash_bwd_dkv.argtypes = [p] * 8 + [i32] * 6 + [p, ctypes.c_float, p]
         lib.ddpo_flash_bwd_dkv.restype = i32
+        # base, B, S, H, D, strides of (b, s, h)
+        lib.ddpo_flash_tma_ok.argtypes = [p, i32, i32, i32, i32, i64, i64, i64]
+        lib.ddpo_flash_tma_ok.restype = i32
         # x, out (2, n_runs), dtype, n_runs, run_len, stream
         lib.ddpo_gn_stats.argtypes = [p, p, i32, i64, i64, p]
         lib.ddpo_gn_stats.restype = i32

@@ -17,8 +17,9 @@ Kernels (each replaces a Pallas kernel of the JAX package):
     recomputing P from the logsumexp (``_flash_bwd_dq_kernel``,
     ``_flash_bwd_dkv_kernel``).
 
-In bf16 both files run every product on the tensor cores; fp32 runs on the
-CUDA cores, where the fp32 bounds hold.
+In bf16 both files run every product on the tensor cores (dk/dv on
+Hopper's wgmma, fed by TMA; the forward and dq on mma.sync); fp32 runs on
+the CUDA cores, where the fp32 bounds hold.
 
 ``attention(..., spatial=axis)`` (JAX's ``spatial_axis``, self-attention
 of a UNet whose H is sharded over the axis): K/V are all-gathered over the
@@ -120,6 +121,17 @@ def flash_attention_fwd(
     kl.check(err, "flash_fwd launch")
     _build.launches["flash_fwd"] += 1
     return out, lse
+
+
+def flash_uses_tma(t: torch.Tensor) -> bool:
+    """Whether the bf16 dk/dv kernel's producer loads this (B, S, H, D)
+    CUDA tensor by TMA. Else it stages it with plain loads (a base off 16
+    bytes, or a stride off a multiple of 8 elements); the consumers' bits
+    are the same either way."""
+    b, s, h, d = t.shape
+    kl = _build.load_library()
+    return bool(kl.lib.ddpo_flash_tma_ok(t.data_ptr(), b, s, h, d, t.stride(0), t.stride(1),
+                                         t.stride(2)))
 
 
 def flash_attention_bwd_reference(

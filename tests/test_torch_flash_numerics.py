@@ -69,6 +69,10 @@ def _bf16_qkv(b, sq, sk, h, d, seed):
     (1, 130, 300, 2, 40),   # ragged Sk: the last tile is masked
     (2, 64, 100, 1, 80),
     (1, 96, 257, 2, 16),    # one key in the last tile
+    (1, 100, 300, 1, 80),   # five tiles, the last masked
+    (1, 70, 129, 2, 96),    # one key in the last tile
+    (1, 70, 129, 2, 160),   # the UNet's widest D
+    (1, 60, 200, 1, 256),   # the widest D the gate admits
 ])
 def test_emulated_bf16_kernel_matches_jax_flash(b, sq, sk, h, d):
     q, k, v = _bf16_qkv(b, sq, sk, h, d, seed=sq + sk + d)
@@ -96,6 +100,16 @@ def test_emulated_bf16_kernel_is_batch_invariant():
     q, k, v = _bf16_qkv(3, 100, 150, 2, 40, seed=7)
     out, lse = emulate_mma_forward(q, k, v, 40 ** -0.5)
     out1, lse1 = emulate_mma_forward(q[:1], k[:1], v[:1], 40 ** -0.5)
+    assert torch.equal(out1, out[:1]) and torch.equal(lse1, lse[:1])
+
+
+@pytest.mark.parametrize("d", [80, 160])
+def test_emulated_bf16_kernel_is_batch_invariant_at_wider_heads(d):
+    """Image 0 alone gives the bits of its slice at the UNet's D = 80 and
+    160, over five tiles."""
+    q, k, v = _bf16_qkv(4, 90, 300, 1, d, seed=d)
+    out, lse = emulate_mma_forward(q, k, v, d ** -0.5)
+    out1, lse1 = emulate_mma_forward(q[:1], k[:1], v[:1], d ** -0.5)
     assert torch.equal(out1, out[:1]) and torch.equal(lse1, lse[:1])
 
 
@@ -130,7 +144,8 @@ def _jax_forward(q, k, v, scale):
     (2, 300, 130, 1, 40),   # ragged Sq and Sk, Sq > Sk
     (2, 64, 100, 1, 80),
     (1, 96, 257, 2, 16),    # one key in the last tile
-    (1, 80, 96, 1, 160),    # dK and dV in two column groups on the card
+    (1, 80, 96, 1, 160),    # dK and dV in three column groups on the card
+    (1, 70, 90, 1, 256),    # four column groups, one consumer warpgroup a block
 ])
 def test_emulated_bf16_backward_matches_jax_flash(b, sq, sk, h, d):
     q, k, v, do = _bf16_qkv(b, sq, sk, h, d, seed=sq + sk + d) + _bf16_qkv(b, sq, sq, h, d, 1)[:1]

@@ -25,6 +25,7 @@ from ddpo_torch.ops.attention import (
     flash_attention_fwd,
     flash_bwd_dkv,
     flash_bwd_dq,
+    flash_uses_tma,
 )
 from ddpo_torch.bench import conv_probe
 from ddpo_torch.ops.conv import (
@@ -483,6 +484,66 @@ def test_flash_backward_bf16_on_fused_qkv_views(cuda):
     for name, g, c, ref in zip("qkv", grads, copies, refs):
         assert torch.equal(g, c), name
         assert (g.float() - ref).abs().max().item() <= _bound(torch.bfloat16, ref), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 20, 40, 80, 160, 256])
+@pytest.mark.parametrize("sq,sk", [(300, 257), (257, 700), (700, 300)])
+def test_flash_bf16_kernels_match_plain_and_their_slices(cuda, sq, sk, d):
+    """The bf16 forward, dQ and the wgmma dK/dV kernel at D = 8 to 256
+    (dK/dV in one to four column groups; D = 20 staged by plain loads), with
+    one key in the last tile (Sk = 257) and Sq != Sk both ways: out 1e-2 and lse 1e-4 against the
+    fp32 plain version, the gradients 1e-2 * max(1, max|ref|) against the
+    plain backward. The first 1, 8 and 16 images of a 16-image call each
+    give the bits of their slice of it."""
+    h = 2
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16)
+               for x in _qkv(16, sq, sk, h, d, seed=d + sq))
+    do = torch.from_numpy(_qkv(16, sq, sq, h, d, seed=d)[0]).to(cuda, torch.bfloat16)
+    assert flash_uses_tma(q) == (d % 8 == 0)
+    out, lse = flash_attention_fwd(q, k, v)
+    grads = flash_attention_bwd(q, k, v, out, lse, do)
+    ref = attention_reference(q.float(), k.float(), v.float())
+    assert (out.float() - ref).abs().max().item() <= 1e-2
+    assert (lse - attention_lse_reference(q.float(), k.float())).abs().max().item() <= 1e-4
+    refs = flash_attention_bwd_reference(q, k, v, out, lse, do)
+    for name, g, r in zip("qkv", grads, refs):
+        assert (g.float() - r).abs().max().item() <= 1e-2 * max(1.0, r.abs().max().item()), name
+    for b in (1, 8, 16):
+        out_b, lse_b = flash_attention_fwd(q[:b], k[:b], v[:b])
+        assert torch.equal(out_b, out[:b]) and torch.equal(lse_b, lse[:b]), b
+        grads_b = flash_attention_bwd(q[:b], k[:b], v[:b], out[:b], lse[:b], do[:b])
+        for name, g_b, g in zip("qkv", grads_b, grads):
+            assert torch.equal(g_b, g[:b]), (name, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [20, 40, 80, 160])
+@pytest.mark.parametrize("layout", ["fused_qkv", "odd_offset"])
+def test_flash_dkv_producer_paths_give_the_same_bits(cuda, layout, d):
+    """q, k, v as views of one (B, S, 3, H, D) tensor, and the same at an
+    odd element offset, which TMA cannot take: the dK/dV kernel's producer
+    stages them by plain loads, and the forward and the backward give the
+    bits of the same calls on contiguous copies (only the producer's path
+    depends on alignment)."""
+    rng = np.random.default_rng(d)
+    b, s, h = 2, 300, 2
+    flat = torch.from_numpy(rng.standard_normal(b * s * 3 * h * d + 1).astype(np.float32))
+    flat = flat.to(cuda, torch.bfloat16)
+    qkv = (flat[:-1] if layout == "fused_qkv" else flat[1:]).view(b, s, 3, h, d)
+    q, k, v = qkv.unbind(2)
+    do = torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(np.float32))
+    do = do.to(cuda, torch.bfloat16)
+    assert not q.is_contiguous()
+    assert flash_uses_tma(q) == (layout == "fused_qkv" and d % 8 == 0)
+    copies = [t.contiguous() for t in (q, k, v)]
+    out, lse = flash_attention_fwd(q, k, v)
+    out_c, lse_c = flash_attention_fwd(*copies)
+    assert torch.equal(out, out_c) and torch.equal(lse, lse_c)
+    grads = flash_attention_bwd(q, k, v, out, lse, do)
+    grads_c = flash_attention_bwd(*copies, out_c, lse_c, do)
+    for name, g, g_c in zip("qkv", grads, grads_c):
+        assert torch.equal(g, g_c), name
 
 
 @pytest.mark.cuda
