@@ -8,16 +8,16 @@ Phases, in order; any failure exits non-zero:
   2. build: nvcc builds ddpo_torch/csrc/*.cu for sm_90a; cuobjdump -sass on
      the library counts each kernel function's tensor-core instructions
      (HMMA and IMMA: mma.sync; HGMMA and IGMMA: wgmma): every instantiation
-     of the bf16 flash dK/dV kernel and of the bf16 tap-GEMM must hold
-     HGMMA, of the bf16 flash forward and dQ kernels HMMA and of the s8
-     tap-GEMM IGMMA; ptxas's registers and spills of each of those
-     instantiations, and the places where it serialized a wgmma (none may
-     be in the flash dK/dV kernel).
+     of the three bf16 flash kernels (forward, dQ, dK/dV) and of the bf16
+     tap-GEMM must hold HGMMA, of the s8 tap-GEMM IGMMA; ptxas's registers
+     and spills of each of those instantiations, and the places where it
+     serialized a wgmma (none may be in a flash kernel).
   3. kernels: each forward kernel against its plain PyTorch version at the
      main path's shapes, with the bound stated, plus kernel and plain times;
      the bf16 flash forward and gn_stats on image 0 of each 8-image case
      alone must give the bits of its slice of the batched call (batch
-     invariance). With --parent DIR, the three UNet cases of 3 and 3b
+     invariance), and the bf16 forward's producer must load the contiguous
+     cases by TMA. With --parent DIR, the three UNet cases of 3 and 3b
      beside DIR's flash kernels (in turns). gn_stats prints each shape's cluster size (blocks a run;
      the phase fails unless some shape runs with more than one) and the
      wrapper's host microseconds a call beside var_mean's.
@@ -25,8 +25,8 @@ Phases, in order; any failure exits non-zero:
      fp32 backward at the trainer's shapes (2B = 4), ragged lengths and
      D = 256, in bf16 and fp32; kernel times beside the plain backward's
      and SDPA's; in bf16, image 0 of each 4-image case alone must give the
-     bits of its slice, and the dK/dV kernel's producer must load the
-     contiguous cases by TMA.
+     bits of its slice, and the dQ and dK/dV kernels' producers must load
+     the contiguous cases by TMA.
   4. serving: ddpo_torch.pipelines.generate.main at SD-1.4 width, 512 px,
      50 CFG DDIM steps, 4 images, random weights from a seed; checks the
      images and that the path launched each kernel the expected number of
@@ -199,9 +199,12 @@ Phases, in order; any failure exits non-zero:
      the gradient all-reduce's bytes and seconds, peak memory per rank;
      (b, c) ``ddpo_torch.bench.sp_check`` on two ranks: the sharded UNet's
      eps at the rollout's 2B = 4 and one update's gradients, spatial (b) and
-     attention (c) modes, against the unsharded ones within 2^-6 of their
-     max, with 10 flash_fwd launches a forward. Each rank's output goes to
-     chiprun_out/phase14/.
+     attention (c) modes, against the unsharded ones: at fp32 within 2^-12
+     of their max, and in bf16 with an error against the unsharded fp32
+     result at most 1.5 times the unsharded bf16 run's in its maximum and
+     1.1 times in its RMS; the bf16-to-bf16 maximum printed beside 2^-6
+     (no gate); 10 flash_fwd launches a bf16 forward; each rank's peak
+     memory. Each rank's output goes to chiprun_out/phase14/.
 
 The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}. With no CUDA device, or run
@@ -342,19 +345,20 @@ def phase_device():
 
 # kernel functions that must run their products on the tensor cores, with
 # the SASS instruction each of their instantiations must hold: wgmma (HGMMA
-# bf16, IGMMA s8) for flash dK/dV and the tap-GEMMs, mma.sync (HMMA) for
-# the flash forward and dQ, so that a build which quietly lost wgmma fails
-TENSOR_CORE_KERNELS = {"flash_fwd_mma_kernel": "HMMA", "flash_bwd_dq_mma_kernel": "HMMA",
+# bf16, IGMMA s8) for the three flash kernels and the tap-GEMMs, so that a
+# build which quietly lost wgmma fails
+TENSOR_CORE_KERNELS = {"flash_fwd_wgmma_kernel": "HGMMA", "flash_bwd_dq_wgmma_kernel": "HGMMA",
                        "flash_bwd_dkv_wgmma_kernel": "HGMMA", "tap_gemm_wgmma_kernel": "HGMMA",
                        "tap_gemm_s8_wgmma_kernel": "IGMMA"}
 # kernels in which ptxas may not serialize a wgmma
-NO_SERIALIZED_WGMMA = ("flash_bwd_dkv_wgmma_kernel",)
+NO_SERIALIZED_WGMMA = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                       "flash_bwd_dkv_wgmma_kernel")
 TENSOR_CORE_OPS = ("HMMA", "IMMA", "HGMMA", "IGMMA")
 
 
 def kernel_name(mangled: str) -> str:
     """The function name in a mangled kernel symbol: the first <length><name>
-    pair naming a *_kernel, e.g. flash_fwd_mma_kernel from ...20flash_fwd_mma_kernelI..."""
+    pair naming a *_kernel, e.g. flash_fwd_wgmma_kernel from ...22flash_fwd_wgmma_kernelI..."""
     import re
 
     return next((m.group(2) for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*?_kernel))", mangled)
@@ -464,6 +468,7 @@ def check_flash(results, cases=FLASH_CASES, dtypes=None, tag=""):
         attention_lse_reference,
         attention_reference,
         flash_attention_fwd,
+        flash_uses_tma,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -487,6 +492,12 @@ def check_flash(results, cases=FLASH_CASES, dtypes=None, tag=""):
                     f"(bound {bound_lse:g})")
             if not (err <= bound and err_lse <= bound_lse):
                 fail(line)
+            if dtype == torch.bfloat16:
+                # the main path's contiguous inputs take the forward's TMA producer
+                tma = all(flash_uses_tma(t) for t in (q, k, v))
+                line += f"; producer: {'TMA' if tma else 'plain loads'}"
+                if not tma and d % 8 == 0:
+                    fail(line)
             entry = {"shape": [b, sq, sk, h, d], "dtype": name,
                      "max_abs_err": err, "max_abs_err_lse": err_lse}
             if b == 8 and dtype == torch.bfloat16:
@@ -558,9 +569,9 @@ def check_flash_bwd(results, cases=FLASH_BWD_CASES, dtypes=None, tag=""):
                     f"{errs[0]:.3e} {errs[1]:.3e} {errs[2]:.3e} (bound {bound:.3g}, "
                     f"max|ref| {peak:.3f}); two calls equal: {same}")
             if dtype == torch.bfloat16:
-                # the main path's contiguous inputs take dK/dV's TMA producer
+                # the main path's contiguous inputs take dQ's and dK/dV's TMA producer
                 tma = all(flash_uses_tma(t) for t in (q, k, v, do))
-                line += f"; dK/dV producer: {'TMA' if tma else 'plain loads'}"
+                line += f"; dQ and dK/dV producer: {'TMA' if tma else 'plain loads'}"
                 if not tma and d % 8 == 0:
                     fail(line)
             if b == 4 and dtype == torch.bfloat16:
@@ -2887,6 +2898,9 @@ SP_PER_UNET_BACKWARD = {"halo": 48, "halo_top": 3, "psum": 61, "gather_kv": 16}
 # (B, Sq, Sk, H, D) at the trainer's 2B = 2 (train batch 1): the two levels
 # whose local queries meet the flash gate, against the gathered K/V
 SP_FLASH_CASES = [(2, 2048, 4096, 8, 40), (2, 512, 1024, 8, 80)]
+# 14b/14c's two ranks: the bf16 and fp32 passes of both modes (300 s until
+# the fp32 passes joined)
+SP_CHECK_TIMEOUT = 600
 # cut: 5 of 50 timesteps trained (phase 13 trains 10), so phase 14 keeps the
 # script well inside its limit on a slow host
 PHASE14_ARGV = ["--dataset", "compressed-animals", "--sample_batch_size", "2",
@@ -3081,31 +3095,51 @@ def phase_sp_ranks(unet_gn, vae_gn, unet_conv, smi):
             fail(f"14a: rank {rank} launched {launched}, expected {want}")
     log(f"14a: {wall:.1f} s from launch to exit ({smi})")
 
-    outs, wall = run_ranks("14b", [], os.path.join(work, "check"), env, timeout=300,
-                           module="ddpo_torch.bench.sp_check")
+    phase_sp_check(os.path.join(work, "check"), env, smi)
     marks.append(("14b+c", time.perf_counter()))
+    shutil.rmtree(work, ignore_errors=True)
+    log("phase 14 wall: " + ", ".join(f"{name} {t - marks[i][1]:.1f} s"
+                                      for i, (name, t) in enumerate(marks[1:])))
+
+
+def phase_sp_check(cwd, env, smi):
+    """14b/14c: ddpo_torch.bench.sp_check on two ranks of the one card, the
+    sharded UNet's eps and an update's gradients against the unsharded
+    ones in both modes: (a) at fp32, (b) bf16 against the fp32 reference."""
+    outs, wall = run_ranks("14b", [], cwd, env, timeout=SP_CHECK_TIMEOUT,
+                           module="ddpo_torch.bench.sp_check")
+    log(f"14b+c: {wall:.1f} s from launch to exit (timeout {SP_CHECK_TIMEOUT} s) ({smi})")
     reports = rank_values(outs, r"^SP_CHECK (\{.*\})$", json.loads)
     if not all(len(r) == 1 for r in reports):
         fail("14b: a rank printed no SP_CHECK line")
     for rank, (rep,) in enumerate(reports):
+        bounds, unsharded = rep["bounds"], rep["bf16_unsharded"]
         for mode, tag in (("spatial", "14b"), ("attention", "14c")):
             m = rep[mode]
             flash = m["launches_forward"].get("flash_fwd", 0)
-            log(f"{tag} rank {rank} ({mode}, 2B = {rep['batch_2B']}, bf16, batch_invariant()): "
-                f"eps max|d| {m['eps_max_rel']:.3e} of max|eps|, an update's gradients max|d| "
-                f"{m['grads_max_rel']:.3e} of max|g| (bound 2^-6 = {2 ** -6:g}); a forward "
-                f"{m['forward_ms']:.2f} ms sharded against {rep['unsharded_forward_ms']:.2f} ms "
-                f"unsharded (both ranks on the one card); flash_fwd {flash} a forward; "
-                f"collectives a forward {m['comm_forward']} ({smi})")
+            for key, old, what in (("eps", m["eps_max_rel"], "eps"),
+                                   ("grads", m["grads_max_rel"], "an update's gradients")):
+                a, s, u = m["fp32"][key], m["bf16_sharded"][key], unsharded[key]
+                log(f"{tag} rank {rank} ({mode}, 2B = {rep['batch_2B']}, batch_invariant()) "
+                    f"{what}: (a) fp32 sharded against unsharded max|d| {a['max']:.3e} of "
+                    f"max|ref| (bound 2^-12 = {bounds['fp32']:.3e}); (b) bf16 against the fp32 "
+                    f"reference, sharded max {s['max']:.3e} rms {s['rms']:.3e}, unsharded max "
+                    f"{u['max']:.3e} rms {u['rms']:.3e}: ratios {s['max'] / u['max']:.3f} (bound "
+                    f"{bounds['max_ratio']}) and {s['rms'] / u['rms']:.3f} (bound "
+                    f"{bounds['rms_ratio']}); the old statistic, bf16 sharded against bf16 "
+                    f"unsharded max|d| {old:.3e} of max|ref| (2^-6 = {bounds['old_bf16']:g}, "
+                    f"no longer a gate) ({smi})")
+            log(f"{tag} rank {rank}: a bf16 forward {m['forward_ms']:.2f} ms sharded against "
+                f"{rep['unsharded_forward_ms']:.2f} ms unsharded (both ranks on the one card); "
+                f"flash_fwd {flash} a forward; finite {m['finite']}; collectives a forward "
+                f"{m['comm_forward']} ({smi})")
             if "module_table" in m:
                 differ = {k: v["differ"] for k, v in m["module_table"].items() if v["differ"]}
                 log(f"{tag} rank {rank}: module families whose bits for sample 0 differ at the "
                     f"trainer's 2B = 2 from the sampler's 2B = {rep['batch_2B']}: {differ}")
             if not m["passed"] or flash != FLASH_PER_SP_FORWARD:
                 fail(f"{tag}: rank {rank} {mode}: {m}")
-    shutil.rmtree(work, ignore_errors=True)
-    log("phase 14 wall: " + ", ".join(f"{name} {t - marks[i][1]:.1f} s"
-                                      for i, (name, t) in enumerate(marks[1:])))
+        log(f"14b rank {rank}: peak memory {rep['peak_gib']:.2f} GiB ({smi})")
 
 
 def main() -> None:

@@ -16,22 +16,24 @@
 //
 // bf16, on the tensor cores (bf16 in, fp32 accumulate), one owner per
 // output row as in the fp32 kernels:
-//   - flash_bwd_dq_mma_kernel (mma.sync.m16n8k16, FlashAttention-2's shape,
-//     as the forward's; their Hopper redesigns follow on the dK/dV kernel's
-//     helpers): a block of 4 warps owns 64 query rows, 16 per
-//     warp; from Sq = 1024 up and for D <= 80, 128 rows in two m16 tiles a
-//     warp that share every K and V fragment. Q's and dO's A fragments are
-//     loaded once by ldmatrix (kept in registers up to 10 k16 steps a warp,
-//     read from shared memory per use above). K and V tiles of 64 keys are
-//     staged by cp.async into two buffers, [key][d] with D padded to 16*NC
-//     (+8 against bank conflicts) in shared memory only, so tile t+1 loads
-//     while tile t is multiplied. Per 16 keys: S = Q K^T and dP = dO V^T
-//     (B fragments by plain ldmatrix), then P = exp2(s*scale*log2(e) -
-//     lse*log2(e)) and dS = P (dP - delta) in registers, the scale applied to
-//     the fp32 scores and not folded into a bf16 Q; dS is rounded to bf16
-//     straight from its C fragments into the A fragments of dQ += dS K, whose
-//     B fragments come by ldmatrix.trans from the same K tile. The scale
-//     multiplies dQ in fp32 at the end. Keys past Sk give P = 0.
+//   - flash_bwd_dq_wgmma_kernel (Hopper: wgmma + TMA, flash_tiles.cuh, on
+//     the dK/dV kernel's helpers): two consumer warpgroups own 64 query
+//     rows each (one above D = 192, where two stages of K and V no longer
+//     fit beside two warpgroups' Q and dO), and a producer warp loads the
+//     block's Q and dO once by TMA, with their rows' lse and delta by
+//     4-byte cp.async arriving on the same full mbarrier, then streams
+//     64-key tiles of K and V into a ring of 2-4 stages. Per key tile: S =
+//     Q K^T and dP = dO V^T with Q and dO as the A operands from shared
+//     memory (SS), K and V K-major B; then P = exp2(s*scale*log2(e) -
+//     lse*log2(e)) and dS = P (dP - delta) in registers, the scale applied
+//     to the fp32 scores and not folded into a bf16 Q; dS sits in the C
+//     layout that is the A layout of dQ += dS K, so it is rounded to bf16 in
+//     registers (RS) with K as the MN-major B (tnspB = 1). Keys past Sk
+//     give P = 0. The scale multiplies dQ in fp32 at the end. The two
+//     warpgroups take turns to issue their products, as in dK/dV. dQ (D / 2
+//     fp32 a thread) is split into column groups of two 64-column atoms (a
+//     grid dimension), each recomputing S and dP: one group up to D = 128,
+//     two above, so that dQ, S, dP and dS fit in 168 registers.
 //   - flash_bwd_dkv_wgmma_kernel (Hopper: wgmma + TMA, flash_tiles.cuh): two
 //     consumer warpgroups own 64 keys each (the wgmma M tile; one above
 //     D = 192, where two stages of Q and dO no longer fit beside two
@@ -396,201 +398,12 @@ __global__ void __launch_bounds__(4 * own_rows<NC>()) flash_bwd_dkv_kernel(
   }
 }
 
-// ---- bf16 on the tensor cores ----
+// ---- bf16 on Hopper: wgmma + TMA ----
 
 using bf16 = __nv_bfloat16;
-using ddpo::mma_ld;
-using ddpo::stage_rows;
-
-constexpr int kWarps = 4;  // warps per block of the tensor-core kernels
-constexpr int kThreads = 32 * kWarps;
-
-using ddpo::a_frag_off;
-using ddpo::b_frag_off;
-using ddpo::bt_frag_off;
-
-// dq: Q and dO [64 MI][LD] + K and V [2][BS][LD], bf16
-template <int NC, int MI>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(bf16) * size_t(2 * 16 * kWarps * MI + 4 * BS) * mma_ld<NC>();
-}
-
-// dQ for 64 * MI query rows of one (head, batch): 4 warps of 16 * MI rows
-template <int NC, int MI>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_mma_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dq, int H, int Sq, int Sk, int D,
-    Strides st, float scale, bool vec) {
-  constexpr int LD = mma_ld<NC>();
-  constexpr int MQ = 16 * MI * kWarps;
-  constexpr bool kRegs = NC * MI <= 10;  // Q's and dO's A fragments in registers
-  extern __shared__ uint4 smem_u4[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_u4);
-  bf16* gs = qs + MQ * LD;
-  bf16* ks = gs + MQ * LD;
-  bf16* vs = ks + 2 * BS * LD;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tq = lane & 3;
-  const int q0 = blockIdx.x * MQ, h = blockIdx.y, b = blockIdx.z;
-  const bf16* qb = q + b * st.q_b + h * st.q_h;
-  const bf16* kb = k + b * st.k_b + h * st.k_h;
-  const bf16* vb = v + b * st.v_b + h * st.v_h;
-  const bf16* gb = dout + b * st.do_b + h * st.do_h;
-
-  for (int i = tid; i < (2 * MQ + 4 * BS) * LD / 8; i += kThreads)
-    smem_u4[i] = make_uint4(0, 0, 0, 0);
-  __syncthreads();
-  stage_rows(qs, qb, st.q_s, q0, MQ, Sq, D, LD, vec, tid, kThreads);
-  stage_rows(gs, gb, st.do_s, q0, MQ, Sq, D, LD, vec, tid, kThreads);
-  stage_rows(ks, kb, st.k_s, 0, BS, Sk, D, LD, vec, tid, kThreads);
-  stage_rows(vs, vb, st.v_s, 0, BS, Sk, D, LD, vec, tid, kThreads);
-  ddpo::cp_async_commit();
-  ddpo::cp_async_wait<0>();
-  __syncthreads();
-
-  const int a_off = warp * 16 * MI * LD + a_frag_off(lane, LD);
-  const uint32_t q_addr = ddpo::smem_addr(qs + a_off), g_addr = ddpo::smem_addr(gs + a_off);
-  uint32_t qf[kRegs ? MI : 1][kRegs ? NC : 1][4], gf[kRegs ? MI : 1][kRegs ? NC : 1][4];
-  if constexpr (kRegs) {
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-      for (int kk = 0; kk < NC; ++kk) {
-        ddpo::ldmatrix_x4(qf[mi][kk], q_addr + (mi * 16 * LD + kk * 16) * 2);
-        ddpo::ldmatrix_x4(gf[mi][kk], g_addr + (mi * 16 * LD + kk * 16) * 2);
-      }
-  }
-  const int b_off = b_frag_off(lane, LD), bt_off = bt_frag_off(lane, LD);
-
-  // lse (base 2) and delta of the lane's rows g and g + 8 of each m16 tile
-  const float scale_log2 = scale * kLog2e;
-  float lse2[MI][2], dl[MI][2];
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = q0 + (warp * MI + mi) * 16 + g + 8 * r;
-      const int64_t at = (int64_t(b) * H + h) * Sq + row;
-      lse2[mi][r] = row < Sq ? lse[at] * kLog2e : 0.f;
-      dl[mi][r] = row < Sq ? delta[at] : 0.f;
-    }
-
-  float acc[MI][2 * NC][4];
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int n = 0; n < 2 * NC; ++n)
-      acc[mi][n][0] = acc[mi][n][1] = acc[mi][n][2] = acc[mi][n][3] = 0.f;
-
-  const int ntiles = (Sk + BS - 1) / BS;
-  for (int t = 0; t < ntiles; ++t) {
-    const int cur = t & 1;
-    if (t + 1 < ntiles) {  // the other buffer's readers passed the barrier ending tile t-1
-      stage_rows(ks + (cur ^ 1) * BS * LD, kb, st.k_s, (t + 1) * BS, BS, Sk, D, LD, vec, tid,
-                 kThreads);
-      stage_rows(vs + (cur ^ 1) * BS * LD, vb, st.v_s, (t + 1) * BS, BS, Sk, D, LD, vec, tid,
-                 kThreads);
-    }
-    ddpo::cp_async_commit();
-    ddpo::cp_async_wait<1>();  // tile t has landed
-    __syncthreads();
-    const uint32_t k_addr = ddpo::smem_addr(ks + cur * BS * LD + b_off);
-    const uint32_t kt_addr = ddpo::smem_addr(ks + cur * BS * LD + bt_off);
-    const uint32_t v_addr = ddpo::smem_addr(vs + cur * BS * LD + b_off);
-    const int keys_left = Sk - t * BS;  // keys of this tile at or past it are padding
-
-#pragma unroll
-    for (int kc = 0; kc < BS / 16; ++kc) {  // 16 keys at a time
-      // S = Q K^T and dP = dO V^T: 16 MI rows x 16 keys a warp
-      float s[MI][2][4], dp[MI][2][4];
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[mi][j][e] = dp[mi][j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < NC; ++kk) {
-        uint32_t a[MI][4], ga[MI][4];
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi) {
-          if constexpr (kRegs) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              a[mi][i] = qf[mi][kk][i];
-              ga[mi][i] = gf[mi][kk][i];
-            }
-          } else {
-            ddpo::ldmatrix_x4(a[mi], q_addr + (mi * 16 * LD + kk * 16) * 2);
-            ddpo::ldmatrix_x4(ga[mi], g_addr + (mi * 16 * LD + kk * 16) * 2);
-          }
-        }
-        uint32_t kf4[4], vf4[4];
-        ddpo::ldmatrix_x4(kf4, k_addr + (kc * 16 * LD + kk * 16) * 2);
-        ddpo::ldmatrix_x4(vf4, v_addr + (kc * 16 * LD + kk * 16) * 2);
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi) {
-          ddpo::mma_bf16(s[mi][0], a[mi], kf4[0], kf4[1]);
-          ddpo::mma_bf16(s[mi][1], a[mi], kf4[2], kf4[3]);
-          ddpo::mma_bf16(dp[mi][0], ga[mi], vf4[0], vf4[1]);
-          ddpo::mma_bf16(dp[mi][1], ga[mi], vf4[2], vf4[3]);
-        }
-      }
-      // dS = P (dP - delta), rounded to bf16 as the A fragments of dS K; the
-      // lane holds rows g + 8r and keys kc*16 + 8j + 2tq + e
-      uint32_t da[MI][4];
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int r = 0; r < 2; ++r)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int key = kc * 16 + j * 8 + 2 * tq + e;
-              float p = ddpo::exp2_ftz(fmaf(s[mi][j][2 * r + e], scale_log2, -lse2[mi][r]));
-              if (key >= keys_left) p = 0.f;
-              s[mi][j][2 * r + e] = p * (dp[mi][j][2 * r + e] - dl[mi][r]);
-            }
-        da[mi][0] = ddpo::pack_bf16(s[mi][0][0], s[mi][0][1]);
-        da[mi][1] = ddpo::pack_bf16(s[mi][0][2], s[mi][0][3]);
-        da[mi][2] = ddpo::pack_bf16(s[mi][1][0], s[mi][1][1]);
-        da[mi][3] = ddpo::pack_bf16(s[mi][1][2], s[mi][1][3]);
-      }
-      // dQ += dS K over all D columns, K's B fragments by ldmatrix.trans
-#pragma unroll
-      for (int np = 0; np < NC; ++np) {
-        uint32_t kt4[4];
-        ddpo::ldmatrix_x4_trans(kt4, kt_addr + (kc * 16 * LD + np * 16) * 2);
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi) {
-          ddpo::mma_bf16(acc[mi][2 * np], da[mi], kt4[0], kt4[1]);
-          ddpo::mma_bf16(acc[mi][2 * np + 1], da[mi], kt4[2], kt4[3]);
-        }
-      }
-    }
-    __syncthreads();  // this tile's buffers may be refilled
-  }
-
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = q0 + (warp * MI + mi) * 16 + g + 8 * r;
-      if (row >= Sq) continue;
-      bf16* orow = dq + ((int64_t(b) * Sq + row) * H + h) * D;
-#pragma unroll
-      for (int n = 0; n < 2 * NC; ++n)
-        ddpo::store_pair(orow, n * 8 + 2 * tq, D, acc[mi][n][2 * r] * scale,
-                         acc[mi][n][2 * r + 1] * scale);
-    }
-}
-
-// ---- dK/dV in bf16: wgmma + TMA ----
-
 namespace fl = ddpo::flash;
+
+// ---- dK/dV ----
 
 // Tiles of the bf16 dkv kernel for D padded to 16 * NC, functions of D
 // alone: a consumer warpgroup owns 64 keys; two run in a block where their
@@ -616,21 +429,22 @@ struct DkvTile {
   }
 };
 
-struct DkvArgs {
+// the arguments of both bf16 backward kernels
+struct WgArgs {
   const bf16 *q, *k, *v, *dout;
   const float *lse, *delta;
-  bf16 *dk, *dv;
+  bf16 *dq, *dk, *dv;
   int H, Sq, Sk, D;
   Strides st;
   float scale;
   int tma;     // 1: the producer loads by TMA; 0: by plain loads
-  int stages;  // Q/dO tiles in flight
+  int stages;  // dK/dV: Q/dO tiles in flight
 };
 
 // One consumer warpgroup's dK and dV over the atoms GRP * GA .. of D, for
 // the 64 keys whose K and V tiles sit at k_base and v_base
 template <int NC, int GRP>
-__device__ __forceinline__ void dkv_consumer(const DkvArgs& a, uint32_t k_base, uint32_t v_base,
+__device__ __forceinline__ void dkv_consumer(const WgArgs& a, uint32_t k_base, uint32_t v_base,
                                              const uint8_t* qs, const uint8_t* gs,
                                              const float* stats, uint32_t bars, int key0, int b,
                                              int h) {
@@ -771,7 +585,7 @@ template <int NC>
 __global__ void __launch_bounds__(fl::block_threads(DkvTile<NC>::NCW), 1) flash_bwd_dkv_wgmma_kernel(
     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap gmap,
-    const DkvArgs a) {
+    const WgArgs a) {
   using Tile = DkvTile<NC>;
   constexpr int NA = Tile::NA, NCW = Tile::NCW, TILE = Tile::TILE;
   extern __shared__ uint8_t smem_raw[];
@@ -869,6 +683,254 @@ __global__ void __launch_bounds__(fl::block_threads(DkvTile<NC>::NCW), 1) flash_
     if (grp == 3) dkv_consumer<NC, 3>(a, k_base, v_base, qs, gs, stats, bars, key0, b, h);
 }
 
+// ---- dQ ----
+
+// Tiles of the bf16 dq kernel for D padded to 16 * NC, functions of D
+// alone: a consumer warpgroup owns 64 query rows; two run in a block where
+// their Q and dO and two stages of K and V fit in shared memory (up to
+// D = 192), else one. K and V tiles hold 64 keys. dQ for 64 rows is D / 2
+// fp32 a thread beside S and dP (32 each) and dS (16 registers), so dQ is
+// split into column groups (grid dimension z) of two 64-column atoms, each
+// group recomputing S and dP: one group up to D = 128, two above.
+template <int NC>
+struct DqTile {
+  static constexpr int NA = fl::atoms<NC>();
+  static constexpr int NCW = NA <= 3 ? 2 : 1;           // consumer warpgroups
+  static constexpr int GA = 2;                          // atoms of dQ a group
+  static constexpr int GROUPS = (NA + GA - 1) / GA;     // column groups
+  static constexpr int TILE = NA * 64 * fl::ROW_BYTES;  // 64 rows of one array
+  __host__ __device__ static constexpr size_t smem(int stages) {
+    // Q and dO [NCW][NA][64][128], lse and delta [NCW][2][64] fp32, then
+    // per stage K and V [NA][64][128]; the barriers
+    return 1024 + size_t(2) * NCW * TILE + size_t(NCW) * 2 * 64 * 4 +
+           size_t(stages) * 2 * TILE + 8 * (1 + 2 * stages);
+  }
+  __host__ __device__ static constexpr int stages() {
+    int st = 4;
+    while (st > 2 && smem(st) > size_t(fl::SMEM_MAX)) --st;
+    return st;
+  }
+};
+
+// One consumer warpgroup's dQ over the atoms GRP * GA .. of D, for the 64
+// query rows from row0 whose Q and dO tiles sit at q_base and g_base and
+// whose lse and delta sit at stats
+template <int NC, int GRP>
+__device__ __forceinline__ void dq_consumer(const WgArgs& a, uint32_t q_base, uint32_t g_base,
+                                            const float* stats, uint32_t ks, uint32_t vs,
+                                            uint32_t bars, int row0, int b, int h) {
+  using Tile = DqTile<NC>;
+  constexpr int NA = Tile::NA, A0 = Tile::GA * GRP, ST = Tile::stages();
+  constexpr int GN = NA - A0 < Tile::GA ? NA - A0 : Tile::GA;  // atoms of this group
+  constexpr int N0 = fl::atom_n<NC>(A0), N1 = fl::atom_n<NC>(A0 + GN - 1);
+  auto kv_full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + ST + s); };
+  const int lane = threadIdx.x & 31, wq = (threadIdx.x >> 5) & 3, g = lane >> 2, tq = lane & 3;
+  const float scale_log2 = a.scale * kLog2e;
+  const fl::Turns turns{int(threadIdx.x) / fl::WG, Tile::NCW};
+
+  float dq[GN][32], s[32], dp[32];
+  uint32_t da[4][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    s[i] = dp[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < GN; ++c) dq[c][i] = 0.f;
+  }
+  auto fence_dq = [&]() {
+    fl::fence_first<N0 / 2>(dq[0]);
+    if constexpr (GN > 1) fl::fence_first<N1 / 2>(dq[1]);
+  };
+
+  turns.start();
+  ddpo::mbar_wait(bars, 0);  // Q, dO, lse and delta
+  // lse (base 2) and delta of the lane's rows g and g + 8 (0 past Sq)
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = 16 * wq + g + 8 * r;
+    lse2[r] = stats[i] * kLog2e;
+    dl[r] = stats[64 + i];
+  }
+  const int nt = (a.Sk + 63) / 64;
+#pragma unroll 1
+  for (int t = 0; t < nt; ++t) {
+    const int st = t % ST;
+    ddpo::mbar_wait(kv_full(st), (t / ST) & 1);
+    const uint32_t k_base = ks + uint32_t(st) * Tile::TILE;
+    const uint32_t v_base = vs + uint32_t(st) * Tile::TILE;
+
+    // S = Q K^T and dP = dO V^T over all of D (Q and dO the A operands)
+    turns.take();
+    ddpo::fence_operands(s);
+    ddpo::fence_operands(dp);
+    ddpo::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NC; ++kk)
+      ddpo::wgmma_ss<64>(s, fl::k_desc(q_base, 64, kk), fl::k_desc(k_base, 64, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < NC; ++kk)
+      ddpo::wgmma_ss<64>(dp, fl::k_desc(g_base, 64, kk), fl::k_desc(v_base, 64, kk), kk > 0);
+    ddpo::wgmma_commit();
+    ddpo::fence_operands(s);
+    ddpo::fence_operands(dp);
+    turns.pass(false);
+    ddpo::wgmma_wait<0>();
+    ddpo::fence_operands(s);
+    ddpo::fence_operands(dp);
+
+    // P = exp2(S scale log2(e) - lse log2(e)), dS = P (dP - delta); the lane
+    // holds rows g + 8r and keys 8j + 2tq + e of the tile. Keys past Sk give
+    // P = 0.
+    const int keys_left = a.Sk - t * 64;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = 4 * j + 2 * r + e;
+          float p = ddpo::exp2_ftz(fmaf(s[i], scale_log2, -lse2[r]));
+          if (8 * j + 2 * tq + e >= keys_left) p = 0.f;
+          s[i] = p * (dp[i] - dl[r]);
+        }
+    fl::pack_a(da, s);
+
+    // dQ += dS K over this group's atoms (K MN-major), the tile's four k
+    // steps of 16 keys in order
+    turns.take();
+    ddpo::wgmma_fence();
+#pragma unroll
+    for (int kq = 0; kq < 4; ++kq) {
+      ddpo::wgmma_rs_mn<N0>(dq[0], da[kq], fl::mn_desc(k_base, 64, A0, kq));
+      if constexpr (GN > 1)
+        ddpo::wgmma_rs_mn<N1>(dq[1], da[kq], fl::mn_desc(k_base, 64, A0 + 1, kq));
+    }
+    ddpo::wgmma_commit();
+    fence_dq();
+    turns.pass(t == nt - 1);
+    ddpo::wgmma_wait<0>();
+    fence_dq();
+#pragma unroll
+    for (int kq = 0; kq < 4; ++kq) ddpo::fence_operands(da[kq]);
+    ddpo::mbar_arrive(empty(st));
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 16 * wq + g + 8 * r;
+    if (row >= a.Sq) continue;
+    bf16* orow = a.dq + ((int64_t(b) * a.Sq + row) * a.H + h) * a.D;
+#pragma unroll
+    for (int c = 0; c < GN; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (c < GN - 1 ? j < N0 / 8 : j < N1 / 8)
+          ddpo::store_pair(orow, (A0 + c) * fl::ATOM + 8 * j + 2 * tq, a.D,
+                           dq[c][4 * j + 2 * r] * a.scale, dq[c][4 * j + 2 * r + 1] * a.scale);
+  }
+}
+
+// dQ for 64 * NCW query rows of one (head, batch) and one column group:
+// grid (query tiles, H, B * GROUPS)
+template <int NC>
+__global__ void __launch_bounds__(fl::block_threads(DqTile<NC>::NCW), 1) flash_bwd_dq_wgmma_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap gmap,
+    const WgArgs a) {
+  using Tile = DqTile<NC>;
+  constexpr int NA = Tile::NA, NCW = Tile::NCW, TILE = Tile::TILE, ST = Tile::stages();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = smem_raw + ((1024 - (ddpo::smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* gs = qs + NCW * TILE;  // dO: [NCW][NA][64][128]
+  uint8_t* ks = gs + NCW * TILE;  // K: [ST][NA][64][128]
+  uint8_t* vs = ks + ST * TILE;   // V: [ST][NA][64][128]
+  float* stats = reinterpret_cast<float*>(vs + ST * TILE);  // [NCW][lse 64, delta 64]
+  const uint32_t bars = ddpo::smem_addr(stats + NCW * 128);
+  const uint32_t q_full = bars;
+  auto kv_full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + ST + s); };
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = blockIdx.x * 64 * NCW, h = blockIdx.y;
+  const int b = blockIdx.z / Tile::GROUPS, grp = blockIdx.z - b * Tile::GROUPS;
+  const int nt = (a.Sk + 63) / 64;
+
+  if (tid == 0) {
+    ddpo::mbar_init(q_full, 32);  // the producer warp's lanes
+    for (int s = 0; s < ST; ++s) {
+      ddpo::mbar_init(kv_full(s), a.tma ? 1 : 32);
+      ddpo::mbar_init(empty(s), NCW * fl::WG);
+    }
+    ddpo::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * NCW) {  // the producer warp
+    const float* lse_bh = a.lse + (int64_t(b) * a.H + h) * a.Sq;
+    const float* dl_bh = a.delta + (int64_t(b) * a.H + h) * a.Sq;
+    // lse and delta of the block's query rows (0 past Sq) by cp.async, 4
+    // bytes each, the lane's share, arriving on q_full once they land
+    auto stage_stats = [&]() {
+      for (int i = lane; i < NCW * 128; i += 32) {
+        const int row = q0 + 64 * (i >> 7) + (i & 63);
+        const float* src = (i & 127) < 64 ? lse_bh : dl_bh;
+        ddpo::cp_async4(ddpo::smem_addr(stats + i), row < a.Sq ? src + row : src, row < a.Sq);
+      }
+    };
+    if (a.tma) {
+      if (lane == 0) {
+        ddpo::mbar_expect_tx(q_full, 2 * NCW * TILE);
+        for (int c = 0; c < NCW; ++c) {
+          fl::load_tile(ddpo::smem_addr(qs + c * TILE), &qmap, q_full, b, h, q0 + 64 * c, 64, NA);
+          fl::load_tile(ddpo::smem_addr(gs + c * TILE), &gmap, q_full, b, h, q0 + 64 * c, 64, NA);
+        }
+      }
+      stage_stats();
+      ddpo::cp_async_mbar_arrive(q_full);
+      if (lane == 0) {
+        for (int t = 0; t < nt; ++t) {
+          const int s = t % ST, use = t / ST;
+          if (use > 0) ddpo::mbar_wait(empty(s), (use - 1) & 1);
+          ddpo::mbar_arrive_expect_tx(kv_full(s), 2 * TILE);
+          fl::load_tile(ddpo::smem_addr(ks + s * TILE), &kmap, kv_full(s), b, h, t * 64, 64, NA);
+          fl::load_tile(ddpo::smem_addr(vs + s * TILE), &vmap, kv_full(s), b, h, t * 64, 64, NA);
+        }
+      }
+    } else {
+      const bf16* qb = a.q + b * a.st.q_b + h * a.st.q_h;
+      const bf16* kb = a.k + b * a.st.k_b + h * a.st.k_h;
+      const bf16* vb = a.v + b * a.st.v_b + h * a.st.v_h;
+      const bf16* gb = a.dout + b * a.st.do_b + h * a.st.do_h;
+      for (int c = 0; c < NCW; ++c) {
+        fl::stage_tile(qs + c * TILE, qb, a.st.q_s, q0 + 64 * c, 64, a.Sq, a.D, NA, lane, 32);
+        fl::stage_tile(gs + c * TILE, gb, a.st.do_s, q0 + 64 * c, 64, a.Sq, a.D, NA, lane, 32);
+      }
+      stage_stats();
+      ddpo::fence_proxy_async();
+      ddpo::cp_async_mbar_arrive(q_full);
+      for (int t = 0; t < nt; ++t) {
+        const int s = t % ST, use = t / ST;
+        if (use > 0) ddpo::mbar_wait(empty(s), (use - 1) & 1);
+        fl::stage_tile(ks + s * TILE, kb, a.st.k_s, t * 64, 64, a.Sk, a.D, NA, lane, 32);
+        fl::stage_tile(vs + s * TILE, vb, a.st.v_s, t * 64, 64, a.Sk, a.D, NA, lane, 32);
+        ddpo::fence_proxy_async();
+        ddpo::mbar_arrive(kv_full(s));
+      }
+    }
+    return;
+  }
+
+  const int cw = warp / 4;
+  const uint32_t q_base = ddpo::smem_addr(qs + cw * TILE), g_base = ddpo::smem_addr(gs + cw * TILE);
+  const float* st_cw = stats + cw * 128;
+  const uint32_t k_s = ddpo::smem_addr(ks), v_s = ddpo::smem_addr(vs);
+  const int row0 = q0 + 64 * cw;
+  if (grp == 0) dq_consumer<NC, 0>(a, q_base, g_base, st_cw, k_s, v_s, bars, row0, b, h);
+  if constexpr (Tile::GROUPS > 1)
+    if (grp == 1) dq_consumer<NC, 1>(a, q_base, g_base, st_cw, k_s, v_s, bars, row0, b, h);
+}
+
 struct BwdArgs {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
@@ -876,7 +938,6 @@ struct BwdArgs {
   int B, H, Sq, Sk, D;
   Strides st;
   float scale;
-  bool vec;  // the bf16 kernels may stage rows by cp.async
 };
 
 template <typename T, int NC>
@@ -910,42 +971,17 @@ cudaError_t launch_dkv(const BwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int NC, int MI>
-cudaError_t launch_dq_tiles(const BwdArgs& a, cudaStream_t stream) {
-  const size_t smem = dq_smem_bytes<NC, MI>();
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<NC, MI>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (e != cudaSuccess) return e;
-  constexpr int rows = 16 * kWarps * MI;
-  const dim3 grid((a.Sq + rows - 1) / rows, a.H, a.B);
-  flash_bwd_dq_mma_kernel<NC, MI><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse, a.delta,
-      static_cast<bf16*>(a.dq), a.H, a.Sq, a.Sk, a.D, a.st, a.scale, a.vec);
-  return cudaGetLastError();
-}
-
-// Two m16 tiles a warp (128 rows a block) up to D = 80 from Sq = 1024 up, as
-// in the forward: half the K/V fragment loads per product. Not below
-// Sq = 1024, where 128-row blocks leave SMs idle.
-template <int NC>
-cudaError_t launch_dq_mma(const BwdArgs& a, cudaStream_t stream) {
-  if constexpr (NC <= 5) {
-    if (a.Sq >= 1024) return launch_dq_tiles<NC, 2>(a, stream);
-  }
-  return launch_dq_tiles<NC, 1>(a, stream);
-}
-
-template <int NC>
-cudaError_t launch_dkv_wgmma(const BwdArgs& args, cudaStream_t stream) {
-  using Tile = DkvTile<NC>;
-  DkvArgs a{};
+// Both bf16 kernels' arguments, and the tensor maps of Q, K, V and dO
+// (tiles of 64 rows): a.tma says whether TMA takes all four
+WgArgs wg_args(const BwdArgs& args, CUtensorMap (&maps)[4]) {
+  WgArgs a{};
   a.q = static_cast<const bf16*>(args.q);
   a.k = static_cast<const bf16*>(args.k);
   a.v = static_cast<const bf16*>(args.v);
   a.dout = static_cast<const bf16*>(args.dout);
   a.lse = args.lse;
   a.delta = args.delta;
+  a.dq = static_cast<bf16*>(args.dq);
   a.dk = static_cast<bf16*>(args.dk);
   a.dv = static_cast<bf16*>(args.dv);
   a.H = args.H, a.Sq = args.Sq, a.Sk = args.Sk, a.D = args.D;
@@ -954,10 +990,34 @@ cudaError_t launch_dkv_wgmma(const BwdArgs& args, cudaStream_t stream) {
   const Strides& st = args.st;
   const int64_t strides[12] = {st.q_b, st.q_s, st.q_h, st.k_b, st.k_s, st.k_h,
                                st.v_b, st.v_s, st.v_h, st.do_b, st.do_s, st.do_h};
-  CUtensorMap maps[4] = {};
   const void* bases[4] = {args.q, args.k, args.v, args.dout};
   const int rows[4] = {64, 64, 64, 64}, lens[4] = {args.Sq, args.Sk, args.Sk, args.Sq};
   a.tma = fl::tensor_maps(maps, bases, strides, 4, args.B, lens, args.H, args.D, rows);
+  return a;
+}
+
+template <int NC>
+cudaError_t launch_dq_wgmma(const BwdArgs& args, cudaStream_t stream) {
+  using Tile = DqTile<NC>;
+  CUtensorMap maps[4] = {};
+  const WgArgs a = wg_args(args, maps);
+  const size_t smem = Tile::smem(Tile::stages());
+  // above 48 KB a block's dynamic shared memory must be allowed, once
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      flash_bwd_dq_wgmma_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (allowed != cudaSuccess) return allowed;
+  constexpr int rows = 64 * Tile::NCW;
+  const dim3 grid((args.Sq + rows - 1) / rows, args.H, args.B * Tile::GROUPS);
+  flash_bwd_dq_wgmma_kernel<NC><<<grid, fl::block_threads(Tile::NCW), smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], a);
+  return cudaGetLastError();
+}
+
+template <int NC>
+cudaError_t launch_dkv_wgmma(const BwdArgs& args, cudaStream_t stream) {
+  using Tile = DkvTile<NC>;
+  CUtensorMap maps[4] = {};
+  WgArgs a = wg_args(args, maps);
   a.stages = 4;
   while (a.stages > 2 && Tile::smem(a.stages) > size_t(fl::SMEM_MAX)) --a.stages;
   const size_t smem = Tile::smem(a.stages);
@@ -972,11 +1032,11 @@ cudaError_t launch_dkv_wgmma(const BwdArgs& args, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// bf16 takes the tensor-core kernels, fp32 the FMA kernels
+// bf16 takes the wgmma kernels, fp32 the FMA kernels
 template <typename T, bool DQ, int NC>
 cudaError_t launch_for(const BwdArgs& a, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, bf16>)
-    return DQ ? launch_dq_mma<NC>(a, stream) : launch_dkv_wgmma<NC>(a, stream);
+    return DQ ? launch_dq_wgmma<NC>(a, stream) : launch_dkv_wgmma<NC>(a, stream);
   else
     return DQ ? launch_dq<T, NC>(a, stream) : launch_dkv<T, NC>(a, stream);
 }
@@ -1016,7 +1076,6 @@ BwdArgs make_args(const void* q, const void* k, const void* v, const void* dout,
   a.st = Strides{strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
                  strides[6], strides[7], strides[8], strides[9], strides[10], strides[11]};
   a.scale = scale;
-  a.vec = ddpo::rows_vectorizable(D, strides, 12, {q, k, v, dout});
   return a;
 }
 
@@ -1036,9 +1095,9 @@ extern "C" int ddpo_flash_bwd_dq(const void* q, const void* k, const void* v,
   return run<true>(a, dtype, stream);
 }
 
-// 1 where the bf16 dK/dV kernel's producer loads the (B, S, H, D) array at
-// base with these element strides by TMA, 0 where it stages it by plain
-// loads
+// 1 where the bf16 flash kernels' producers (the forward's, dQ's and
+// dK/dV's) load the (B, S, H, D) array at base with these element strides
+// by TMA, 0 where they stage it by plain loads
 extern "C" int ddpo_flash_tma_ok(const void* base, int B, int S, int H, int D, int64_t sb,
                                  int64_t ss, int64_t sh) {
   CUtensorMap map;

@@ -12,37 +12,45 @@
 // tile against 2 x 64 x 64 x 48 multiply-adds, and the SFU does 16 a clock
 // per SM, so below D = 64 the softmax, not the tensor cores, sets the pace.
 //
-// bf16, on the tensor cores (flash_fwd_mma_kernel), FlashAttention-2's shape:
-//   - A block of 4 warps owns 64 query rows, 16 per warp; from Sq = 1024
-//     up and for D <= 80, 128 rows, 32 per warp in two m16 tiles that share
-//     every K and V fragment. Grid (query tiles, H, B). Q is staged once and
-//     its A fragments loaded once with ldmatrix (kept in registers up to
-//     D = 160, read from shared memory per tile above, where the O
-//     accumulators take the registers).
-//   - K and V tiles of 64 keys are staged with cp.async (16 bytes a thread)
-//     into two buffers: tile t+1 loads while tile t is multiplied. Rows are
-//     D padded to 16*NC with zeros, plus 8 more so that ldmatrix's eight row
-//     addresses fall in eight distinct bank groups. The zero padding lives in
-//     shared memory only (D = 40 runs three k16 steps over 48 columns).
-//     Rows past Sk are zero-filled by cp.async; D not a multiple of 8, or
-//     strides that are not, take element-wise loads instead.
-//   - S = Q K^T with mma.sync.m16n8k16 (bf16 in, fp32 accumulate), K's B
-//     fragments by ldmatrix; each lane holds 2 rows x 16 keys of S.
-//   - Online softmax on those registers: row max and sum across the lane
-//     quad by shuffles, exp2f(s * scale*log2(e) - m). The scale is applied to
-//     the fp32 scores, not folded into a bf16 Q, which would round it.
-//   - P is rounded to bf16 in registers and used directly as the A fragments
-//     of O += P V; V's B fragments come by ldmatrix.trans from the same
-//     [key][d] tile. This rounding is the one numerical change against the
-//     fp32 path; JAX's xla_attention rounds its weights to v's dtype too.
-//     The row sum l is taken over the fp32 P, so the LSE does not see it.
+// bf16 on Hopper (flash_fwd_wgmma_kernel: wgmma + TMA, flash_tiles.cuh),
+// FlashAttention-3's shape:
+//   - A block holds two consumer warpgroups of 64 query rows each (one above
+//     D = 160, where O alone takes up to 128 registers a thread) and a
+//     producer warp: 288 threads, so a thread may hold 168 registers. Grid
+//     (query tiles, H, B).
+//   - The producer loads the block's Q once, then streams K and V tiles of
+//     BK keys (128 up to D = 80, 64 above) into a ring of 2-4 stages, K and
+//     V each on a full mbarrier of its own and the stage on one empty
+//     mbarrier, by TMA where the arrays allow it (contiguous views: base
+//     16-byte aligned, (b, s, h) strides multiples of 8 elements), else by
+//     plain loads into the same swizzled bytes (fused-qkv slices at an odd
+//     element offset, D not a multiple of 8). Columns past D and rows past
+//     S are zeros in shared memory only (D = 40 runs three k16 steps over
+//     48 columns).
+//   - S = Q K^T is an SS wgmma (Q the A operand, K K-major B, N = BK).
+//     The online softmax runs on S's fp32 accumulators: row max and sum
+//     across the lane quad by shuffles, exp2(s * scale*log2(e) - m). The
+//     scale is applied to the fp32 scores, not folded into a bf16 Q.
+//   - P is rounded to bf16 in registers and is the A operand of O += P V
+//     (RS), with V as the MN-major B (tnspB). This rounding is the one
+//     numerical change against the fp32 path; JAX's xla_attention rounds
+//     its weights to v's dtype too. The row sum l is taken over the fp32 P,
+//     so the LSE does not see it.
+//   - The first tile is peeled. Then, per tile, S(t) and O += P(t-1) V(t-1)
+//     are issued back to back as two commit groups; the softmax of S(t)
+//     runs while P(t-1) V(t-1) does, and O takes S(t)'s correction once
+//     that product is done (without the peel ptxas serialized the
+//     wgmma). The two consumer warpgroups take turns to issue their
+//     products on named barriers (the ping-pong), so that one's
+//     exponentials run while the other's products do.
 //   - out = O / l in bf16 and lse = (m + log2 l) * ln 2, as before.
-// Summation order: each output element has one owner (a lane of the warp
-// that owns its row) and adds its terms in a fixed order: key tiles in
-// order, the mma's k16 steps in order, a fixed butterfly over the quad. No
-// split over keys and no atomics, and nothing depends on the batch, the
-// head or the row's place in the tile, so two calls give the same bits and
-// image i alone gives the bits it gets inside a batch.
+// Summation order: each output element has one owner (a lane of the
+// warpgroup that owns its row) and adds its terms in a fixed order: key
+// tiles in order, the k16 steps in order, a fixed butterfly over the quad.
+// No split over keys and no atomics; tile sizes depend on D alone, and
+// nothing on the batch, the head or the row's place in the block, so two
+// calls give the same bits and image i alone gives the bits it gets inside
+// a batch.
 //
 // fp32 (flash_fwd_kernel) stays on the CUDA cores in FMA: TF32 tensor cores
 // keep 10 mantissa bits and would break the 1e-4 bounds against the fp32
@@ -55,6 +63,7 @@
 // the caller neither pads nor transposes.
 
 #include "common.cuh"
+#include "flash_tiles.cuh"
 #include "mma.cuh"
 
 #include <type_traits>
@@ -226,247 +235,333 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
   return cudaGetLastError();
 }
 
-// ---- bf16 on the tensor cores ----
+// ---- bf16 on Hopper: wgmma + TMA ----
 
 using bf16 = __nv_bfloat16;
+namespace fl = ddpo::flash;
 
-using ddpo::mma_ld;
-using ddpo::stage_rows;
-
-constexpr int kWarps = 4;  // warps per block of the tensor-core kernel
-
-// Q [64 * MI][LD] + K [2][BK][LD] + V [2][BK][LD], bf16
-template <int NC, int MI>
-constexpr size_t mma_smem_bytes() {
-  return sizeof(bf16) * size_t(16 * kWarps * MI + 4 * BK) * mma_ld<NC>();
-}
-
-// 4 warps of 16 * MI query rows each (the MI m16 tiles of a warp share
-// each K and V fragment)
-template <int NC, int MI>
-__global__ void __launch_bounds__(32 * kWarps) flash_fwd_mma_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ out, float* __restrict__ lse, int H, int Sq, int Sk, int D,
-    int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
-    int64_t v_sb, int64_t v_ss, int64_t v_sh, float scale_log2, bool vec) {
-  constexpr int LD = mma_ld<NC>();
-  constexpr int MQ = 16 * MI * kWarps, MT = 32 * kWarps;
-  constexpr bool kQRegs = NC * MI <= 10;  // Q's fragments in registers up to D = 160
-  extern __shared__ uint4 smem_u4[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_u4);
-  bf16* ks = qs + MQ * LD;
-  bf16* vs = ks + 2 * BK * LD;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.x * MQ, h = blockIdx.y, b = blockIdx.z;
-  const bf16* qb = q + b * q_sb + h * q_sh;
-  const bf16* kb = k + b * k_sb + h * k_sh;
-  const bf16* vb = v + b * v_sb + h * v_sh;
-
-  for (int i = tid; i < (MQ + 4 * BK) * LD / 8; i += MT) smem_u4[i] = make_uint4(0, 0, 0, 0);
-  __syncthreads();
-  stage_rows(qs, qb, q_ss, q0, MQ, Sq, D, LD, vec, tid, MT);
-  stage_rows(ks, kb, k_ss, 0, BK, Sk, D, LD, vec, tid, MT);
-  stage_rows(vs, vb, v_ss, 0, BK, Sk, D, LD, vec, tid, MT);
-  ddpo::cp_async_commit();
-  ddpo::cp_async_wait<0>();
-  __syncthreads();
-
-  // A fragments of Q
-  const uint32_t q_addr = ddpo::smem_addr(qs + warp * 16 * MI * LD + ddpo::a_frag_off(lane, LD));
-  uint32_t qf[kQRegs ? MI : 1][kQRegs ? NC : 1][4];
-  if constexpr (kQRegs) {
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-      for (int kk = 0; kk < NC; ++kk)
-        ddpo::ldmatrix_x4(qf[mi][kk], q_addr + (mi * 16 * LD + kk * 16) * 2);
+// Tiles of the bf16 forward for D padded to 16 * NC, functions of D alone:
+// a consumer warpgroup owns 64 query rows; two run in a block up to D = 160,
+// one above, where O alone takes up to 128 registers a thread. K and V
+// tiles hold 128 keys up to D = 80 and 64 above (S is BK / 2 fp32 a thread
+// beside O's 8 NC and P's BK / 4).
+template <int NC>
+struct FwdTile {
+  static constexpr int NA = fl::atoms<NC>();
+  static constexpr int NCW = NC <= 10 ? 2 : 1;                // consumer warpgroups
+  static constexpr int BK = NC <= 5 ? 128 : 64;               // keys a K or V tile
+  static constexpr int QTILE = NA * 64 * fl::ROW_BYTES;       // 64 query rows
+  static constexpr int KTILE = NA * BK * fl::ROW_BYTES;       // BK keys of K or V
+  __host__ __device__ static constexpr size_t smem(int stages) {
+    // Q [NCW][NA][64][128], K and V [stages][NA][BK][128]; the barriers
+    return 1024 + size_t(NCW) * QTILE + size_t(stages) * 2 * KTILE + 8 * (1 + 3 * stages);
   }
-  // B fragments: K (non-trans, [key][d]) two key tiles of 8 per x4; V
-  // (trans, [key][d]) two d tiles of 8 per x4
-  const int k_off = ddpo::b_frag_off(lane, LD), v_off = ddpo::bt_frag_off(lane, LD);
-
-  float o[MI][2 * NC][4];
-  float m[MI][2], l[MI][2];
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi) {
-#pragma unroll
-    for (int n = 0; n < 2 * NC; ++n) o[mi][n][0] = o[mi][n][1] = o[mi][n][2] = o[mi][n][3] = 0.f;
-    m[mi][0] = m[mi][1] = -INFINITY;
-    l[mi][0] = l[mi][1] = 0.f;
+  __host__ __device__ static constexpr int stages() {
+    int st = 4;
+    while (st > 2 && smem(st) > size_t(fl::SMEM_MAX)) --st;
+    return st;
   }
+};
 
-  const int ntiles = (Sk + BK - 1) / BK;
-  for (int t = 0; t < ntiles; ++t) {
-    const int cur = t & 1;
-    if (t + 1 < ntiles) {  // the other buffer's readers passed the barrier ending tile t-1
-      stage_rows(ks + (cur ^ 1) * BK * LD, kb, k_ss, (t + 1) * BK, BK, Sk, D, LD, vec, tid, MT);
-      stage_rows(vs + (cur ^ 1) * BK * LD, vb, v_ss, (t + 1) * BK, BK, Sk, D, LD, vec, tid, MT);
+struct FwdArgs {
+  const bf16 *q, *k, *v;
+  bf16* out;
+  float* lse;
+  int H, Sq, Sk, D;
+  int64_t q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
+  float scale_log2;
+  int tma;  // 1: the producer loads by TMA; 0: by plain loads
+};
+
+// One consumer warpgroup's 64 query rows from row0: Q's tile at q_base,
+// the K and V stages at ks and vs, the barriers at bars
+template <int NC>
+__device__ __forceinline__ void fwd_consumer(const FwdArgs& a, uint32_t q_base, uint32_t ks,
+                                             uint32_t vs, uint32_t bars, int row0, int b, int h) {
+  using Tile = FwdTile<NC>;
+  constexpr int NA = Tile::NA, BK = Tile::BK, KS = BK / 16, ST = Tile::stages();
+  constexpr int NL = fl::atom_n<NC>(NA - 1);  // columns of the last atom
+  auto kfull = [&](int s) { return bars + 8 * (1 + s); };
+  auto vfull = [&](int s) { return bars + 8 * (1 + ST + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + 2 * ST + s); };
+  const int lane = threadIdx.x & 31, wq = (threadIdx.x >> 5) & 3, g = lane >> 2, tq = lane & 3;
+  const fl::Turns turns{int(threadIdx.x) / fl::WG, Tile::NCW};
+
+  // O by 64-column atom (the last atom's first NL / 2), S of one tile, and
+  // the previous tile's P as the A fragments of O += P V
+  float o[NA][32], s[BK / 2];
+  uint32_t pa[KS][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
+#pragma unroll
+  for (int at = 0; at < NA; ++at)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[at][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+
+  auto fence_o = [&]() {
+#pragma unroll
+    for (int at = 0; at < NA - 1; ++at) ddpo::fence_operands(o[at]);
+    fl::fence_first<NL / 2>(o[NA - 1]);
+  };
+  auto fence_p = [&]() {
+#pragma unroll
+    for (int kq = 0; kq < KS; ++kq) ddpo::fence_operands(pa[kq]);
+  };
+  // S = Q K^T over all of D (both K-major in shared memory)
+  auto issue_qk = [&](int st) {
+    const uint32_t k_base = ks + uint32_t(st) * Tile::KTILE;
+#pragma unroll
+    for (int kk = 0; kk < NC; ++kk)
+      ddpo::wgmma_ss<BK>(s, fl::k_desc(q_base, 64, kk), fl::k_desc(k_base, BK, kk), kk > 0);
+  };
+  // O += P V, P from registers, V MN-major: k steps of 16 keys in order
+  auto issue_pv = [&](int st) {
+    const uint32_t v_base = vs + uint32_t(st) * Tile::KTILE;
+#pragma unroll
+    for (int kq = 0; kq < KS; ++kq) {
+#pragma unroll
+      for (int at = 0; at < NA - 1; ++at)
+        ddpo::wgmma_rs_mn<64>(o[at], pa[kq], fl::mn_desc(v_base, BK, at, kq));
+      ddpo::wgmma_rs_mn<NL>(o[NA - 1], pa[kq], fl::mn_desc(v_base, BK, NA - 1, kq));
     }
-    ddpo::cp_async_commit();
-    ddpo::cp_async_wait<1>();  // tile t has landed
-    __syncthreads();
-    const uint32_t k_addr = ddpo::smem_addr(ks + cur * BK * LD + k_off);
-    const uint32_t v_addr = ddpo::smem_addr(vs + cur * BK * LD + v_off);
-
-    // S = Q K^T: 16 MI rows x 64 keys per warp, 2 MI rows x 16 keys per lane
-    float s[MI][8][4];
+  };
+  // the online softmax of tile t's S in place (P in fp32), in base 2 with
+  // the scale on the fp32 scores; the lane holds rows g + 8r and keys
+  // 8j + 2tq + e, the three lanes of its quad the rest
+  auto softmax = [&](int t) {
+    const int keys_left = a.Sk - t * BK;
+    if (keys_left < BK) {
 #pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[mi][j][0] = s[mi][j][1] = s[mi][j][2] = s[mi][j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < NC; ++kk) {
-      uint32_t a[MI][4];
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) {
-        if constexpr (kQRegs) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) a[mi][i] = qf[mi][kk][i];
-        } else {
-          ddpo::ldmatrix_x4(a[mi], q_addr + (mi * 16 * LD + kk * 16) * 2);
-        }
-      }
-#pragma unroll
-      for (int jp = 0; jp < 4; ++jp) {
-        uint32_t bb[4];
-        ddpo::ldmatrix_x4(bb, k_addr + (jp * 16 * LD + kk * 16) * 2);
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi) {
-          ddpo::mma_bf16(s[mi][2 * jp], a[mi], bb[0], bb[1]);
-          ddpo::mma_bf16(s[mi][2 * jp + 1], a[mi], bb[2], bb[3]);
-        }
-      }
+      for (int i = 0; i < BK / 2; ++i)
+        if (8 * (i >> 2) + 2 * tq + (i & 1) >= keys_left) s[i] = -INFINITY;
     }
-    if ((t + 1) * BK > Sk) {  // keys past Sk
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          if (t * BK + j * 8 + 2 * (lane & 3) + e >= Sk)
-#pragma unroll
-            for (int mi = 0; mi < MI; ++mi) s[mi][j][e] = s[mi][j][2 + e] = -INFINITY;
-    }
-
-    // online softmax; row r of the lane in m16 tile mi is g + 8r, its other
-    // 48 keys are held by the three lanes of its quad
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[mi][j][2 * r], s[mi][j][2 * r + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m[mi][r], mx * scale_log2);  // finite: each tile has a key
-        const float corr = ddpo::exp2_ftz(m[mi][r] - m_new);
-        float rs = 0.f;
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float p = ddpo::exp2_ftz(fmaf(s[mi][j][2 * r + e], scale_log2, -m_new));
-            s[mi][j][2 * r + e] = p;
-            rs += p;
-          }
-        rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-        rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-        l[mi][r] = l[mi][r] * corr + rs;
-        m[mi][r] = m_new;
-#pragma unroll
-        for (int n = 0; n < 2 * NC; ++n) {
-          o[mi][n][2 * r] *= corr;
-          o[mi][n][2 * r + 1] *= corr;
-        }
-      }
-
-    // O += P V, P rounded to bf16 as the A fragments (keys 16kk .. 16kk+15)
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t a[MI][4];
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) {
-        a[mi][0] = ddpo::pack_bf16(s[mi][2 * kk][0], s[mi][2 * kk][1]);
-        a[mi][1] = ddpo::pack_bf16(s[mi][2 * kk][2], s[mi][2 * kk][3]);
-        a[mi][2] = ddpo::pack_bf16(s[mi][2 * kk + 1][0], s[mi][2 * kk + 1][1]);
-        a[mi][3] = ddpo::pack_bf16(s[mi][2 * kk + 1][2], s[mi][2 * kk + 1][3]);
-      }
-#pragma unroll
-      for (int np = 0; np < NC; ++np) {
-        uint32_t bb[4];
-        ddpo::ldmatrix_x4_trans(bb, v_addr + (kk * 16 * LD + np * 16) * 2);
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi) {
-          ddpo::mma_bf16(o[mi][2 * np], a[mi], bb[0], bb[1]);
-          ddpo::mma_bf16(o[mi][2 * np + 1], a[mi], bb[2], bb[3]);
-        }
-      }
-    }
-    __syncthreads();  // this tile's buffers may be refilled
-  }
-
-  const float kLn2 = 0.69314718055994531f;
-  const int g = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int row = q0 + (warp * MI + mi) * 16 + g + 8 * r;
-      if (row >= Sq) continue;
-      const float inv = 1.f / l[mi][r];
-      bf16* orow = out + ((int64_t(b) * Sq + row) * H + h) * D;
+      float mx = -INFINITY;
 #pragma unroll
-      for (int n = 0; n < 2 * NC; ++n) {
-        const int col = n * 8 + 2 * tq;
-        ddpo::store_pair(orow, col, D, o[mi][n][2 * r] * inv, o[mi][n][2 * r + 1] * inv);
-      }
-      if (tq == 0) lse[(int64_t(b) * H + h) * Sq + row] = (m[mi][r] + log2f(l[mi][r])) * kLn2;
+      for (int j = 0; j < BK / 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx * a.scale_log2);  // finite: each tile has a key
+      corr[r] = ddpo::exp2_ftz(m[r] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = ddpo::exp2_ftz(fmaf(s[4 * j + 2 * r + e], a.scale_log2, -m_new));
+          s[4 * j + 2 * r + e] = p;
+          rs += p;
+        }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      l[r] = l[r] * corr[r] + rs;
+      m[r] = m_new;
     }
+  };
+
+  turns.start();
+  ddpo::mbar_wait(bars, 0);  // Q
+  const int nt = (a.Sk + BK - 1) / BK;
+
+  // tile 0, peeled: S(0) alone
+  ddpo::mbar_wait(kfull(0), 0);
+  turns.take();
+  ddpo::fence_operands(s);
+  ddpo::wgmma_fence();
+  issue_qk(0);
+  ddpo::wgmma_commit();
+  ddpo::fence_operands(s);
+  turns.pass(false);
+  ddpo::wgmma_wait<0>();
+  ddpo::fence_operands(s);
+  softmax(0);  // O is 0: no correction
+  fl::pack_a(pa, s);
+
+  // then S(t) and O = O corr + P(t-1) V(t-1) issued back to back; the
+  // softmax of S(t) runs while P(t-1) V(t-1) does
+#pragma unroll 1
+  for (int t = 1; t < nt; ++t) {
+    const int st = t % ST, sp = (t - 1) % ST;
+    ddpo::mbar_wait(kfull(st), (t / ST) & 1);
+    ddpo::mbar_wait(vfull(sp), ((t - 1) / ST) & 1);
+    turns.take();
+    ddpo::fence_operands(s);
+    fence_o();
+    ddpo::wgmma_fence();
+    issue_qk(st);
+    ddpo::wgmma_commit();
+    issue_pv(sp);
+    ddpo::wgmma_commit();
+    ddpo::fence_operands(s);
+    fence_o();
+    turns.pass(false);
+    ddpo::wgmma_wait<1>();  // S(t)
+    ddpo::fence_operands(s);
+    softmax(t);
+    ddpo::wgmma_wait<0>();  // P(t-1) V(t-1)
+    fence_o();
+    fence_p();
+    ddpo::mbar_arrive(empty(sp));
+#pragma unroll
+    for (int at = 0; at < NA; ++at)
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (at < NA - 1 || i < NL / 2) o[at][i] *= corr[(i >> 1) & 1];
+    fl::pack_a(pa, s);
+  }
+
+  // the last tile's P V
+  const int sp = (nt - 1) % ST;
+  ddpo::mbar_wait(vfull(sp), ((nt - 1) / ST) & 1);
+  turns.take();
+  fence_o();
+  ddpo::wgmma_fence();
+  issue_pv(sp);
+  ddpo::wgmma_commit();
+  fence_o();
+  turns.pass(true);
+  ddpo::wgmma_wait<0>();
+  fence_o();
+  fence_p();
+
+  const float kLn2 = 0.69314718055994531f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 16 * wq + g + 8 * r;
+    if (row >= a.Sq) continue;
+    const float inv = 1.f / l[r];
+    bf16* orow = a.out + ((int64_t(b) * a.Sq + row) * a.H + h) * a.D;
+#pragma unroll
+    for (int at = 0; at < NA; ++at)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (at < NA - 1 || j < NL / 8)
+          ddpo::store_pair(orow, at * fl::ATOM + 8 * j + 2 * tq, a.D, o[at][4 * j + 2 * r] * inv,
+                           o[at][4 * j + 2 * r + 1] * inv);
+    if (tq == 0) a.lse[(int64_t(b) * a.H + h) * a.Sq + row] = (m[r] + log2f(l[r])) * kLn2;
+  }
 }
 
-template <int NC, int MI>
-cudaError_t launch_tiles(const void* q, const void* k, const void* v, void* out, float* lse,
+// out and lse for 64 * NCW query rows of one (head, batch): grid (query
+// tiles, H, B), NCW consumer warpgroups and the producer warp
+template <int NC>
+__global__ void __launch_bounds__(fl::block_threads(FwdTile<NC>::NCW), 1) flash_fwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const FwdArgs a) {
+  using Tile = FwdTile<NC>;
+  constexpr int NA = Tile::NA, NCW = Tile::NCW, BK = Tile::BK, ST = Tile::stages();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = smem_raw + ((1024 - (ddpo::smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* ks = qs + NCW * Tile::QTILE;  // K: [ST][NA][BK][128]
+  uint8_t* vs = ks + ST * Tile::KTILE;   // V: [ST][NA][BK][128]
+  const uint32_t bars = ddpo::smem_addr(vs + ST * Tile::KTILE);
+  const uint32_t q_full = bars;
+  auto kfull = [&](int s) { return bars + 8 * (1 + s); };
+  auto vfull = [&](int s) { return bars + 8 * (1 + ST + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + 2 * ST + s); };
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = blockIdx.x * 64 * NCW, h = blockIdx.y, b = blockIdx.z;
+  const int nt = (a.Sk + BK - 1) / BK;
+
+  if (tid == 0) {
+    const uint32_t arrivals = a.tma ? 1 : 32;  // lane 0's expect_tx, or the warp's lanes
+    ddpo::mbar_init(q_full, arrivals);
+    for (int s = 0; s < ST; ++s) {
+      ddpo::mbar_init(kfull(s), arrivals);
+      ddpo::mbar_init(vfull(s), arrivals);
+      ddpo::mbar_init(empty(s), NCW * fl::WG);
+    }
+    ddpo::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * NCW) {  // the producer warp
+    if (a.tma) {
+      if (lane == 0) {
+        ddpo::mbar_arrive_expect_tx(q_full, NCW * Tile::QTILE);
+        for (int c = 0; c < NCW; ++c)
+          fl::load_tile(ddpo::smem_addr(qs + c * Tile::QTILE), &qmap, q_full, b, h, q0 + 64 * c,
+                        64, NA);
+        for (int t = 0; t < nt; ++t) {
+          const int s = t % ST, use = t / ST;
+          if (use > 0) ddpo::mbar_wait(empty(s), (use - 1) & 1);
+          ddpo::mbar_arrive_expect_tx(kfull(s), Tile::KTILE);
+          fl::load_tile(ddpo::smem_addr(ks + s * Tile::KTILE), &kmap, kfull(s), b, h, t * BK, BK,
+                        NA);
+          ddpo::mbar_arrive_expect_tx(vfull(s), Tile::KTILE);
+          fl::load_tile(ddpo::smem_addr(vs + s * Tile::KTILE), &vmap, vfull(s), b, h, t * BK, BK,
+                        NA);
+        }
+      }
+    } else {
+      const bf16* qb = a.q + b * a.q_sb + h * a.q_sh;
+      const bf16* kb = a.k + b * a.k_sb + h * a.k_sh;
+      const bf16* vb = a.v + b * a.v_sb + h * a.v_sh;
+      for (int c = 0; c < NCW; ++c)
+        fl::stage_tile(qs + c * Tile::QTILE, qb, a.q_ss, q0 + 64 * c, 64, a.Sq, a.D, NA, lane, 32);
+      ddpo::fence_proxy_async();
+      ddpo::mbar_arrive(q_full);
+      for (int t = 0; t < nt; ++t) {
+        const int s = t % ST, use = t / ST;
+        if (use > 0) ddpo::mbar_wait(empty(s), (use - 1) & 1);
+        fl::stage_tile(ks + s * Tile::KTILE, kb, a.k_ss, t * BK, BK, a.Sk, a.D, NA, lane, 32);
+        ddpo::fence_proxy_async();
+        ddpo::mbar_arrive(kfull(s));
+        fl::stage_tile(vs + s * Tile::KTILE, vb, a.v_ss, t * BK, BK, a.Sk, a.D, NA, lane, 32);
+        ddpo::fence_proxy_async();
+        ddpo::mbar_arrive(vfull(s));
+      }
+    }
+    return;
+  }
+
+  const int cw = warp / 4;
+  fwd_consumer<NC>(a, ddpo::smem_addr(qs + cw * Tile::QTILE), ddpo::smem_addr(ks),
+                   ddpo::smem_addr(vs), bars, q0 + 64 * cw, b, h);
+}
+
+template <int NC>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse,
                          int B, int H, int Sq, int Sk, int D, const int64_t* st, float scale,
                          cudaStream_t stream) {
-  const size_t smem = mma_smem_bytes<NC, MI>();
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_mma_kernel<NC, MI>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (e != cudaSuccess) return e;
-  const bool vec = ddpo::rows_vectorizable(D, st, 9, {q, k, v});
-  constexpr int rows = 16 * kWarps * MI;
-  const dim3 grid((Sq + rows - 1) / rows, H, B);
-  const float kLog2e = 1.4426950408889634f;
-  flash_fwd_mma_kernel<NC, MI><<<grid, 32 * kWarps, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), lse, H, Sq, Sk, D, st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], scale * kLog2e, vec);
+  using Tile = FwdTile<NC>;
+  FwdArgs a{};
+  a.q = static_cast<const bf16*>(q);
+  a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v);
+  a.out = static_cast<bf16*>(out);
+  a.lse = lse;
+  a.H = H, a.Sq = Sq, a.Sk = Sk, a.D = D;
+  a.q_sb = st[0], a.q_ss = st[1], a.q_sh = st[2];
+  a.k_sb = st[3], a.k_ss = st[4], a.k_sh = st[5];
+  a.v_sb = st[6], a.v_ss = st[7], a.v_sh = st[8];
+  a.scale_log2 = scale * 1.4426950408889634f;
+  CUtensorMap maps[3] = {};
+  const void* bases[3] = {q, k, v};
+  const int rows[3] = {64, Tile::BK, Tile::BK}, lens[3] = {Sq, Sk, Sk};
+  a.tma = fl::tensor_maps(maps, bases, st, 3, B, lens, H, D, rows);
+  const size_t smem = Tile::smem(Tile::stages());
+  // above 48 KB a block's dynamic shared memory must be allowed, once
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      flash_fwd_wgmma_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (allowed != cudaSuccess) return allowed;
+  constexpr int rows_a_block = 64 * Tile::NCW;
+  const dim3 grid((Sq + rows_a_block - 1) / rows_a_block, H, B);
+  flash_fwd_wgmma_kernel<NC><<<grid, fl::block_threads(Tile::NCW), smem, stream>>>(
+      maps[0], maps[1], maps[2], a);
   return cudaGetLastError();
 }
 
-// Two m16 tiles a warp (128 rows a block) up to D = 80 from Sq = 1024 up:
-// half the K/V fragment loads per product, and faster than one tile at
-// the UNet's S = 4096 and 1024 (PERF.md), with the same bits. Not above
-// D = 80 (the accumulators would pass 255 registers) nor below Sq = 1024,
-// where 128-row blocks leave SMs idle (S = 256 at 2B = 8: 128 blocks).
-template <int NC>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, float* lse,
-                       int B, int H, int Sq, int Sk, int D, const int64_t* st, float scale,
-                       cudaStream_t stream) {
-  if constexpr (NC <= 5) {
-    if (Sq >= 1024)
-      return launch_tiles<NC, 2>(q, k, v, out, lse, B, H, Sq, Sk, D, st, scale, stream);
-  }
-  return launch_tiles<NC, 1>(q, k, v, out, lse, B, H, Sq, Sk, D, st, scale, stream);
-}
-
-// bf16 takes the tensor-core kernel, fp32 the FMA kernel
+// bf16 takes the wgmma kernel, fp32 the FMA kernel
 template <typename T, int NC>
 cudaError_t launch_for(const void* q, const void* k, const void* v, void* out, float* lse,
                        int B, int H, int Sq, int Sk, int D, const int64_t* st, float scale,
                        cudaStream_t stream) {
   if constexpr (std::is_same_v<T, bf16>)
-    return launch_mma<NC>(q, k, v, out, lse, B, H, Sq, Sk, D, st, scale, stream);
+    return launch_wgmma<NC>(q, k, v, out, lse, B, H, Sq, Sk, D, st, scale, stream);
   else
     return launch<T, NC>(q, k, v, out, lse, B, H, Sq, Sk, D, st, scale, stream);
 }

@@ -1,5 +1,5 @@
-// The Hopper flash kernels' shared pieces (flash_bwd.cu's dK/dV kernel; the
-// forward and dQ are to follow on them): tiles of (B, S, H, D) bf16 rows in
+// The Hopper flash kernels' shared pieces (flash_fwd.cu's forward,
+// flash_bwd.cu's dQ and dK/dV kernels): tiles of (B, S, H, D) bf16 rows in
 // shared memory as wgmma reads them, the producer's two ways of filling
 // them, and the block's shape.
 //
@@ -101,6 +101,15 @@ __device__ __forceinline__ uint64_t k_desc(uint32_t base, int rows, int kk) {
 // `rows` rows at shared address base
 __device__ __forceinline__ uint64_t mn_desc(uint32_t base, int rows, int at, int kq) {
   return desc_sw128_mn(base + uint32_t(at) * rows * ROW_BYTES + uint32_t(kq) * 16 * ROW_BYTES);
+}
+
+// keeps the compiler from moving the first M accumulators of d across the
+// async mma (the used part of an array sized for a whole atom)
+template <int M, int R>
+__device__ __forceinline__ void fence_first(float (&d)[R]) {
+  static_assert(M <= R, "fence_first: M past the array");
+#pragma unroll
+  for (int i = 0; i < M; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // P (or dS) from an accumulator of N = 16 * NK columns into the A

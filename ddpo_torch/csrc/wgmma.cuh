@@ -334,7 +334,7 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[80], const uint32_t (&a)[4],
 // ---- the flash kernels' products, N a template argument ----
 //
 // wgmma_rs_mn<N>: d[0 .. N/2) += a * b, A from registers, B MN-major at
-// the descriptor (tnspB = 1). wgmma_ss<N>: d[0 .. N/2)
+// the descriptor (tnspB = 1). wgmma_ss<N> (N = 32, 64, 128): d[0 .. N/2)
 // = (accumulate ? d : 0) + a * b, both from descriptors, both K-major. The
 // accumulator arrays may be longer than N/2 (a 64-column chunk's array
 // serves a narrower last chunk).
@@ -343,10 +343,12 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[80], const uint32_t (&a)[4],
 #define DDPO_F8(i) DDPO_F4(i), DDPO_F4((i) + 4)
 #define DDPO_F16(i) DDPO_F8(i), DDPO_F8((i) + 8)
 #define DDPO_F32(i) DDPO_F16(i), DDPO_F16((i) + 16)
+#define DDPO_F64(i) DDPO_F32(i), DDPO_F32((i) + 32)
 #define DDPO_R8 "%0, %1, %2, %3, %4, %5, %6, %7"
 #define DDPO_R16 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
 #define DDPO_R24 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23"
 #define DDPO_R32 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define DDPO_R64 DDPO_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
 #define DDPO_WGMMA_RS(N, REGS, A, DESC, PRED, ...)                                       \
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " PRED ", 0;\n"                            \
                "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" REGS "}, " A ", " \
@@ -383,9 +385,11 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[R], uint64_t adesc, uint64_t
   static_assert(R >= N / 2, "accumulator array too short");
   if constexpr (N == 32) {
     DDPO_WGMMA_SS(32, DDPO_R16, "%16", "%17", "%18", DDPO_F16(0));
-  } else {
-    static_assert(N == 64, "wgmma_ss: N is 32 or 64");
+  } else if constexpr (N == 64) {
     DDPO_WGMMA_SS(64, DDPO_R32, "%32", "%33", "%34", DDPO_F32(0));
+  } else {
+    static_assert(N == 128, "wgmma_ss: N is 32, 64 or 128");
+    DDPO_WGMMA_SS(128, DDPO_R64, "%64", "%65", "%66", DDPO_F64(0));
   }
 }
 
@@ -395,10 +399,12 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[R], uint64_t adesc, uint64_t
 #undef DDPO_F8
 #undef DDPO_F16
 #undef DDPO_F32
+#undef DDPO_F64
 #undef DDPO_R8
 #undef DDPO_R16
 #undef DDPO_R24
 #undef DDPO_R32
+#undef DDPO_R64
 
 // ---- host: tensor maps ----
 

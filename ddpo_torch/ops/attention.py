@@ -17,9 +17,8 @@ Kernels (each replaces a Pallas kernel of the JAX package):
     recomputing P from the logsumexp (``_flash_bwd_dq_kernel``,
     ``_flash_bwd_dkv_kernel``).
 
-In bf16 both files run every product on the tensor cores (dk/dv on
-Hopper's wgmma, fed by TMA; the forward and dq on mma.sync); fp32 runs on
-the CUDA cores, where the fp32 bounds hold.
+In bf16 both files run every product on Hopper's tensor cores (wgmma, fed
+by TMA); fp32 runs on the CUDA cores, where the fp32 bounds hold.
 
 ``attention(..., spatial=axis)`` (JAX's ``spatial_axis``, self-attention
 of a UNet whose H is sharded over the axis): K/V are all-gathered over the
@@ -105,6 +104,12 @@ def flash_attention_fwd(
     if q.device.type != "cuda":
         raise ValueError(f"no flash kernel for device {q.device}")
     _check_flash_inputs(q, k, v)
+    return flash_fwd(q, k, v, scale)
+
+
+def flash_fwd(q, k, v, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``flash_fwd`` on checked CUDA inputs -> (out, lse);
+    ``flash_attention_fwd`` checks them first."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
@@ -124,10 +129,11 @@ def flash_attention_fwd(
 
 
 def flash_uses_tma(t: torch.Tensor) -> bool:
-    """Whether the bf16 dk/dv kernel's producer loads this (B, S, H, D)
-    CUDA tensor by TMA. Else it stages it with plain loads (a base off 16
-    bytes, or a stride off a multiple of 8 elements); the consumers' bits
-    are the same either way."""
+    """Whether the bf16 flash kernels' producers (the forward's, dq's and
+    dk/dv's) load this (B, S, H, D) CUDA tensor by TMA. Else they stage it
+    with plain loads (a base off 16 bytes, or a stride off a multiple of 8
+    elements); the consumers' bits are the same either way. A kernel takes
+    TMA only where all its inputs allow it."""
     b, s, h, d = t.shape
     kl = _build.load_library()
     return bool(kl.lib.ddpo_flash_tma_ok(t.data_ptr(), b, s, h, d, t.stride(0), t.stride(1),

@@ -1,7 +1,8 @@
 """The bf16 flash forward's arithmetic, emulated in torch, against JAX's kernel.
 
 csrc/flash_fwd.cu runs bf16 attention on the tensor cores: scores in fp32
-from bf16 Q and K, an online softmax over 64-key tiles in base 2, P rounded
+from bf16 Q and K, an online softmax over key tiles (128 keys up to D = 80,
+64 above: ``key_tile``) in base 2, P rounded
 to bf16 before the P V product (fp32 sums), the row sum l over the fp32 P,
 and out = O / l at the end. ``emulate_mma_forward`` repeats that on the CPU,
 so the rounding choice is pinned here before the card sees it: against
@@ -12,8 +13,8 @@ the card's for bf16: out 1e-2, lse 1e-4.
 csrc/flash_bwd.cu runs the bf16 backward on the tensor cores the same way:
 S and dP in fp32 from bf16 inputs, P recomputed from the forward's lse in
 base 2, P (for dV) and dS (for dQ and dK) rounded to bf16 before their
-products, fp32 sums, the scale applied at the end. ``emulate_mma_backward``
-repeats that and is held against ddpo_tpu's ``_flash_backward`` (its Pallas
+products, fp32 sums, the scale applied at the end; dQ sums its 64-key tiles
+in key order. ``emulate_mma_backward`` repeats that and is held against ddpo_tpu's ``_flash_backward`` (its Pallas
 kernels in interpret mode, fp32 inside) and against the fp32 plain backward
 on the same bf16 inputs, within the card's bound 1e-2 * max(1, max|ref|).
 """
@@ -33,7 +34,13 @@ from ddpo_torch.ops.attention import (
 )
 from ddpo_tpu.ops.attention import _flash_backward, _flash_forward
 
-KEY_TILE = 64  # keys per K/V tile in csrc/flash_fwd.cu
+DQ_KEY_TILE = 64  # keys per K/V tile of the dQ kernel in csrc/flash_bwd.cu
+
+
+def key_tile(d: int) -> int:
+    """Keys per K/V tile of the bf16 forward in csrc/flash_fwd.cu: 128 up to
+    D = 80, 64 above (D padded to a multiple of 16)."""
+    return 128 if (d + 15) // 16 <= 5 else 64
 
 
 def emulate_mma_forward(q, k, v, scale):
@@ -45,13 +52,14 @@ def emulate_mma_forward(q, k, v, scale):
     m = torch.full((b, h, sq), -math.inf)
     l = torch.zeros((b, h, sq))
     o = torch.zeros_like(qf)
-    for k0 in range(0, kf.shape[2], KEY_TILE):
-        s = scores[..., k0:k0 + KEY_TILE]
+    tile = key_tile(qf.shape[-1])
+    for k0 in range(0, kf.shape[2], tile):
+        s = scores[..., k0:k0 + tile]
         m_new = torch.maximum(m, s.amax(-1) * scale_log2)
         corr = torch.exp2(m - m_new)
         p = torch.exp2(s * scale_log2 - m_new[..., None])
         l = l * corr + p.sum(-1)
-        o = o * corr[..., None] + p.bfloat16().float() @ vf[:, :, k0:k0 + KEY_TILE]
+        o = o * corr[..., None] + p.bfloat16().float() @ vf[:, :, k0:k0 + tile]
         m = m_new
     out = (o / l[..., None]).transpose(1, 2).bfloat16()
     return out, (m + torch.log2(l)) * math.log(2.0)
@@ -69,7 +77,8 @@ def _bf16_qkv(b, sq, sk, h, d, seed):
     (1, 130, 300, 2, 40),   # ragged Sk: the last tile is masked
     (2, 64, 100, 1, 80),
     (1, 96, 257, 2, 16),    # one key in the last tile
-    (1, 100, 300, 1, 80),   # five tiles, the last masked
+    (1, 100, 300, 1, 80),   # three 128-key tiles, the last masked
+    (1, 80, 260, 2, 40),    # Sk across two 128-key boundaries, 4 keys in the last tile
     (1, 70, 129, 2, 96),    # one key in the last tile
     (1, 70, 129, 2, 160),   # the UNet's widest D
     (1, 60, 200, 1, 256),   # the widest D the gate admits
@@ -123,7 +132,10 @@ def emulate_mma_backward(q, k, v, out, lse, do, scale):
     p = torch.exp2(s * scale_log2 - (lse * log2e)[..., None])
     ds = p * (gf @ vf.transpose(-1, -2) - _delta(out, do)[..., None])
     ds, p = ds.bfloat16().float(), p.bfloat16().float()  # the A operands
-    dq = (ds @ kf) * scale
+    dq = torch.zeros_like(qf)
+    for k0 in range(0, kf.shape[2], DQ_KEY_TILE):  # dQ's key tiles in order
+        dq = dq + ds[..., k0:k0 + DQ_KEY_TILE] @ kf[:, :, k0:k0 + DQ_KEY_TILE]
+    dq = dq * scale
     dk = (ds.transpose(-1, -2) @ qf) * scale
     dv = p.transpose(-1, -2) @ gf
     return tuple(t.transpose(1, 2).bfloat16() for t in (dq, dk, dv))

@@ -25,6 +25,7 @@ from ddpo_torch.ops.attention import (
     flash_attention_fwd,
     flash_bwd_dkv,
     flash_bwd_dq,
+    flash_fwd,
     flash_uses_tma,
 )
 from ddpo_torch.bench import conv_probe
@@ -487,12 +488,14 @@ def test_flash_backward_bf16_on_fused_qkv_views(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [8, 20, 40, 80, 160, 256])
+@pytest.mark.parametrize("d", [8, 20, 40, 80, 96, 160, 192, 256])
 @pytest.mark.parametrize("sq,sk", [(300, 257), (257, 700), (700, 300)])
 def test_flash_bf16_kernels_match_plain_and_their_slices(cuda, sq, sk, d):
-    """The bf16 forward, dQ and the wgmma dK/dV kernel at D = 8 to 256
-    (dK/dV in one to four column groups; D = 20 staged by plain loads), with
-    one key in the last tile (Sk = 257) and Sq != Sk both ways: out 1e-2 and lse 1e-4 against the
+    """The three wgmma kernels, the bf16 forward, dQ and dK/dV, at D = 8 to
+    256 (the forward's 128-key tiles up to D = 80 and 64-key ones above, one
+    consumer warpgroup above D = 160; dQ in one or two column groups, dK/dV
+    in one to four; D = 20 staged by plain loads), with one key in the last
+    tile (Sk = 257) and Sq != Sk both ways: out 1e-2 and lse 1e-4 against the
     fp32 plain version, the gradients 1e-2 * max(1, max|ref|) against the
     plain backward. The first 1, 8 and 16 images of a 16-image call each
     give the bits of their slice of it."""
@@ -522,10 +525,10 @@ def test_flash_bf16_kernels_match_plain_and_their_slices(cuda, sq, sk, d):
 @pytest.mark.parametrize("layout", ["fused_qkv", "odd_offset"])
 def test_flash_dkv_producer_paths_give_the_same_bits(cuda, layout, d):
     """q, k, v as views of one (B, S, 3, H, D) tensor, and the same at an
-    odd element offset, which TMA cannot take: the dK/dV kernel's producer
-    stages them by plain loads, and the forward and the backward give the
-    bits of the same calls on contiguous copies (only the producer's path
-    depends on alignment)."""
+    odd element offset, which TMA cannot take: the producers of the
+    forward, dQ and dK/dV kernels stage them by plain loads, and each kernel
+    gives the bits of the same call on contiguous copies (only the
+    producer's path depends on alignment)."""
     rng = np.random.default_rng(d)
     b, s, h = 2, 300, 2
     flat = torch.from_numpy(rng.standard_normal(b * s * 3 * h * d + 1).astype(np.float32))
@@ -549,15 +552,20 @@ def test_flash_dkv_producer_paths_give_the_same_bits(cuda, layout, d):
 @pytest.mark.cuda
 def test_flash_backward_bf16_refuses_rather_than_falls_back(cuda):
     """A bf16 CUDA call the kernels cannot take raises and launches nothing:
-    D = 272 at the launch wrappers, past the gate that flash_attention_bwd
-    checks first."""
+    D = 272 at the launch wrappers of the forward and both backward kernels,
+    past the gate that flash_attention_fwd and flash_attention_bwd check
+    first."""
     q = torch.randn(1, 256, 1, 272, device=cuda, dtype=torch.bfloat16)
     lse = torch.zeros(1, 1, 256, device=cuda)
     before = _build.launch_counts()
     with pytest.raises(RuntimeError):
+        flash_fwd(q, q, q, 272**-0.5)
+    with pytest.raises(RuntimeError):
         flash_bwd_dq(q, q, q, q, lse, lse, 272**-0.5)
     with pytest.raises(RuntimeError):
         flash_bwd_dkv(q, q, q, q, lse, lse, 272**-0.5)
+    with pytest.raises(ValueError):
+        flash_attention_fwd(q, q, q)
     with pytest.raises(ValueError):
         flash_attention_bwd(q, q, q, q, lse, q)
     assert _build.launch_counts() == before
