@@ -77,7 +77,7 @@ Phases, in order; any failure exits non-zero:
   7. DDPO: ddpo_torch.pipelines.policy_gradient.main, one epoch at the
      defaults of --dataset compressed-animals (sample batch 8, 50 steps,
      train batch 2, bf16 over fp32 masters, adamw; cut to
-     --train_timestep_ratio 0.5, 100 updates) with its JPEG reward
+     --train_timestep_ratio 0.1, 20 updates) with its JPEG reward
      (the native library built against the libjpeg the build finds, which
      is logged, with the reward's seconds for the epoch's images), a
      full-state checkpoint, and a --resume call that trains no further
@@ -149,8 +149,8 @@ Phases, in order; any failure exits non-zero:
      reduction + kernel, the plain quantize pass it replaces, and the bound
      (operations over the 1979 TOPS int8 peak against bytes); (b) generate
      at 512 px, batch 4,
-     seed 0: DDIM-50 and DPM++-20, each bf16 and --quant int8 in turns
-     (bf16, int8, int8, bf16), images/s and the launches (47 conv3x3_s8 a
+     seed 0: DDIM-50 and DPM++-20, each bf16 then --quant int8, one run
+     each, images/s and the launches (47 conv3x3_s8 a
      UNet forward), then the final latents' relative L2 distances of int8
      from bf16 and of DPM++-20 and eta-0 DDIM-20 from eta-0 DDIM-50
      (random weights: printed, not bounded); (c) one collection batch of
@@ -164,8 +164,8 @@ Phases, in order; any failure exits non-zero:
      ddpo_torch.pipelines.policy_gradient`` processes (RANK 0 and 1,
      WORLD_SIZE 2, LOCAL_RANK 0, so both on cuda:0 and their gradients over
      gloo), --dataset compressed-animals at SD-1.4 width, sample batch 2 and
-     train batch 1 a rank, 50 steps, CFG 5.0, cut only in
-     --train_timestep_ratio 0.2, to a gs:// savepath on a DDPO_TPU_FAKE_GCS
+     train batch 1 a rank, CFG 5.0, cut to DDIM-10 with 1 of its
+     timesteps trained, to a gs:// savepath on a DDPO_TPU_FAKE_GCS
      stand-in: (a) one epoch with the fp32 all-reduce; (b) --resume from a
      fresh local directory with --grad_reduce_dtype bfloat16, which fetches
      the checkpoint from the stand-in and trains epoch 1. Each fails unless
@@ -185,8 +185,8 @@ Phases, in order; any failure exits non-zero:
      dropped, against the plain VALID-over-H conv (and conv3x3 bit for bit
      against the unsharded map's rows, the s8 kernel against
      conv3x3_w8a8(padding=VALID_ROWS)); (a) one DDPO epoch of
-     ``policy_gradient --mesh_sp 2`` (the spatial mode) as phase 13's but
-     cut to --train_timestep_ratio 0.1 (10 updates), inside
+     ``policy_gradient --mesh_sp 2`` (the spatial mode) as phase 13's
+     (DDIM-10, 1 of its steps trained: 2 updates), inside
      batch_invariant(): both ranks print the same rewards, parameter digests
      and initial noise, the first minibatch recomputes on-policy (|dlogp| <=
      1e-5, clipfrac 0), each rank launches phase 7's kernels with flash_fwd
@@ -205,6 +205,26 @@ Phases, in order; any failure exits non-zero:
      1.1 times in its RMS; the bf16-to-bf16 maximum printed beside 2^-6
      (no gate); 10 flash_fwd launches a bf16 forward; each rank's peak
      memory. Each rank's output goes to chiprun_out/phase14/.
+  15. the tp mesh axis, two ranks of one tp group on the card (gloo), and
+     the resident inner loop: (k) the flash kernels at 4 local heads against
+     their plain versions; (a) one DDPO epoch of ``policy_gradient
+     --mesh_tp 2`` (DDIM-10, 1 timestep trained: 2 updates, inside
+     batch_invariant()): both ranks print
+     the same rewards, initial noise and gathered-parameter digests, the
+     replicated leaves are bit-equal across the ranks, the first minibatch
+     recomputes on-policy (|dlogp| <= 1e-5, clipfrac 0), each rank launches
+     phase 7's kernels, and the tp all-reduces are the pinned 48 a UNet
+     forward and 96 forward plus 48 backward a trainer apply; printed: their
+     bytes and seconds, ms a sampler UNet step, s an update, peak memory;
+     (b) ``ddpo_torch.bench.sp_check --mode tp`` under 14b's gates; (c)
+     ``inner_epoch_resident`` at SD-1.4 width against
+     ``inner_epoch_per_timestep`` (the non-fused loop) on the same injected
+     permutations, accumulation 2, plain SGD: the parameters' difference at
+     most 1e-2 of the update's norm and the first group's losses within
+     1e-4, then one ``--resident_inner_loop True`` driver epoch at phase 7's
+     settings cut to DDIM-20 with 2 timesteps trained (finite loss, the
+     first minibatch on-policy). Each rank's output goes to
+     chiprun_out/phase15/.
 
 The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}. With no CUDA device, or run
@@ -1380,10 +1400,10 @@ def phase_train(init_params, unet_gn, vae_gn, unet_conv):
     from ddpo_torch.utils import checkpoints
     from ddpo_torch.utils.metrics import read_metrics
 
-    # depth cut to keep the script inside its time limit with phase 13:
-    # half the trained timesteps
+    # depth cut to keep the script inside its time limit with phases 13-15:
+    # a tenth of the timesteps trained
     argv = ["--dataset", "compressed-animals", "--num_train_epochs", "1", "--seed", "0",
-            "--train_timestep_ratio", "0.5"]
+            "--train_timestep_ratio", "0.1"]
     args = policy_gradient.Parser().parse_args("pg", list(argv))
     if args.filter_field != "jpeg":
         fail(f"compressed-animals trains on {args.filter_field!r}, not the JPEG reward")
@@ -1514,7 +1534,7 @@ def phase_lora(unet_gn, vae_gn, unet_conv, full_update_s):
     from ddpo_torch.utils.serialization import load_stable_diffusion, load_unet
 
     argv = ["--dataset", "compressed-animals-lora", "--num_train_epochs", "1", "--seed", "0",
-            "--train_timestep_ratio", "0.5"]  # the depth cut of phase 7
+            "--train_timestep_ratio", "0.1"]  # the depth cut of phase 7
     args = policy_gradient.Parser().parse_args("pg", list(argv))
     if (args.lora_rank, args.learning_rate, args.optimizer) != (8, 1e-3, "adamw"):
         fail(f"compressed-animals-lora resolves to r {args.lora_rank}, lr "
@@ -2679,20 +2699,20 @@ def phase_serving_extras(unet_gn, vae_gn, serving_ips, smi):
     s8_results = []
     check_conv3x3_s8(s8_results, smi)
     marks.append(("12a", time.perf_counter()))
-    # each scheduler's bf16 and int8 runs in turns (bf16, int8, int8, bf16)
-    # in one process, so that both see the same warm state
+    # each scheduler's bf16 run, then its int8 run, in one process; one run
+    # each keeps the script inside its time limit
     ips, counts = {}, None
     for sched, extra, steps in (("DDIM-50", [], 50),
                                 ("DPM++-20", ["--scheduler", "dpm++", "--n_inference_steps",
                                               "20"], 20)):
-        for quant in (False, True, True, False):
+        for quant in (False, True):
             tag = f"{sched} {'int8' if quant else 'bf16'}"
             rate, launched = run_generate(tag, extra + (["--quant", "int8"] if quant else []),
                                           steps, quant, unet_gn, vae_gn)
             ips.setdefault(tag, []).append(rate)
             if tag == "DDIM-50 int8":
                 counts = launched
-    log(f"12b images/s, batch 4 at 512 px, bf16 activations, two runs each in turns: "
+    log(f"12b images/s, batch 4 at 512 px, bf16 activations, one run each (bf16, then int8): "
         + "; ".join(f"{tag} {sum(r) / len(r):.3f} ({', '.join(f'{x:.3f}' for x in r)})"
                     for tag, r in ips.items())
         + f"; phase 4's DDIM-50 bf16 {serving_ips:.3f} ({smi})")
@@ -2709,9 +2729,10 @@ def phase_serving_extras(unet_gn, vae_gn, serving_ips, smi):
     return s8_results, counts
 
 
+# cut: DDIM-10, 1 of its timesteps trained (2 updates a rank and epoch)
 PHASE13_ARGV = ["--dataset", "compressed-animals", "--sample_batch_size", "2",
-                "--train_batch_size", "1", "--train_timestep_ratio", "0.2", "--seed", "0",
-                "--logbase", "gs://chip-smoke/logs"]
+                "--train_batch_size", "1", "--train_timestep_ratio", "0.1", "--seed", "0",
+                "--n_inference_steps", "10", "--logbase", "gs://chip-smoke/logs"]
 
 
 def rank_values(outs, pattern, cast=str):
@@ -2737,9 +2758,10 @@ def run_ranks(tag, argv, cwd, env, timeout, module="ddpo_torch.pipelines.policy_
     wall = time.perf_counter() - start
     logdir = os.path.join(REPO, "chiprun_out", f"phase{tag[:2]}")
     os.makedirs(logdir, exist_ok=True)
-    for rank, (rc, out) in enumerate(results):
+    for rank, (rc, out) in enumerate(results):  # every rank's log before a failure
         with open(os.path.join(logdir, f"{tag}_rank{rank}.log"), "w") as f:
             f.write(out)
+    for rank, (rc, out) in enumerate(results):
         if rc != 0:
             print(out[-6000:], file=sys.stderr, flush=True)
             fail(f"{tag}: rank {rank} exited {rc}")
@@ -2901,11 +2923,11 @@ SP_FLASH_CASES = [(2, 2048, 4096, 8, 40), (2, 512, 1024, 8, 80)]
 # 14b/14c's two ranks: the bf16 and fp32 passes of both modes (300 s until
 # the fp32 passes joined)
 SP_CHECK_TIMEOUT = 600
-# cut: 5 of 50 timesteps trained (phase 13 trains 10), so phase 14 keeps the
-# script well inside its limit on a slow host
+# cut: DDIM-10, 1 of its timesteps trained (2 updates), so phases 13-15 keep
+# the script well inside its limit on a slow host
 PHASE14_ARGV = ["--dataset", "compressed-animals", "--sample_batch_size", "2",
                 "--train_batch_size", "1", "--train_timestep_ratio", "0.1", "--seed", "0",
-                "--mesh_sp", "2", "--num_train_epochs", "1"]
+                "--n_inference_steps", "10", "--mesh_sp", "2", "--num_train_epochs", "1"]
 
 
 def check_sp_kernels(flash_results, bwd_results, conv_results, s8_results, smi):
@@ -3102,19 +3124,24 @@ def phase_sp_ranks(unet_gn, vae_gn, unet_conv, smi):
                                       for i, (name, t) in enumerate(marks[1:])))
 
 
-def phase_sp_check(cwd, env, smi):
+def phase_sp_check(cwd, env, smi, tp=False):
     """14b/14c: ddpo_torch.bench.sp_check on two ranks of the one card, the
     sharded UNet's eps and an update's gradients against the unsharded
-    ones in both modes: (a) at fp32, (b) bf16 against the fp32 reference."""
-    outs, wall = run_ranks("14b", [], cwd, env, timeout=SP_CHECK_TIMEOUT,
-                           module="ddpo_torch.bench.sp_check")
-    log(f"14b+c: {wall:.1f} s from launch to exit (timeout {SP_CHECK_TIMEOUT} s) ({smi})")
+    ones in both modes: (a) at fp32, (b) bf16 against the fp32 reference;
+    with ``tp``, 15b: the same for two ranks of one tp group."""
+    tag0 = "15b" if tp else "14b"
+    outs, wall = run_ranks(tag0, ["--mode", "tp"] if tp else [], cwd, env,
+                           timeout=SP_CHECK_TIMEOUT, module="ddpo_torch.bench.sp_check")
+    log(f"{tag0}{'' if tp else '+c'}: {wall:.1f} s from launch to exit (timeout "
+        f"{SP_CHECK_TIMEOUT} s) ({smi})")
     reports = rank_values(outs, r"^SP_CHECK (\{.*\})$", json.loads)
     if not all(len(r) == 1 for r in reports):
-        fail("14b: a rank printed no SP_CHECK line")
+        fail(f"{tag0}: a rank printed no SP_CHECK line")
+    modes = (("tp", "15b"),) if tp else (("spatial", "14b"), ("attention", "14c"))
+    want_flash = FLASH_PER_UNET_FORWARD if tp else FLASH_PER_SP_FORWARD
     for rank, (rep,) in enumerate(reports):
         bounds, unsharded = rep["bounds"], rep["bf16_unsharded"]
-        for mode, tag in (("spatial", "14b"), ("attention", "14c")):
+        for mode, tag in modes:
             m = rep[mode]
             flash = m["launches_forward"].get("flash_fwd", 0)
             for key, old, what in (("eps", m["eps_max_rel"], "eps"),
@@ -3128,7 +3155,10 @@ def phase_sp_check(cwd, env, smi):
                     f"{bounds['max_ratio']}) and {s['rms'] / u['rms']:.3f} (bound "
                     f"{bounds['rms_ratio']}); the old statistic, bf16 sharded against bf16 "
                     f"unsharded max|d| {old:.3e} of max|ref| (2^-6 = {bounds['old_bf16']:g}, "
-                    f"no longer a gate) ({smi})")
+                    f"no longer a gate); absolute: bf16 sharded max {s['abs_max']:.4e} rms "
+                    f"{s['abs_rms']:.4e}, unsharded max {u['abs_max']:.4e} rms "
+                    f"{u['abs_rms']:.4e}, fp32 sharded against unsharded max "
+                    f"{a['abs_max']:.4e} ({smi})")
             log(f"{tag} rank {rank}: a bf16 forward {m['forward_ms']:.2f} ms sharded against "
                 f"{rep['unsharded_forward_ms']:.2f} ms unsharded (both ranks on the one card); "
                 f"flash_fwd {flash} a forward; finite {m['finite']}; collectives a forward "
@@ -3137,9 +3167,297 @@ def phase_sp_check(cwd, env, smi):
                 differ = {k: v["differ"] for k, v in m["module_table"].items() if v["differ"]}
                 log(f"{tag} rank {rank}: module families whose bits for sample 0 differ at the "
                     f"trainer's 2B = 2 from the sampler's 2B = {rep['batch_2B']}: {differ}")
-            if not m["passed"] or flash != FLASH_PER_SP_FORWARD:
+            if not m["passed"] or flash != want_flash:
                 fail(f"{tag}: rank {rank} {mode}: {m}")
-        log(f"14b rank {rank}: peak memory {rep['peak_gib']:.2f} GiB ({smi})")
+        log(f"{tag0} rank {rank}: peak memory {rep['peak_gib']:.2f} GiB ({smi})")
+
+
+# ---- phase 15: the tp mesh axis, two ranks on the one card; the resident loop ----
+
+# (B, S, S, H, D): the flash kernels at tp = 2's local heads (8 / 2) at the
+# three UNet levels the gate takes
+TP_FLASH_CASES = [(8, 4096, 4096, 4, 40), (8, 1024, 1024, 4, 80), (8, 256, 256, 4, 160)]
+# tp collectives: an all-reduce after each row-parallel product (to_out.0 of
+# both attentions, ff.net.2), 3 a transformer block, 16 blocks at SD-1.4; a
+# trainer apply runs the forward twice (remat) and the backward's all-reduce
+# once for each copy_to_tp (x before q/k/v, x before the cross-attention's
+# to_q, the feed-forward's x)
+TP_PER_UNET_FORWARD = {"tp_reduce": 48}
+TP_PER_TRAINER_APPLY = {"tp_reduce": 96, "tp_copy.bwd": 48}
+# cut: DDIM-10, 1 of its timesteps trained (2 updates), as phase 14
+PHASE15_ARGV = ["--dataset", "compressed-animals", "--sample_batch_size", "2",
+                "--train_batch_size", "1", "--train_timestep_ratio", "0.1", "--seed", "0",
+                "--n_inference_steps", "10", "--mesh_tp", "2", "--num_train_epochs", "1"]
+# 15c: the resident epoch against the per-timestep loop at SD-1.4 width
+RESIDENT_SAMPLES, RESIDENT_BATCH, RESIDENT_STEPS, RESIDENT_ACCUMULATION = 8, 2, 2, 2
+
+
+def check_tp_kernels(flash_results, bwd_results):
+    """15k: the flash kernels at tp = 2's local heads against their plain
+    versions (bf16; the trainer's and the sampler's calls)."""
+    import torch
+
+    check_flash(flash_results, TP_FLASH_CASES, (torch.bfloat16,), "15k ")
+    check_flash_bwd(bwd_results, TP_FLASH_CASES, (torch.bfloat16,), "15k ")
+
+
+def phase_tp_ranks(unet_gn, vae_gn, unet_conv, smi):
+    """15a: one DDPO epoch of --mesh_tp 2 on two ranks of the one card;
+    15b: ddpo_torch.bench.sp_check --mode tp."""
+    import numpy as np
+    import torch
+
+    from ddpo_torch.native import build as native_build
+    from ddpo_torch.ops import _build
+    from ddpo_torch.pipelines import policy_gradient
+
+    # the ranks load the libraries built here, never building them at once
+    _build.load_library()
+    native_build.build()
+    torch.cuda.empty_cache()
+    args = policy_gradient.Parser().parse_args("pg", list(PHASE15_ARGV), setup=False)
+    steps, n_sample = args.n_inference_steps, args.num_sample_batches_per_epoch
+    num_ts = int(steps * args.train_timestep_ratio)
+    n_updates = args.sample_batch_size * n_sample // args.train_batch_size * num_ts
+    forwards = steps * n_sample + 2 * n_updates  # sampler + trainer forward and remat
+    log(f"15: two ranks, one tp group (dp 1 x tp 2) on one card, --dataset compressed-animals "
+        f"at SD-1.4 width, sample batch {args.sample_batch_size}, train batch "
+        f"{args.train_batch_size}, {steps} steps, CFG {args.guidance_scale}; cut: "
+        f"--train_timestep_ratio {args.train_timestep_ratio} ({n_updates} updates)")
+    # per rank, as phase 7 at this shape: every self-attention on 4 local heads
+    want = expected(
+        flash_fwd=FLASH_PER_UNET_FORWARD * forwards,
+        flash_bwd_dq=FLASH_PER_UNET_FORWARD * n_updates,
+        flash_bwd_dkv=FLASH_PER_UNET_FORWARD * n_updates,
+        gn_stats=unet_gn * forwards + vae_gn * n_sample,
+        conv3x3=unet_conv * forwards,
+    )
+    want_comm = {"tp_reduce": TP_PER_UNET_FORWARD["tp_reduce"] * forwards,
+                 "tp_copy.bwd": TP_PER_TRAINER_APPLY["tp_copy.bwd"] * n_updates}
+    work = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               DDPO_BUCKET=os.path.join(work, "bucket"))
+    marks = [("start", time.perf_counter())]
+    cwd = os.path.join(work, "host")
+    outs, wall = run_ranks("15a", PHASE15_ARGV, cwd, env, timeout=480)
+    marks.append(("15a", time.perf_counter()))
+
+    rewards = rank_values(outs, r"epoch (\d+) mean reward: (\S+)")
+    noise = rank_values(outs, r"initial noise digest (\w+)")
+    digests = rank_values(outs, r"epoch (\d+) params digest (\w+)")
+    replicated = rank_values(outs, r"epoch (\d+) replicated params digest (\w+) \((\d+) tensors")
+    modes = rank_values(outs, r"(tp=2: the transformer blocks' Linears split)")
+    samples = rank_values(outs, r"sample batch \d+: \d+ samples in (\S+)s", float)
+    updates = rank_values(outs, r"epoch 0\.0: .*\| (\S+)s, (\S+) s an update \((\d+)\)")
+    per_call = rank_values(outs, r"tp collectives a sampler UNet forward (\{.*?\}) \| a trainer "
+                                 r"apply (\{.*?\}) \(calls")
+    ends = rank_values(outs, r"rank (\d+): peak memory (\S+) GiB \| kernel launches (\{.*\})")
+    comms = rank_values(outs, r"rank \d+: tp collectives \(calls, bytes, seconds\) (\{.*\})",
+                        json.loads)
+    if rewards[0] != rewards[1] or len(rewards[0]) != 1:
+        fail(f"15a: the tp ranks' rewards differ: {rewards}")
+    if digests[0] != digests[1] or len(digests[0]) != 1:
+        fail(f"15a: the tp ranks' gathered parameter digests differ: {digests}")
+    if replicated[0] != replicated[1] or len(replicated[0]) != 1:
+        fail(f"15a: the replicated leaves differ across the tp ranks: {replicated}")
+    if noise[0] != noise[1] or len(noise[0]) != 1:
+        fail(f"15a: the tp ranks of one dp slice must draw the same noise: {noise}")
+    if not all(modes) or not all(len(c) == 1 for c in comms) or \
+            not all(len(e) == 1 for e in ends) or not all(len(p) == 1 for p in per_call):
+        fail("15a: a rank did not run tp or print its collectives and launches")
+    found = glob.glob(os.path.join(cwd, "logs", "**", "train_info", "0_0_0.npy"), recursive=True)
+    if len(found) != 1:
+        fail(f"15a: expected one train_info/0_0_0.npy under {cwd}/logs, found {found}")
+    infos = np.load(found[0], allow_pickle=True).item()
+    first_dlogp = (2.0 * args.train_batch_size * num_ts * infos["approx_kl"][0]) ** 0.5
+    log(f"15a: first minibatch (2B = {2 * args.train_batch_size} against the sampler's "
+        f"2B = {2 * args.sample_batch_size}, row-parallel products at K = C / 2) approx_kl "
+        f"{infos['approx_kl'][0]:.3e}, clipfrac {infos['clipfrac'][0]:.3f}, max|dlogp| <= "
+        f"{first_dlogp:.3e} (bound 1e-5)")
+    if not (first_dlogp <= 1e-5 and infos["clipfrac"][0] == 0.0):
+        fail("15a: the first minibatch's recompute is off-policy")
+    if not np.isfinite([*infos["loss"], *infos["approx_kl"]]).all():
+        fail("15a: non-finite train infos")
+    log(f"15a: rewards {rewards[0]}, gathered params digests {digests[0]}, replicated leaves' "
+        f"digests {replicated[0]} (bit-equal on both ranks), initial noise digests {noise[0]} "
+        f"(equal on both tp ranks) ({smi})")
+    for rank in range(2):
+        calls = {k: v[0] for k, v in comms[rank][0].items() if k in want_comm}
+        if calls != want_comm:
+            fail(f"15a: rank {rank} made the tp collectives {calls}, expected {want_comm}")
+        fwd, apply = (json.loads(x) for x in per_call[rank][0])
+        got_fwd = {k: v[0] for k, v in fwd.items()}
+        got_apply = {k: v[0] for k, v in apply.items() if k in TP_PER_TRAINER_APPLY}
+        if got_fwd != TP_PER_UNET_FORWARD or got_apply != TP_PER_TRAINER_APPLY:
+            fail(f"15a: rank {rank} tp collectives a forward {got_fwd} and an apply "
+                 f"{got_apply}, pinned {TP_PER_UNET_FORWARD} and {TP_PER_TRAINER_APPLY}")
+        step_ms = 1e3 * samples[rank][0] / steps
+        _, per_update, n = updates[rank][0]
+        log(f"15a rank {rank}: tp collectives a sampler UNet forward at 2B = "
+            f"{2 * args.sample_batch_size} (calls, bytes this rank put in, s) {fwd}; a trainer "
+            f"apply at 2B = {2 * args.train_batch_size} (forward, remat, backward) {apply} "
+            f"(pinned {TP_PER_UNET_FORWARD}, {TP_PER_TRAINER_APPLY}: pinned host staging + "
+            f"gloo, fp32 sums of bf16 partials; seconds include the wait for the other rank) "
+            f"({smi})")
+        log(f"15a rank {rank}: sampler {samples[rank][0]:.2f} s for {steps} steps = "
+            f"{step_ms:.1f} ms a sampler UNet step (the batch's VAE decode and collectives "
+            f"included); {per_update} s an update ({n}); peak memory {ends[rank][0][1]} GiB "
+            f"({smi})")
+        launched = json.loads(ends[rank][0][2])
+        log(f"15a rank {rank}: launches {launched}, expected {want}")
+        if launched != want:
+            fail(f"15a: rank {rank} launched {launched}, expected {want}")
+    log(f"15a: {wall:.1f} s from launch to exit ({smi})")
+
+    phase_sp_check(os.path.join(work, "check"), env, smi, tp=True)
+    marks.append(("15b", time.perf_counter()))
+    shutil.rmtree(work, ignore_errors=True)
+    log("phase 15a-b wall: " + ", ".join(f"{name} {t - marks[i][1]:.1f} s"
+                                         for i, (name, t) in enumerate(marks[1:])))
+
+
+class _SGD:
+    """p -= lr g: 15c's optimizer, so a parameter's difference between two
+    loops is lr times their gradients' (adamw would amplify the rounding of
+    near-zero gradients into whole steps)."""
+
+    lr = 1e-3
+
+    def init(self, params):
+        return {"count": 0}
+
+    def step(self, params, grads, state):
+        for k, p in params.items():
+            p.add_(-self.lr * grads[k])
+        state["count"] += 1
+
+
+def phase_resident(smi):
+    """15c: inner_epoch_resident at SD-1.4 width against the per-timestep
+    loop (inner_epoch_per_timestep, the driver's --fused_train_loop False)
+    on the same injected permutations, accumulation 2 on both, then one
+    --resident_inner_loop epoch of the driver."""
+    import copy
+    import gc
+
+    import numpy as np
+    import torch
+
+    from ddpo_torch.core.scheduler import DDIMScheduler
+    from ddpo_torch.ops.invariance import batch_invariant
+    from ddpo_torch.pipelines import policy_gradient
+    from ddpo_torch.pipelines.policy_gradient import make_train_apply
+    from ddpo_torch.sampling import SamplerConfig, sample_trajectories
+    from ddpo_torch.training.policy_gradient import (AccumulatingTrainState, draw_permutations,
+                                                     inner_epoch_per_timestep,
+                                                     inner_epoch_resident)
+    from ddpo_torch.utils.serialization import build_models, init_weights_
+
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    argv = ["--dataset", "compressed-animals", "--num_train_epochs", "1", "--seed", "0",
+            "--train_timestep_ratio", "0.1", "--n_inference_steps", "20"]
+    args = policy_gradient.Parser().parse_args("pg", list(argv), setup=False)
+    _, _, unet = build_models("sd14", "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    init_weights_(unet, gen)
+    sampler = copy.deepcopy(unet).to(torch.bfloat16).requires_grad_(False)
+    n, steps, acc = RESIDENT_SAMPLES, RESIDENT_STEPS, RESIDENT_ACCUMULATION
+    embeds = torch.randn((n, 77, 768), generator=gen, device="cuda")
+    uncond = torch.randn((1, 77, 768), generator=gen, device="cuda").expand(n, 77, 768)
+    ddim = DDIMScheduler()
+    state0 = ddim.create_state("cuda")
+    sched = ddim.set_timesteps(state0, steps)
+    with torch.no_grad(), batch_invariant():
+        traj = sample_trajectories(sampler, ddim, state0, embeds.to(torch.bfloat16),
+                                   uncond.to(torch.bfloat16),
+                                   SamplerConfig(num_inference_steps=steps, guidance_scale=5.0,
+                                                 eta=1.0),
+                                   generator=gen)
+    del sampler
+    samples = {"embeds": embeds.to(torch.bfloat16), "uncond_embeds": uncond.to(torch.bfloat16),
+               "latents": traj["latents"], "next_latents": traj["next_latents"],
+               "log_probs": traj["log_probs"], "ts": traj["ts"],
+               "advantages": torch.randn(n, generator=gen, device="cuda")}
+    perm, t_perms = draw_permutations(n, steps, gen, "cuda")
+    before = {k: p.detach().clone() for k, p in unet.named_parameters()}
+
+    def run(epoch_fn):
+        u = copy.deepcopy(unet).requires_grad_(True)
+        state = AccumulatingTrainState(make_train_apply(u, torch.bfloat16, remat=True),
+                                       dict(u.named_parameters()), _SGD(), accumulate=True)
+        with batch_invariant():
+            t0 = time.perf_counter()
+            state, infos = epoch_fn(state, samples, sched, ddim, train_batch_size=RESIDENT_BATCH,
+                                    num_train_ts=steps, train_cfg=True, guidance_scale=5.0,
+                                    eta=1.0, clip_range=args.ppo_clip_range, perm=perm,
+                                    t_perms=t_perms, accumulation_steps=acc, cfg_concat=True)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        params = {k: p.detach().clone() for k, p in state.params.items()}
+        return params, infos, state.step, seconds
+
+    a, infos, a_steps, resident_s = run(inner_epoch_resident)
+    b, host_infos, b_steps, host_s = run(inner_epoch_per_timestep)
+    n_batches = n // RESIDENT_BATCH
+    diff = torch.cat([(a[k] - b[k]).flatten() for k in a])
+    update = torch.cat([(b[k] - before[k]).flatten() for k in b])
+    ratio = float(diff.norm() / update.norm())
+    per_batch = {k: v.reshape(n_batches, steps).mean(1) for k, v in host_infos.items()}
+    # the first accumulation group trains on the same parameters in both
+    loss_d = float((infos["loss"][:acc] - per_batch["loss"][:acc]).abs().max())
+    loss_bound = 1e-4 * float(per_batch["loss"][:acc].abs().max())
+    line = (f"15c: inner_epoch_resident at SD-1.4 width ({n} samples, train batch "
+            f"{RESIDENT_BATCH}, {steps} timesteps, accumulation {acc}: {a_steps} updates, bf16 "
+            f"over fp32 masters, remat, batch_invariant(), plain SGD lr {_SGD.lr}) against "
+            f"the per-timestep loop on the same injected permutations ({b_steps} updates): "
+            f"|params difference| / |update| {ratio:.3e} (bound 1e-2), max|d| "
+            f"{float(diff.abs().max()):.3e}, {int((diff != 0).sum())} of {diff.numel()} "
+            f"elements differ; loss of the first {acc} minibatches "
+            f"{infos['loss'][:acc].tolist()} against the per-timestep means "
+            f"{per_batch['loss'][:acc].tolist()}, max|d| {loss_d:.3e} (bound {loss_bound:.3e}); "
+            f"later minibatches' loss {infos['loss'][acc:].tolist()} and "
+            f"{per_batch['loss'][acc:].tolist()}; clipfrac {infos['clipfrac'].tolist()} and "
+            f"{per_batch['clipfrac'].tolist()}; {resident_s:.2f} s resident, {host_s:.2f} s "
+            f"per timestep ({smi})")
+    if not (a_steps == b_steps == n_batches // acc and ratio <= 1e-2 and loss_d <= loss_bound
+            and float(update.abs().max()) > 0):
+        fail(line)
+    log(line)
+    del a, b, before, diff, update, unet, samples, traj
+    torch.cuda.empty_cache()
+
+    # the driver's --resident_inner_loop epoch at phase 7's settings, cut to
+    # a tenth of the timesteps
+    work = tempfile.mkdtemp(prefix="chip_smoke_resident_")
+    here = os.getcwd()
+    os.chdir(work)
+    try:
+        t0 = time.perf_counter()
+        rewards = policy_gradient.main(argv + ["--resident_inner_loop", "True"])
+        wall = time.perf_counter() - t0
+    finally:
+        os.chdir(here)
+    found = glob.glob(os.path.join(work, "logs", "**", "train_info", "0_0_0.npy"),
+                      recursive=True)
+    if len(found) != 1:
+        fail(f"15c: expected one train_info/0_0_0.npy under {work}/logs, found {found}")
+    infos = np.load(found[0], allow_pickle=True).item()
+    num_ts = int(args.n_inference_steps * args.train_timestep_ratio)
+    first_dlogp = (2.0 * args.train_batch_size * num_ts * infos["approx_kl"][0]) ** 0.5
+    line = (f"15c: --resident_inner_loop True epoch (sample batch {args.sample_batch_size}, "
+            f"train batch {args.train_batch_size}, {num_ts} timesteps trained): rewards "
+            f"{rewards}, loss {infos['loss'].tolist()}, first minibatch approx_kl "
+            f"{infos['approx_kl'][0]:.3e}, clipfrac {infos['clipfrac'][0]:.3f}, max|dlogp| <= "
+            f"{first_dlogp:.3e} (bound 1e-5); {wall:.1f} s in all ({smi})")
+    if not (np.isfinite(infos["loss"]).all() and infos["clipfrac"][0] == 0.0
+            and first_dlogp <= 1e-5):
+        fail(line)
+    log(line)
+    shutil.rmtree(work, ignore_errors=True)
+    gc.collect()  # the driver's models, before anything after this phase
+    torch.cuda.empty_cache()
+    log(f"phase 15c wall: {time.perf_counter() - start:.1f} s")
 
 
 def main() -> None:
@@ -3162,8 +3480,19 @@ def main() -> None:
     bucket = tempfile.mkdtemp(prefix="chip_smoke_")
     os.environ["DDPO_BUCKET"] = bucket
 
+    walls = []
+
+    def done(name):
+        """Close a phase: its wall into the summary, and a progress line on
+        stderr (so the tail of a run stopped at its time limit names the
+        phase it was in)."""
+        now = time.perf_counter()
+        walls.append((name, now - started - sum(w for _, w in walls)))
+        print(f"[ chip_smoke ] {name} done at {now - started:.1f} s", file=sys.stderr, flush=True)
+
     smi = phase_device()
     phase_build()
+    done("1-2")
     flash_results, bwd_results, gn_results, silu_results, conv_results = [], [], [], [], []
     probe_results = {}
     check_flash(flash_results)
@@ -3176,23 +3505,39 @@ def main() -> None:
     if parent:
         compare_parent(parent, conv_shapes, smi)
     phase_probes(probe_results)
+    done("3")
     serving_counts, serving_ips, _, serving_images = phase_serving(unet_gn, vae_gn)
     rollout = phase_rollout()
     init_params, _ = phase_onpolicy(rollout, unet_gn)
+    done("4-6")
     phase_batch_invariance(rollout[0])
     phase_invariance_cost(rollout[0], smi)
     del rollout
+    done("6b-6c")
     counts, full_update_s = phase_train(init_params, unet_gn, vae_gn, unet_conv)
+    done("7")
     phase_lora(unet_gn, vae_gn, unet_conv, full_update_s)
+    done("9")
     conv_counts, _ = phase_conv_path(unet_gn, vae_gn, unet_conv, vae_conv)
+    done("8")
     phase_rwr(unet_gn, vae_gn)
+    done("10")
     phase_checkpoints(serving_images, serving_counts)
+    done("11")
     s8_results, s8_counts = phase_serving_extras(unet_gn, vae_gn, serving_ips[-1], smi)
     shutil.rmtree(bucket, ignore_errors=True)
     del serving_images
+    done("12")
     phase_ddpo_ranks(unet_gn, vae_gn, unet_conv, smi)
+    done("13")
     check_sp_kernels(flash_results, bwd_results, conv_results, s8_results, smi)
     phase_sp_ranks(unet_gn, vae_gn, unet_conv, smi)
+    done("14")
+    check_tp_kernels(flash_results, bwd_results)
+    phase_tp_ranks(unet_gn, vae_gn, unet_conv, smi)
+    done("15a-b")
+    phase_resident(smi)
+    done("15c")
 
     def headline(results, shape):
         return next(r for r in results if r["shape"] == shape and r["dtype"] == "bfloat16")
@@ -3252,6 +3597,7 @@ def main() -> None:
         "(8, 320, 64, 64) -> 320 and the probes' (16, 320, 64, 64) -> 320, bf16 (the s8 "
         "conv: bf16 x in, quantized while staged, bf16 out; its bound counts x's bf16 bytes); "
         "max_abs_err over every case, phase 14k's sp shapes included")
+    log("phase walls: " + ", ".join(f"{name} {w:.1f} s" for name, w in walls))
     log(f"chip_smoke wall: {time.perf_counter() - started:.1f} s ({smi})")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,10 +1,11 @@
-"""The sp mesh axis against the unsharded UNet, one forward and one update.
+"""The sp or tp mesh axis against the unsharded UNet, one forward and one update.
 
-Run as the ranks of one sp group (dp = 1), e.g. two ranks on one card:
+Run as the ranks of one sp group (dp = 1), or with ``--mode tp`` of one tp
+group, e.g. two ranks on one card:
 
-    torchrun --nproc_per_node 2 -m ddpo_torch.bench.sp_check
+    torchrun --nproc_per_node 2 -m ddpo_torch.bench.sp_check [--mode tp]
     python -m torch.distributed.run --nproc_per_node 2 -m ddpo_torch.bench.sp_check \\
-        --device cpu --preset tiny --resolution 64
+        --device cpu --preset tiny --resolution 64 [--mode tp]
 
 Every rank builds the same UNet from a seed (SD-1.4 width by default) and
 the same inputs, then, at the sampler's setting (no grad, inside
@@ -16,7 +17,13 @@ the same inputs, then, at the sampler's setting (no grad, inside
             masters, remat, CFG as one 2B apply, loss mean(eps^2) at
             2B = 2), reduced as the driver reduces them, against the
             unsharded gradients;
-  attention (``--sp_mode attention``, parallel/sequence.py): the same two.
+  attention (``--sp_mode attention``, parallel/sequence.py): the same two;
+  tp        (``--mode tp``, ``--mesh_tp``: parallel/sharding.py and
+            parallel/tensor.py): the same two, with each rank's slices of
+            the gradients gathered (``gather_state_dict``) before the
+            comparison. The row-parallel partials (bf16 in the bf16 run)
+            are summed in fp32, the bias added, and the total rounded to
+            the input dtype (parallel/tensor.py).
 
 Each comparison runs twice, and two gates decide it, for eps and for the
 gradients alike:
@@ -42,7 +49,9 @@ rank put in, seconds: staging and the collective, with the wait for the
 other rank), the kernel launches of one bf16 forward, the median ms of a
 bf16 forward beside the unsharded one's, and the three parameter tensors
 with the largest shares of the bf16 gradients' squared error against
-fp32, sharded and unsharded; per rank, the peak device memory. The last line is ``SP_CHECK <json>``.
+fp32, sharded and unsharded; per rank, the peak device memory. Each error
+is printed over max|ref| and as it is (absolute). The last line is
+``SP_CHECK <json>``.
 """
 
 from __future__ import annotations
@@ -70,6 +79,7 @@ from ddpo_torch.parallel import (
     maybe_initialize_distributed,
     process_count,
 )
+from ddpo_torch.parallel.sharding import TensorParallel, param_specs
 from ddpo_torch.parallel.spatial import make_spatial_unet_apply
 from ddpo_torch.pipelines.policy_gradient import gradient_reduce, make_train_apply
 from ddpo_torch.utils.serialization import build_models, init_weights_, resolve_device
@@ -101,7 +111,8 @@ def _median_ms(fn, device, iters: int) -> float:
 
 def error_stats(got, ref) -> Dict[str, float]:
     """{"max": max|got - ref|, "rms": the RMS of got - ref}, each over
-    max|ref|; over one tensor or, pooled, over a dict of them."""
+    max|ref|, and the same two as they are ("abs_max", "abs_rms"); over one
+    tensor or, pooled, over a dict of them."""
     if not isinstance(ref, dict):
         got, ref = {"": got}, {"": ref}
     peak = max(r.abs().max().item() for r in ref.values())
@@ -111,7 +122,8 @@ def error_stats(got, ref) -> Dict[str, float]:
         worst = max(worst, d.abs().max().item())
         squares += d.double().square().sum().item()
         count += d.numel()
-    return {"max": worst / peak, "rms": math.sqrt(squares / count) / peak}
+    rms = math.sqrt(squares / count)
+    return {"max": worst / peak, "rms": rms / peak, "abs_max": worst, "abs_rms": rms}
 
 
 def largest_shares(got: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor], n: int = 3):
@@ -142,11 +154,15 @@ def main(argv=None) -> dict:
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--preset", default="sd14")
     parser.add_argument("--resolution", type=int, default=512)
+    parser.add_argument("--mode", default="sp", choices=("sp", "tp"))
     args = parser.parse_args(argv)
     maybe_initialize_distributed()
     device = resolve_device(args.device)
-    mesh = create_mesh(MeshConfig(sp=process_count()), device)  # one sp group
-    rank = mesh.sp_index
+    tp = args.mode == "tp"
+    # one sp group, or one tp group
+    mesh = create_mesh(MeshConfig(sp=1 if tp else process_count(),
+                                  tp=process_count() if tp else 1), device)
+    rank = mesh.tp_index if tp else mesh.sp_index
     _, _, unet = build_models(args.preset, device)
     init_weights_(unet, torch.Generator(device=device).manual_seed(0))
     sample_unet = copy.deepcopy(unet).to(torch.bfloat16).requires_grad_(False)
@@ -161,13 +177,15 @@ def main(argv=None) -> dict:
     ctx = torch.randn((2 * BATCH, 77, ctx_dim), generator=gen, device=device)
     xt, tt, ct = x[:2], torch.tensor([500, 500], device=device), ctx[:2]
 
-    def update(apply, spatial: bool):
-        """One update's gradients at 2B = 2, reduced as the driver does."""
+    def update(apply, spatial: bool, params=params, layout=None):
+        """One update's gradients at 2B = 2, reduced as the driver does
+        (under tp, each rank's slices gathered into the whole)."""
         loss = apply(params, xt, tt, ct).square().mean()
         grads = torch.autograd.grad(loss, list(params.values()))
         grads = {k: g for k, g in zip(params, grads)}
         reduce = gradient_reduce(mesh, spatial, None, "gloo")
-        return reduce(grads) if reduce is not None else grads
+        grads = reduce(grads) if reduce is not None else grads
+        return grads if layout is None else layout.gather(grads)
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -181,13 +199,22 @@ def main(argv=None) -> dict:
     # the unsharded bf16 run's error against the fp32 reference: (b)'s yardstick
     unsharded = {"eps": error_stats(eps_ref, eps32_ref), "grads": error_stats(grads_ref, grads32_ref)}
 
-    report = {"rank": rank, "sp": mesh.sp, "batch_2B": 2 * BATCH,
+    report = {"rank": rank, "sp": mesh.sp, "tp": mesh.tp, "batch_2B": 2 * BATCH,
               "unsharded_forward_ms": plain_ms, "bf16_unsharded": unsharded,
               "bounds": {"fp32": FP32_BOUND, "max_ratio": MAX_RATIO, "rms_ratio": RMS_RATIO,
                          "old_bf16": OLD_BOUND}}
     ok = True
-    for mode in ("spatial", "attention"):
-        if mode == "spatial":
+    for mode in ("tp",) if tp else ("spatial", "attention"):
+        update_params, layout = params, None
+        if mode == "tp":
+            axis = mesh.axis("tp")
+            layout = TensorParallel(axis, param_specs(params))
+            apply = copy.deepcopy(sample_unet).set_tensor_parallel(axis)
+            apply32 = copy.deepcopy(unet).set_tensor_parallel(axis)
+            update_params = dict(apply32.named_parameters())
+            train_apply, train_apply32 = (make_train_apply(apply32, dtype, remat=True)
+                                          for dtype in (torch.bfloat16, torch.float32))
+        elif mode == "spatial":
             apply = make_spatial_unet_apply(mesh, sample_unet)
             apply32 = make_spatial_unet_apply(mesh, unet)
             train_apply, train_apply32 = (
@@ -210,7 +237,7 @@ def main(argv=None) -> dict:
             fwd_comm = comm_counts()
             ms = _median_ms(lambda: apply(x, t, ctx), device, ITERS)
             reset_comm()
-            grads = update(train_apply, mode == "spatial")
+            grads = update(train_apply, mode == "spatial", update_params, layout)
             upd_comm = comm_counts()
             table = None
             if mode == "spatial":
@@ -219,7 +246,7 @@ def main(argv=None) -> dict:
                     table = module_table(sample_unet, shard_rows(x, mesh.axis(), 2), t, ctx, rows)
             with torch.no_grad():
                 eps32 = apply32(x, t, ctx)
-            grads32 = update(train_apply32, mode == "spatial")
+            grads32 = update(train_apply32, mode == "spatial", update_params, layout)
         set_attention_sharding(None)
         fp32 = {"eps": error_stats(eps32, eps32_ref), "grads": error_stats(grads32, grads32_ref)}
         sharded = {"eps": error_stats(eps, eps32_ref), "grads": error_stats(grads, grads32_ref)}
@@ -254,6 +281,10 @@ def main(argv=None) -> dict:
                   f"{bf16_gate(s, u)}; bf16 sharded against bf16 unsharded max|d| "
                   f"{err if key == 'eps' else gerr:.3e} (2^-6 = {OLD_BOUND:g}, not a gate)",
                   flush=True)
+            print(f"[ sp_check ] rank {rank} {mode} {key}: absolute errors, bf16 sharded max "
+                  f"{s['abs_max']:.4e} rms {s['abs_rms']:.4e}, unsharded max {u['abs_max']:.4e} "
+                  f"rms {u['abs_rms']:.4e}; fp32 sharded against unsharded max "
+                  f"{a['abs_max']:.4e}", flush=True)
         print(f"[ sp_check ] rank {rank} {mode}: the bf16 gradients' largest shares of the "
               f"squared error against fp32: {shares}", flush=True)
         print(f"[ sp_check ] rank {rank} {mode}: max|eps| {eps_ref.abs().max().item():.3f}; "

@@ -227,9 +227,10 @@ base = {
         # all trained timesteps of a minibatch in one optimizer step (JAX's
         # scan over timesteps in one dispatch) instead of accumulating
         "fused_train_loop": True,
-        # JAX: the full inner epoch on device (one dispatch: shuffle +
-        # rebatch + minibatch scan) instead of the host loop (numpy shuffle
-        # + one dispatch per minibatch); not ported, and refused.
+        # the inner epoch's permutations drawn on the device from one
+        # generator seeded alike on every rank, over the dp-gathered
+        # samples (training/policy_gradient.py inner_epoch_resident),
+        # instead of numpy's on the host over this rank's rows
         "resident_inner_loop": False,
         "mesh_tp": 1,  # tensor-parallel axis size
         "mesh_sp": 1,  # sequence-parallel axis size (latent self-attention)

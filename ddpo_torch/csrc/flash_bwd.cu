@@ -84,6 +84,11 @@
 // 191 KB at D = 160, so above D = 160 a block owns 32 rows with 128 threads
 // (222 KB at D = 256). All kernels read Q, K, V and dO through their
 // (B, S, H) strides, so the caller neither pads nor transposes.
+//
+// Two translation units: this file builds the dQ half (ddpo_flash_bwd_dq,
+// and ddpo_flash_tma_ok), flash_bwd_dkv.cu includes it with
+// DDPO_FLASH_BWD_DKV defined and builds the dK/dV half, so that their nvcc
+// runs go in parallel (the whole file was the build's slowest by ~2x).
 
 #include "common.cuh"
 #include "flash_tiles.cuh"
@@ -1033,12 +1038,16 @@ cudaError_t launch_dkv_wgmma(const BwdArgs& args, cudaStream_t stream) {
 }
 
 // bf16 takes the wgmma kernels, fp32 the FMA kernels
+// (if constexpr: a translation unit instantiates only its half's kernels)
 template <typename T, bool DQ, int NC>
 cudaError_t launch_for(const BwdArgs& a, cudaStream_t stream) {
-  if constexpr (std::is_same_v<T, bf16>)
-    return DQ ? launch_dq_wgmma<NC>(a, stream) : launch_dkv_wgmma<NC>(a, stream);
-  else
-    return DQ ? launch_dq<T, NC>(a, stream) : launch_dkv<T, NC>(a, stream);
+  if constexpr (std::is_same_v<T, bf16>) {
+    if constexpr (DQ) return launch_dq_wgmma<NC>(a, stream);
+    else return launch_dkv_wgmma<NC>(a, stream);
+  } else {
+    if constexpr (DQ) return launch_dq<T, NC>(a, stream);
+    else return launch_dkv<T, NC>(a, stream);
+  }
 }
 
 template <typename T, bool DQ>
@@ -1081,6 +1090,8 @@ BwdArgs make_args(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
+#ifndef DDPO_FLASH_BWD_DKV  // the dQ half (flash_bwd_dkv.cu builds the other)
+
 // q/dout: (B, Sq, H, D), k/v: (B, Sk, H, D), read through the (b, s, h)
 // strides in elements given as 12 int64 in the order q, k, v, dout (the d
 // stride must be 1). lse (the forward's) and delta = rowsum(dout * out):
@@ -1104,6 +1115,8 @@ extern "C" int ddpo_flash_tma_ok(const void* base, int B, int S, int H, int D, i
   return ddpo::bshd_tensor_map(&map, base, B, S, H, D, sb, ss, sh, 64) == cudaSuccess;
 }
 
+#else  // the dK/dV half
+
 // As ddpo_flash_bwd_dq; dk, dv: contiguous (B, Sk, H, D) in the input dtype.
 extern "C" int ddpo_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse, const void* delta,
@@ -1115,3 +1128,5 @@ extern "C" int ddpo_flash_bwd_dkv(const void* q, const void* k, const void* v,
   a.dv = dv;
   return run<false>(a, dtype, stream);
 }
+
+#endif  // DDPO_FLASH_BWD_DKV

@@ -19,6 +19,19 @@ the transformer blocks' Linears run batch-invariantly at the sharded
 shapes (ops/invariance.py ``linear``); the blocks built from them
 (ResnetBlock2D, Transformer2D, Upsample2D, whose nearest 2x upsample is
 shard-local) follow. The parameters do not change.
+
+``tp`` (None, or an ops.spatial.Axis set by ``UNet2DCondition.
+set_tensor_parallel``, which also slices the parameters,
+parallel/sharding.py): the attention and feed-forward blocks run on this
+rank's slices of the tp group's column- and row-parallel Linears
+(parallel/tensor.py). CrossAttention holds heads / tp local heads (every
+head when they do not divide, JAX's fallback: q, k and v are gathered and
+the attention runs whole), applies ``copy_to_tp`` once to each input whose
+gradient the group's ranks share (x, and the context only when it needs a
+gradient: the prompt embeds of DDPO do not), and its to_out.0 sums the
+ranks' partials; the feed-forward's GEGLU holds its local slices of both
+halves, and ff.net.2 sums. Three forward all-reduces a transformer block,
+and three backward ones.
 """
 
 from __future__ import annotations
@@ -35,18 +48,26 @@ from ddpo_torch.ops.attention import attention
 from ddpo_torch.ops.conv import conv3x3, library_conv
 from ddpo_torch.ops.groupnorm import group_norm
 from ddpo_torch.ops.spatial import halo_top_row
+from ddpo_torch.parallel.tensor import (copy_to_tp, gather_columns, local_columns,
+                                        row_parallel_linear)
 
 
 class Linear(nn.Linear):
-    """nn.Linear of the transformer blocks; under ``spatial`` it goes
-    through ops/invariance.py ``linear``."""
+    """nn.Linear of the transformer blocks; under ``spatial`` or ``tp`` it
+    goes through ops/invariance.py ``linear``, and a ``row_parallel`` one
+    under ``tp`` sums its partials over the group."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True):
         super().__init__(in_features, out_features, bias=bias)
         self.spatial = None
+        self.tp = None
+        self.row_parallel = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return invariance.linear(x, self.weight, self.bias, self.spatial is not None)
+        if self.tp is not None and self.row_parallel:
+            return row_parallel_linear(x, self.weight, self.bias, self.tp)
+        return invariance.linear(x, self.weight, self.bias,
+                                 self.spatial is not None or self.tp is not None)
 
 
 class Conv3x3(nn.Conv2d):
@@ -172,18 +193,33 @@ class CrossAttention(nn.Module):
         self.to_v = Linear(context_dim, inner, bias=False)
         self.to_out = nn.ModuleList([Linear(inner, inner)])
         self.spatial = None
+        self.tp = None
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
         # under spatial sharding self-attention gathers K/V; the text
         # context of cross-attention is whole on every rank
         spatial = self.spatial if context is None else None
+        tp = self.tp
+        if tp is not None:
+            x = copy_to_tp(x, tp)
+            if context is not None and context.requires_grad:
+                context = copy_to_tp(context, tp)
         context = x if context is None else context
         b, sq, _ = x.shape
         sk = context.shape[1]
-        q = self.to_q(x).reshape(b, sq, self.heads, self.dim_head)
-        k = self.to_k(context).reshape(b, sk, self.heads, self.dim_head)
-        v = self.to_v(context).reshape(b, sk, self.heads, self.dim_head)
-        out = attention(q, k, v, spatial=spatial).reshape(b, sq, self.heads * self.dim_head)
+        q, k, v = self.to_q(x), self.to_k(context), self.to_v(context)
+        heads = self.heads
+        whole = tp is not None and heads % tp.size != 0  # JAX's fallback: every head
+        if whole:
+            q, k, v = (gather_columns(t, tp) for t in (q, k, v))
+        elif tp is not None:
+            heads //= tp.size
+        q = q.reshape(b, sq, heads, self.dim_head)
+        k = k.reshape(b, sk, heads, self.dim_head)
+        v = v.reshape(b, sk, heads, self.dim_head)
+        out = attention(q, k, v, spatial=spatial).reshape(b, sq, heads * self.dim_head)
+        if whole:
+            out = local_columns(out, tp)
         return self.to_out[0](out)
 
 
@@ -206,8 +242,11 @@ class GEGLUFeedForward(nn.Module):
         super().__init__()
         inner = dim * mult
         self.net = nn.ModuleList([GEGLU(dim, inner), nn.Identity(), Linear(inner, dim)])
+        self.tp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            x = copy_to_tp(x, self.tp)
         for layer in self.net:
             x = layer(x)
         return x

@@ -194,6 +194,17 @@ class UNet2DCondition(nn.Module):
                 m.spatial = axis
         return self
 
+    def set_tensor_parallel(self, axis) -> "UNet2DCondition":
+        """Shard the built module over the tp ``axis`` (an ops.spatial.Axis)
+        in place: each rank keeps its slices of the column- and row-parallel
+        Linears of every transformer block (parallel/sharding.py
+        ``shard_module``), and the blocks run the tp collectives
+        (models/layers.py). An axis of size 1 leaves the module as it is.
+        Returns the module."""
+        from ddpo_torch.parallel.sharding import shard_module
+
+        return shard_module(self, axis)
+
     def forward(
         self,
         sample: torch.Tensor,  # (B, C, H, W)

@@ -31,7 +31,11 @@ the plain path.
 ``set_attention_sharding(mesh, batch_axis, heads_axis, seq_axis)`` is JAX's
 context for the attention mode of sp: while set, a self-attention whose
 sequence splits over ``seq_axis`` runs parallel/sequence.py's
-``sequence_parallel_attention``. The heads axis is tp, not ported yet.
+``sequence_parallel_attention``. Its ``heads_axis`` is tp: there the heads
+are already local after the column-parallel projections
+(models/layers.py ``CrossAttention``), so the kernels see (B, S, H / tp, D)
+with no collective, and heads that do not divide over tp run whole
+(JAX's fallback, in ``CrossAttention``).
 
 Under autograd the gate goes through ``FlashAttention``, whose backward
 follows JAX's ``_use_pallas_bwd``: the backward kernels for bf16, autograd
@@ -277,16 +281,14 @@ def set_attention_sharding(mesh=None, batch_axis: Optional[str] = None,
     ``mesh`` is a parallel.mesh.Mesh. ``seq_axis``: the query sequence
     splits over it and each rank attends with its rows to the whole K/V
     (parallel/sequence.py). ``batch_axis`` is accepted as JAX's is: each
-    rank already holds only its dp rows. A ``heads_axis`` over more than
-    one rank is tp, which is not ported yet.
+    rank already holds only its dp rows. ``heads_axis`` (tp) is accepted
+    and needs nothing here: a tp layer's projections already give this
+    rank its local heads (module docstring).
     """
     global _SHARD_CTX
     if mesh is None:
         _SHARD_CTX = None
         return
-    if heads_axis and mesh.shape.get(heads_axis, 1) > 1:
-        raise NotImplementedError("set_attention_sharding: the heads axis (tp) is not "
-                                  "ported yet")
     _SHARD_CTX = {"mesh": mesh, "seq": seq_axis}
 
 

@@ -125,10 +125,11 @@ def all_gather(t: torch.Tensor, axis: Axis, kind: str) -> List[torch.Tensor]:
     return list(out.unbind(0))
 
 
-def all_reduce(t: torch.Tensor, axis: Axis, kind: str) -> torch.Tensor:
-    """The sum over the axis of ``t``, in fp32 for bf16, in ``t``'s dtype back."""
+def all_reduce(t: torch.Tensor, axis: Axis, kind: str, dtype=None) -> torch.Tensor:
+    """The sum over the axis of ``t``, in fp32 for bf16, in ``dtype`` back
+    (default ``t``'s)."""
     if axis.size == 1:
-        return t
+        return t if dtype is None else t.to(dtype)
     start = _start(t)
     work = t.float() if t.dtype == torch.bfloat16 else t
     staged = _staged(t, axis)
@@ -136,7 +137,7 @@ def all_reduce(t: torch.Tensor, axis: Axis, kind: str) -> torch.Tensor:
     dist.all_reduce(buf, group=axis.group)
     out = buf.to(t.device, non_blocking=True) if staged else buf
     _record(kind, t, start)
-    return out.to(t.dtype)
+    return out.to(dtype or t.dtype)
 
 
 def _zero_rows(x: torch.Tensor) -> torch.Tensor:

@@ -22,13 +22,17 @@ is one process, and nothing here talks to anything.
     that times the world size;
   - ``create_mesh`` lays the ranks out as JAX lays its devices out,
     ``reshape(dp, sp, tp)`` (ddpo_tpu/parallel/mesh.py): rank r has
-    dp_index r // sp and sp_index r % sp, so the ranks of one sp group are
-    consecutive. Every rank creates every sp and dp group, in the same
-    order. An sp group carries device tensors (halo rows, moments, K/V):
-    NCCL when it has more than one rank and its ranks' cards all differ,
-    else gloo (the ``gradient_group`` rule). A dp group carries host data
-    (rewards, prompts, infos), so it is gloo. The tp axis is not ported
-    yet.
+    tp_index r % tp, sp_index (r // tp) % sp and dp_index r // (sp tp), so
+    the ranks of one tp group are consecutive, and with tp = 1 so are those
+    of one sp group (dp_index r // sp, sp_index r % sp). Every rank creates
+    every sp, tp and dp group, in the same order. sp and tp groups carry
+    device tensors (halo rows, moments, K/V; the tp all-reduces): NCCL when
+    the group has more than one rank and its ranks' cards all differ, else
+    gloo (the ``gradient_group`` rule). A dp group (the ranks of one
+    (sp_index, tp_index)) carries host data (rewards, prompts, infos), so it
+    is gloo. Under tp the gradients' mean over dp runs in a second group of
+    the same ranks, ``grad_group``, on the same rule as the sp and tp
+    groups: NCCL when the ranks' cards differ, else the gloo dp group.
 """
 
 from __future__ import annotations
@@ -117,9 +121,12 @@ class MeshConfig:
 class Mesh:
     """The (dp, sp, tp) layout of the ranks, and this rank's place in it.
 
-    ``sp_group`` holds this rank's sp group (its dp_index's consecutive
-    ranks) and ``dp_group`` its dp group (the ranks of its sp_index); both
-    None in one process. ``axis("sp")`` is the ops' view of the sp axis."""
+    ``sp_group`` holds this rank's sp group, ``tp_group`` its tp group and
+    ``dp_group`` its dp group (the ranks of its sp_index and tp_index); all
+    None in one process, and ``dp_group`` None (the default group) when dp
+    is the only axis. ``grad_group`` (with ``grad_backend``) is the dp group
+    the gradients are averaged over under tp (None otherwise).
+    ``axis(name)`` is the ops' view of one axis."""
 
     dp: int
     sp: int
@@ -129,6 +136,11 @@ class Mesh:
     sp_group: object = None
     dp_group: object = None
     sp_backend: str = "gloo"
+    tp_index: int = 0
+    tp_group: object = None
+    tp_backend: str = "gloo"
+    grad_group: object = None
+    grad_backend: str = "gloo"
 
     @property
     def shape(self) -> dict:
@@ -137,9 +149,13 @@ class Mesh:
     def axis(self, name: str = "sp"):
         from ddpo_torch.ops.spatial import Axis
 
-        if name != "sp":
-            raise NotImplementedError(f"mesh axis {name!r} is not ported yet")
-        return Axis("sp", self.sp, self.sp_index, self.sp_group, self.sp_backend)
+        if name == "sp":
+            return Axis("sp", self.sp, self.sp_index, self.sp_group, self.sp_backend)
+        if name == "tp":
+            return Axis("tp", self.tp, self.tp_index, self.tp_group, self.tp_backend)
+        if name == "dp":
+            return Axis("dp", self.dp, self.dp_index, self.dp_group, "gloo")
+        raise ValueError(f"no mesh axis {name!r} (dp, sp, tp)")
 
 
 def create_mesh(config: MeshConfig = MeshConfig(), device: torch.device = torch.device("cpu")
@@ -152,31 +168,53 @@ def create_mesh(config: MeshConfig = MeshConfig(), device: torch.device = torch.
     dp = config.dp if config.dp != -1 else n // (tp * sp)
     if dp * sp * tp != n:
         raise ValueError(f"mesh {dp}x{sp}x{tp} != {n} devices")
-    if tp > 1:
-        raise NotImplementedError("the tp mesh axis is not ported yet")
     if n == 1:
         return Mesh(dp, sp, tp)
     rank = dist.get_rank()
-    if sp == 1:  # data parallel only: the default group is the dp group
+    if sp == 1 and tp == 1:  # data parallel only: the default group is the dp group
         return Mesh(dp, sp, tp, dp_index=rank)
+
+    def rank_of(d, s, t):
+        return (d * sp + s) * tp + t
+
     keys = _card_keys(device)
     groups = {}
-    for d in range(dp):  # every rank creates every group, in this order
-        ranks = list(range(d * sp, (d + 1) * sp))
+
+    def device_group(ranks):
         backend = _backend_for([keys[r] for r in ranks])
-        groups["sp", d] = (dist.new_group(ranks, backend=backend), backend)
+        return dist.new_group(ranks, backend=backend), backend
+
+    # every rank creates every group, in this order
+    if sp > 1:
+        for d in range(dp):
+            for t in range(tp):
+                groups["sp", d, t] = device_group([rank_of(d, s, t) for s in range(sp)])
+    if tp > 1:
+        for d in range(dp):
+            for s in range(sp):
+                groups["tp", d, s] = device_group([rank_of(d, s, t) for t in range(tp)])
     for s in range(sp):
-        groups["dp", s] = dist.new_group(list(range(s, n, sp)), backend="gloo")
-    dp_index, sp_index = rank // sp, rank % sp
-    sp_group, sp_backend = groups["sp", dp_index]
-    return Mesh(dp, sp, tp, dp_index, sp_index, sp_group, groups["dp", sp_index], sp_backend)
+        for t in range(tp):
+            ranks = [rank_of(d, s, t) for d in range(dp)]
+            groups["dp", s, t] = dist.new_group(ranks, backend="gloo")
+            if tp > 1 and dp > 1:
+                # the gradients' mean over dp: on the cards when they differ
+                groups["grad", s, t] = (device_group(ranks)
+                                        if _backend_for([keys[r] for r in ranks]) == "nccl"
+                                        else (groups["dp", s, t], "gloo"))
+    dp_index, sp_index, tp_index = rank // (sp * tp), (rank // tp) % sp, rank % tp
+    sp_group, sp_backend = groups.get(("sp", dp_index, tp_index), (None, "gloo"))
+    tp_group, tp_backend = groups.get(("tp", dp_index, sp_index), (None, "gloo"))
+    grad_group, grad_backend = groups.get(("grad", sp_index, tp_index), (None, "gloo"))
+    return Mesh(dp, sp, tp, dp_index, sp_index, sp_group, groups["dp", sp_index, tp_index],
+                sp_backend, tp_index, tp_group, tp_backend, grad_group, grad_backend)
 
 
 def local_shard(x: np.ndarray, mesh: Optional[Mesh] = None) -> np.ndarray:
     """This rank's contiguous rows of an array every rank holds whole (the
     inverse of gathering each rank's rows in rank order); with a ``mesh``,
-    its dp_index's rows of an array gathered once per dp group (the sp
-    ranks of a group hold the same rows)."""
+    its dp_index's rows of an array gathered once per dp group (the sp and
+    tp ranks of a dp index hold the same rows)."""
     if not (dist.is_available() and dist.is_initialized()):
         return x
     if mesh is not None:

@@ -28,7 +28,9 @@ over processes, rank r on cuda:LOCAL_RANK:
     rematerialized (``torch.utils.checkpoint``) when ``remat`` is set; CFG
     is one 2B apply (``cfg_concat``) when ``train_dtype`` is bf16;
   - the fused loop trains all timesteps of a minibatch and then updates
-    once; the non-fused loop updates on each minibatch's last timestep;
+    once (``inner_epoch_resident`` on permutations drawn on the host); the
+    non-fused loop (``inner_epoch_per_timestep``) updates on each
+    minibatch's last timestep;
   - the sampler's and the trainer's UNet calls run inside
     ``ops.invariance.batch_invariant()``, so the trainer's recompute at its
     own batch shape gives the sampler's bits (on the card; on the CPU it
@@ -70,10 +72,28 @@ over processes, rank r on cuda:LOCAL_RANK:
     and the reduce is the mean over the world; the reward callbacks then
     run on the main thread, since the attention context's collectives must
     come in the same order on every rank. Rewards and prompts are gathered
-    once per dp group, and the infos are averaged over dp.
+    once per dp group, and the infos are averaged over dp;
+  - ``--mesh_tp n`` lays the ranks out as JAX's (dp, 1, tp) mesh (rank r:
+    dp_index r // n, tp_index r % n): the n ranks of a tp group share one
+    dp slice, its prompts, noise and seed, and split every transformer
+    block's Linears (parallel/sharding.py: to_q/to_k/to_v and the GEGLU
+    projection by output, to_out.0 and ff.net.2 by input; the heads are
+    local to a rank, models/layers.py), with the collectives written out
+    (parallel/tensor.py). Each rank trains and checkpoints its slices:
+    the gradients are averaged over its dp group only (the ranks of its
+    tp_index; with dp = 1 there is nothing to reduce), the optimizer takes
+    its whole-tensor reductions over the tp group (training/optim.py), the
+    digests compare the gathered parameters, and rank 0 writes the
+    gathered state, so a checkpoint resumes at any tp. Printed: the tp
+    collectives a sampler UNet forward and a trainer apply;
+  - ``--resident_inner_loop True`` changes only where the fused loop's
+    permutations come from and which rows a rank trains: drawn on the
+    device from one generator seeded alike on every rank, the minibatches
+    global (train batch times dp), each rank training its dp rows of each
+    after gathering the epoch's samples over its dp group.
 
-Not ported yet, each raising: resident_inner_loop and mesh_tp > 1 (with or
-without sp). ``--grad_reduce_dtype`` under sp is refused, as JAX asserts.
+JAX's refusals hold: tp with sp, LoRA with tp, and ``--grad_reduce_dtype``
+with sp or tp.
 
 Run: python -m ddpo_torch.pipelines.policy_gradient --dataset compressed-animals
 """
@@ -101,7 +121,7 @@ from ddpo_torch.models.lora import init_lora, merge_lora, n_lora_params, target_
 from ddpo_torch.models.tokenizer import make_uncond_ids
 from ddpo_torch.ops.invariance import batch_invariant
 from ddpo_torch.ops.attention import set_attention_sharding
-from ddpo_torch.ops.spatial import comm_counts, validate_spatial_geometry
+from ddpo_torch.ops.spatial import all_gather, comm_counts, validate_spatial_geometry
 from ddpo_torch.parallel import (
     GradientAllReduce,
     MeshConfig,
@@ -120,13 +140,14 @@ from ddpo_torch.parallel import (
     process_index,
     worker_sum,
 )
+from ddpo_torch.parallel.sharding import TensorParallel, param_specs
 from ddpo_torch.parallel.spatial import levels_of, spatial_apply
 from ddpo_torch.sampling import SamplerConfig, sample_trajectories, vae_decode
 from ddpo_torch.training.optim import build_optimizer
 from ddpo_torch.training.policy_gradient import (
     AccumulatingTrainState,
-    train_step,
-    train_step_fused,
+    inner_epoch_per_timestep,
+    inner_epoch_resident,
 )
 from ddpo_torch.training.stat_tracking import PerPromptStatTracker
 from ddpo_torch.utils import Timer, fs
@@ -164,17 +185,6 @@ REDUCE_DTYPES = {"none": None, "float32": torch.float32, "bfloat16": torch.bfloa
 SP_MODES = ("spatial", "attention")
 
 
-def _check_ported(args) -> None:
-    not_ported = {
-        "--resident_inner_loop": args.resident_inner_loop,
-        "--mesh_tp > 1 with --mesh_sp > 1": args.mesh_tp > 1 and args.mesh_sp > 1,
-        "--mesh_tp > 1": args.mesh_tp > 1,
-    }
-    for what, asked in not_ported.items():
-        if asked:
-            raise NotImplementedError(f"{what} is not ported yet")
-
-
 class _InlineExecutor:
     """``submit`` runs the call at once, on this thread (the reward
     callbacks of the attention mode)."""
@@ -195,7 +205,15 @@ def gradient_reduce(mesh, spatial: bool, group, backend: str,
     to it and back). In the spatial mode each sp rank's gradients are its
     rows' part, so the reduce sums over the world and divides by dp (the
     sum over sp, the mean over dp); otherwise the gradients are whole and
-    it is the mean over the world."""
+    it is the mean over the world. Under tp each rank holds other slices
+    of the sharded gradients than its tp neighbours (of the same shapes:
+    a world reduce would average different slices without an error), so
+    the reduce is the mean over its dp group, the ranks of its tp_index
+    (``mesh.grad_group``: NCCL when their cards differ), and with dp = 1
+    there is none."""
+    if mesh.tp > 1:
+        assert reduce_dtype is None, "--grad_reduce_dtype supports pure-dp meshes"
+        return GradientAllReduce(mesh.grad_group, mesh.grad_backend) if mesh.dp > 1 else None
     if process_count() == 1 and reduce_dtype is None:
         return None
     return GradientAllReduce(group, backend, reduce_dtype, divisor=mesh.dp if spatial else None)
@@ -295,16 +313,33 @@ def main(argv=None):
     set_attention_sharding(None)  # a previous run's context must not leak into this one
     args = Parser().parse_args("pg", argv)
     device = resolve_device(args.device)
-    _check_ported(args)
     if args.sp_mode not in SP_MODES:
         raise ValueError(f"--sp_mode {args.sp_mode!r} is not one of {SP_MODES}")
     reduce_dtype = REDUCE_DTYPES[args.grad_reduce_dtype]
     if reduce_dtype is not None:
         assert args.fused_train_loop, "--grad_reduce_dtype requires the fused train loop"
-        assert args.mesh_sp == 1, "--grad_reduce_dtype supports pure-dp meshes"
+        assert args.mesh_sp == 1 and args.mesh_tp == 1, (
+            "--grad_reduce_dtype supports pure-dp meshes")
+    # JAX's refusals, with its messages
+    assert not (args.mesh_tp > 1 and args.mesh_sp > 1), (
+        "mesh_sp and mesh_tp cannot be combined for training: XLA's "
+        "manual<->auto partitioner boundary miscounts 3x3 conv weight grads "
+        "exactly 2x with two manual attention axes (ops/attention.py "
+        "docstring). Version-gated: when tests/test_parallel.py::"
+        "test_sp_tp_combined_conv_grad_miscount_canary goes red, a jax "
+        "upgrade fixed the boundary — remove this assert per the canary's "
+        "docstring."
+    )
+    if args.lora_rank > 0:
+        assert args.mesh_tp == 1, (
+            "lora_rank requires tp=1: adapters replicate and the frozen base "
+            "stays whole (tp shards full-finetune states instead)"
+        )
     mesh = create_mesh(MeshConfig(sp=args.mesh_sp, tp=args.mesh_tp), device)
     rank, world = process_index(), process_count()
-    group, backend = gradient_group(device)
+    # under tp the gradients' mean runs over the dp group (gradient_reduce)
+    group, backend = (gradient_group(device) if mesh.tp == 1 else
+                      (mesh.grad_group, mesh.grad_backend if mesh.dp > 1 else "none"))
     sp_spatial = mesh.sp > 1 and args.sp_mode == "spatial"
 
     # per rank (one device a rank), as JAX's per-process local batch
@@ -315,7 +350,7 @@ def main(argv=None):
     print(f"[ pg ] device: {device} | rank {rank} of {world} | gradient all-reduce: "
           f"{backend}, {args.grad_reduce_dtype}")
     print(f"[ pg ] mesh: dp={mesh.dp} sp={mesh.sp} tp={mesh.tp} ({world} processes; "
-          f"dp_index {mesh.dp_index}, sp_index {mesh.sp_index})")
+          f"dp_index {mesh.dp_index}, sp_index {mesh.sp_index}, tp_index {mesh.tp_index})")
     print(
         f"[ pg ] sample batch: {sample_bs} | train batch: {train_bs} | "
         f"effective: {train_effective_bs} | samples/epoch: {total_samples_per_epoch} "
@@ -324,6 +359,16 @@ def main(argv=None):
     assert args.sample_batch_size >= args.train_batch_size
     assert args.sample_batch_size % args.train_batch_size == 0
     assert total_samples_per_epoch % train_effective_bs == 0
+    resident = args.resident_inner_loop
+    if resident:
+        # the resident epoch runs over the whole (dp-gathered) samples:
+        # minibatch size and count are global (the dp factors cancel)
+        n_batches_resident = (args.sample_batch_size * args.num_sample_batches_per_epoch
+                              ) // args.train_batch_size
+        assert n_batches_resident % args.train_accumulation_steps == 0, (
+            f"resident_inner_loop: {n_batches_resident} minibatches/epoch not "
+            f"divisible by train_accumulation_steps={args.train_accumulation_steps}"
+        )
 
     worker_id = rank
     remote = fs.is_remote(args.savepath)
@@ -360,6 +405,15 @@ def main(argv=None):
                   "falling back to sp_mode=attention")
             sp_spatial = False
     sp_axis = mesh.axis("sp") if sp_spatial else None
+    tp_layout = None
+    if mesh.tp > 1:
+        # each rank keeps its slices of the transformer blocks' Linears
+        tp_axis = mesh.axis("tp")
+        tp_layout = TensorParallel(tp_axis, param_specs(dict(unet.named_parameters())))
+        unet.set_tensor_parallel(tp_axis)
+        print(f"[ pg ] tp={mesh.tp}: the transformer blocks' Linears split over the tp group "
+              f"({sum(p.numel() for p in unet.parameters()) / 1e6:.1f}M params on this rank; "
+              f"heads local: self-attention runs the kernels on heads / {mesh.tp})")
     lora_base = None
     if args.lora_rank > 0:
         # frozen weights take no optimizer update, so they need no fp32
@@ -394,6 +448,12 @@ def main(argv=None):
         print(f"[ pg ] sp={mesh.sp} attention: self-attention splits its queries over sp; "
               "the rest computes whole on every sp rank")
 
+    sample_calls = {"n": 0}  # sampler UNet calls, for the tp collectives a call
+
+    def counted_sample_apply(*a):
+        sample_calls["n"] += 1
+        return sample_apply(*a)
+
     scheduler = models.scheduler
     sched_state = scheduler.set_timesteps(
         scheduler.create_state(device), args.n_inference_steps
@@ -407,15 +467,23 @@ def main(argv=None):
     # over ranks, or in one process a cast to --grad_reduce_dtype and back
     # (JAX's dp = 1 shard_map)
     grad_reduce = gradient_reduce(mesh, sp_spatial, group, backend, reduce_dtype)
+    train_apply = make_train_apply(unet, train_dtype, args.remat, lora_base, sp_axis)
+    applies = {"n": 0}  # trainer UNet applies, for the tp collectives a call
+
+    def counted_apply(*a):
+        applies["n"] += 1
+        return train_apply(*a)
+
     state = AccumulatingTrainState(
-        apply_fn=make_train_apply(unet, train_dtype, args.remat, lora_base, sp_axis),
+        apply_fn=counted_apply,
         params=params,
-        tx=build_optimizer(args),
+        tx=build_optimizer(args, tp=tp_layout),
         # the fp32 accumulation buffer (3.4 GB at SD-1.4 scale) exists only
         # when something accumulates: explicit accumulation steps, or the
         # non-fused loop, which accumulates over the trained timesteps
         accumulate=args.train_accumulation_steps > 1 or not fused,
         grad_reduce=grad_reduce,
+        tp=tp_layout,
     )
     ckpt_root = localpath if remote else args.savepath
     start_epoch = 0
@@ -431,7 +499,7 @@ def main(argv=None):
             restored_host = restored.get("host")
             print(f"[ pg ] resumed from checkpoint at epoch {restored['epoch']}")
     if world > 1:
-        all_processes_equal(state.params, "initial params")
+        all_processes_equal(state.global_params(), "initial params")
 
     vae_scale = 2 ** (len(models.vae.config.block_out_channels) - 1)
     sampler_config = SamplerConfig(
@@ -448,17 +516,16 @@ def main(argv=None):
         with torch.no_grad():
             return models.text_encoder(torch.as_tensor(ids, device=device))
 
-    step_fn = train_step_fused if fused else train_step
-    step_kwargs = dict(
+    epoch_kwargs = dict(
         scheduler_state=sched_state, scheduler=scheduler, train_cfg=args.train_cfg,
         guidance_scale=args.guidance_scale, eta=args.eta,
         clip_range=args.ppo_clip_range, cfg_concat=cfg_concat,
+        accumulation_steps=args.train_accumulation_steps,
     )
 
     # ------------------------------ prompts/rewards --------------------------- #
     uncond_embed = text_encode(make_uncond_ids(models.tokenizer, 1))[0]
     sample_uncond = uncond_embed.expand(sample_bs, *uncond_embed.shape)
-    train_uncond = sample_uncond[:train_bs]
 
     assert args.filter_field in training.callback_fns, (
         f"filter_field {args.filter_field!r} is not a registered reward "
@@ -481,15 +548,19 @@ def main(argv=None):
 
     # the sampler's noise, from this rank's seed (base_seed + dp_index): each
     # dp slice draws its own, as JAX's global-mesh key gives each dp slice
-    # its own, and the sp ranks of a slice the same; host-side RNGs
+    # its own, and the sp and tp ranks of a slice the same; host-side RNGs
     # (prompts, shuffles) are python's and numpy's, seeded by the parser
     # from the same seed
     sample_gen = torch.Generator(device=device).manual_seed(args.seed)
+    # the resident loop's permutations: one stream, the same on every rank
+    train_gen = torch.Generator(device=device).manual_seed(args.base_seed)
 
     mean_rewards, std_rewards = [], []
     if restored_host is not None:
         # true resume: every stateful host object continues where it stopped
         sample_gen.set_state(restored_host["sample_generator"])
+        if restored_host.get("train_generator") is not None:
+            train_gen.set_state(restored_host["train_generator"])
         mean_rewards = list(restored_host["mean_rewards"])
         std_rewards = list(restored_host["std_rewards"])
         if per_prompt_stats is not None and restored_host.get("per_prompt_stats"):
@@ -500,6 +571,7 @@ def main(argv=None):
     def host_checkpoint_state():
         return {
             "sample_generator": sample_gen.get_state(),
+            "train_generator": train_gen.get_state(),
             "mean_rewards": list(mean_rewards),
             "std_rewards": list(std_rewards),
             "per_prompt_stats": per_prompt_stats.state_dict() if per_prompt_stats else None,
@@ -535,6 +607,7 @@ def main(argv=None):
         with torch.no_grad():
             refresh_sampler(sample_unet, state.params if lora_base is None
                             else merge_lora(lora_base, state.params))
+        comm_before, sample_calls["n"] = comm_counts(), 0
         samples = []
         sample_phase_time = 0.0
         for i in range(args.num_sample_batches_per_epoch):
@@ -546,7 +619,7 @@ def main(argv=None):
             timer()
             with batch_invariant():
                 traj = sample_trajectories(
-                    sample_apply, scheduler, sched_state, prompt_embeds, sample_uncond,
+                    counted_sample_apply, scheduler, sched_state, prompt_embeds, sample_uncond,
                     sampler_config, generator=sample_gen,
                 )
             images = vae_decode(models.vae, traj["final_latents"]).cpu().numpy()
@@ -576,6 +649,7 @@ def main(argv=None):
                 images[0],
             )
 
+        sampler_comm = _comm_since(comm_before)
         # collect rewards
         for sample in samples:
             sample["rewards"], sample["callback_info"] = sample.pop("callbacks").result()[
@@ -626,68 +700,50 @@ def main(argv=None):
 
         # ============================ training phase =========================== #
         process_barrier(f"pg_train_{epoch}")
+        comm_before, applies["n"] = comm_counts(), 0
+        total_bs, num_timesteps = samples["log_probs"].shape
+        assert num_timesteps == args.n_inference_steps
+        num_train_ts = int(num_timesteps * args.train_timestep_ratio)
+        keys = ["embeds", "latents", "next_latents", "log_probs", "ts", "advantages"]
+        epoch_samples = {k: samples[k] for k in keys}
+        epoch_samples["uncond_embeds"] = uncond_embed.expand(total_bs, *uncond_embed.shape)
+        if resident and mesh.dp > 1:
+            # the whole epoch's samples on every rank, in dp order (the
+            # order of the gathered advantages)
+            epoch_samples = {k: torch.cat(all_gather(v.contiguous(), mesh.axis("dp"),
+                                                     "dp_samples"))
+                             for k, v in epoch_samples.items()}
         for inner_epoch in range(args.num_inner_epochs):
-            total_bs, num_timesteps = samples["log_probs"].shape
-            assert num_timesteps == args.n_inference_steps
-
-            perm = torch.as_tensor(np.random.permutation(total_bs), device=device)
-            keys = ["embeds", "latents", "next_latents", "log_probs", "ts", "advantages"]
-            shuffled = {k: samples[k][perm] for k in keys}
-
-            # independent per-sample timestep permutation
-            perms = torch.as_tensor(
-                np.stack([np.random.permutation(num_timesteps) for _ in range(total_bs)]),
-                device=device,
-            )
-            row = torch.arange(total_bs, device=device)[:, None]
-            for key in ("latents", "next_latents", "log_probs", "ts"):
-                shuffled[key] = shuffled[key][row, perms]
-
-            # rebatch to (n_batches, train_bs, ...)
-            n_batches = total_bs // train_bs
-            batched = {
-                k: v.reshape(n_batches, train_bs, *v.shape[1:]) for k, v in shuffled.items()
-            }
-
-            num_train_ts = int(num_timesteps * args.train_timestep_ratio)
-            infos = []
             n_reduces = len(grad_reduce.calls) if grad_reduce is not None else 0
             timer()
+            if resident:
+                # drawn on the device from train_gen, the same on every
+                # rank; each rank trains its dp rows of the global minibatch
+                drawn = dict(generator=train_gen, dp=(mesh.dp, mesh.dp_index),
+                             train_batch_size=train_bs * mesh.dp)
+            else:
+                # this rank's rows: the row and per-sample timestep
+                # permutations from numpy's global stream
+                perm = torch.as_tensor(np.random.permutation(total_bs), device=device)
+                perms = torch.as_tensor(
+                    np.stack([np.random.permutation(num_timesteps) for _ in range(total_bs)]),
+                    device=device,
+                )
+                drawn = dict(perm=perm, t_perms=perms, train_batch_size=train_bs)
+            epoch_fn = inner_epoch_resident if resident or fused else inner_epoch_per_timestep
             with batch_invariant():
-                for i in range(n_batches):
-                    base = {
-                        "prompt_embeds": batched["embeds"][i],
-                        "uncond_embeds": train_uncond,
-                        "advantages": batched["advantages"][i],
-                    }
-                    do_opt_update = (i + 1) % args.train_accumulation_steps == 0
-                    if fused:
-                        batch = dict(base, **{
-                            k: batched[k][i][:, :num_train_ts].transpose(0, 1)
-                            for k in ("latents", "next_latents", "log_probs", "ts")
-                        })
-                        state, info = step_fn(state, batch, do_opt_update=do_opt_update,
-                                              **step_kwargs)
-                        infos.append({k: float(v) for k, v in info.items()})
-                    else:
-                        for j in range(num_train_ts):
-                            batch = dict(base, **{
-                                k: batched[k][i][:, j]
-                                for k in ("latents", "next_latents", "log_probs", "ts")
-                            })
-                            upd = do_opt_update and (j == num_train_ts - 1)
-                            state, info = step_fn(state, batch, do_opt_update=upd,
-                                                  **step_kwargs)
-                            infos.append({k: float(v) for k, v in info.items()})
+                state, infos = epoch_fn(state, epoch_samples, num_train_ts=num_train_ts,
+                                        **drawn, **epoch_kwargs)
             train_time = timer()
+            n_batches = total_bs // train_bs
             # the global batch's infos: the mean of the dp slices' (equal
-            # rows; the sp ranks of a slice hold the same infos)
-            infos = {k: worker_sum(np.stack([i[k] for i in infos]), group=mesh.dp_group) / mesh.dp
-                     for k in infos[0]}
+            # rows; the sp and tp ranks of a slice hold the same infos)
+            infos = {k: worker_sum(v.double().cpu().numpy(), group=mesh.dp_group) / mesh.dp
+                     for k, v in infos.items()}
             all_processes_equal(infos, "train infos")
             n_updates = n_batches * num_train_ts
             print(
-                f"[ pg ] epoch {epoch}.{inner_epoch}: "
+                f"[ pg ] epoch {epoch}.{inner_epoch}{' (resident)' if resident else ''}: "
                 f"loss {infos['loss'].mean():.5f} | kl {infos['approx_kl'].mean():.2e} "
                 f"| clipfrac {infos['clipfrac'].mean():.3f} | {train_time:.2f}s, "
                 f"{train_time / n_updates:.4f} s an update ({n_updates})"
@@ -712,10 +768,25 @@ def main(argv=None):
                                        f"train_info/{worker_id}_{epoch}_{inner_epoch}.npy"),
                     infos,
                 )
+        if mesh.tp > 1:
+            # per call, from this epoch's counts: a sampler UNet forward, and
+            # a trainer apply (its forward, the remat recompute and the
+            # backward)
+            fwd = json.dumps(_per_call(sampler_comm, sample_calls["n"]), sort_keys=True)
+            apply = json.dumps(_per_call(_comm_since(comm_before), applies["n"]), sort_keys=True)
+            print(f"[ pg ] rank {rank}: tp collectives a sampler UNet forward {fwd} | "
+                  f"a trainer apply {apply} "
+                  f"(calls, bytes, seconds; {sample_calls['n']} sampler forwards, "
+                  f"{applies['n']} trainer applies)")
         profiling.close()
         if world > 1:
-            d = all_processes_equal(state.params, f"params after epoch {epoch}")
+            d = all_processes_equal(state.global_params(), f"params after epoch {epoch}")
             print(f"[ pg ] epoch {epoch} params digest {d} (equal on all {world} ranks)")
+            if mesh.tp > 1:
+                whole = {k: p for k, p in state.params.items() if not tp_layout.sharded(k)}
+                d = all_processes_equal(whole, f"replicated params after epoch {epoch}")
+                print(f"[ pg ] epoch {epoch} replicated params digest {d} ({len(whole)} "
+                      f"tensors, bit-equal on all {world} ranks)")
             # a SIGTERM seen by any rank stops every rank at this boundary
             shutdown_requested["flag"] = worker_sum(float(shutdown_requested["flag"])) > 0
 
@@ -760,9 +831,9 @@ def main(argv=None):
     if prev_sigterm is not None:
         signal.signal(signal.SIGTERM, prev_sigterm)
     set_attention_sharding(None)
-    if mesh.sp > 1:
-        print(f"[ pg ] rank {rank}: sp collectives (calls, bytes, seconds) "
-              f"{json.dumps(comm_counts(), sort_keys=True)}")
+    if mesh.sp > 1 or mesh.tp > 1:
+        print(f"[ pg ] rank {rank}: {'sp' if mesh.sp > 1 else 'tp'} collectives (calls, bytes, "
+              f"seconds) {json.dumps(comm_counts(), sort_keys=True)}")
     if lora_base is not None:
         # the merged UNet in the reference format, for generate --iteration
         # (the adapters alone stay in the full-state checkpoints)
@@ -783,6 +854,21 @@ def main(argv=None):
               f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB | kernel launches "
               f"{json.dumps(launch_counts(), sort_keys=True)}")
     return mean_rewards
+
+
+def _comm_since(before: dict) -> dict:
+    """The collectives (ops/spatial.py ``COMM``: calls, bytes, seconds by
+    kind) since ``comm_counts()`` gave ``before``."""
+    now = comm_counts()
+    zero = (0, 0, 0.0)
+    delta = {k: tuple(a - b for a, b in zip(v, before.get(k, zero))) for k, v in now.items()}
+    return {k: v for k, v in delta.items() if v[0]}
+
+
+def _per_call(comm: dict, calls: int) -> dict:
+    """``comm`` over ``calls`` calls: (collectives, bytes, seconds) a call."""
+    return {k: (c / calls, b / calls, round(sec / calls, 6))
+            for k, (c, b, sec) in comm.items() if calls}
 
 
 def _concat(batches):

@@ -24,6 +24,18 @@ copy of the 860M-parameter state per step; the values are optax's.
 Schedules are per optimizer step, as in optax: "constant", "linear" or
 "cosine", each after an optional linear warmup. They are evaluated in
 float32, as optax's are.
+
+Under tensor parallelism (``tp``, a parallel/sharding.py
+``TensorParallel``) each rank holds its slices of the sharded parameters,
+gradients and moments, and every whole-tensor quantity that GSPMD computed
+for JAX is taken over the group: the global norm (each sharded leaf's sum
+of squares all-reduced, each replicated leaf counted once), and in
+adafactor the factored axes (from the whole shape), the row and column
+means of g^2 over a split dim, and the update's and the parameter's RMS.
+So every rank takes the same clip, and a replicated leaf the same update.
+The optimizers' collectives (``tp_optim`` in ops/spatial.py's ``COMM``) are
+one scalar all-reduce a step for the norm, and in adafactor three more, one
+for each pass of its whole-tensor means over all leaves.
 """
 
 from __future__ import annotations
@@ -104,11 +116,12 @@ class ClipAdamW:
     """
 
     def __init__(self, schedule: Schedule, b1: float, b2: float, eps: float,
-                 weight_decay: float, max_grad_norm: float):
+                 weight_decay: float, max_grad_norm: float, tp=None):
         self.schedule = schedule
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
         self.max_grad_norm = max_grad_norm
+        self.tp = tp
 
     def init(self, params: Dict[str, torch.Tensor]) -> dict:
         return {
@@ -118,14 +131,29 @@ class ClipAdamW:
         }
 
     @staticmethod
-    def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
-        return torch.sqrt(sum(g.float().square().sum() for g in grads))
+    def moment_spec(moment: str, name: str, spec):
+        """A moment's Shard: its parameter's."""
+        return spec
+
+    @staticmethod
+    def global_norm(grads: Iterable[torch.Tensor], tp=None, names: Sequence[str] = ()
+                    ) -> torch.Tensor:
+        """The norm of all gradients; under ``tp`` (with each gradient's
+        ``names``) of the whole gradients: the sharded leaves' sum of
+        squares all-reduced over the group, the replicated ones once."""
+        if tp is None:
+            return torch.sqrt(sum(g.float().square().sum() for g in grads))
+        grads = list(grads)
+        split = [g for g, n in zip(grads, names) if tp.sharded(n)]
+        whole = [g for g, n in zip(grads, names) if not tp.sharded(n)]
+        total = tp.psum(sum(g.float().square().sum() for g in split))
+        return torch.sqrt(total + sum(g.float().square().sum() for g in whole))
 
     @torch.no_grad()
     def step(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
              state: dict) -> None:
         """One update of ``params`` and ``state``, in place."""
-        g_norm = self.global_norm(grads.values())
+        g_norm = self.global_norm(grads.values(), self.tp, list(grads))
         clip = bool(g_norm >= self.max_grad_norm)
         count = state["count"] + 1
         b1, b2 = self.b1, self.b2
@@ -213,16 +241,27 @@ class ClipAdafactor:
     v_row and v_col for the factored parameters and v for the others.
     """
 
-    def __init__(self, schedule: Schedule, weight_decay: float, max_grad_norm: float):
+    def __init__(self, schedule: Schedule, weight_decay: float, max_grad_norm: float, tp=None):
         self.schedule = schedule
         self.weight_decay = weight_decay
         self.max_grad_norm = max_grad_norm
+        self.tp = tp
         self.axes: Dict[str, Optional[Tuple[int, int]]] = {}
+
+    def moment_spec(self, moment: str, name: str, spec):
+        """A state leaf's Shard: v takes its parameter's; v_row (reduced
+        over d0) and v_col (over d1) drop that axis from it."""
+        if moment == "v":
+            return spec
+        d1, d0 = self.axes[name]
+        return spec.drop(d0 if moment == "v_row" else d1)
 
     def init(self, params: Dict[str, torch.Tensor]) -> dict:
         state = {"count": 0, "v_row": {}, "v_col": {}, "v": {}}
         for name, p in params.items():
-            axes = self.axes[name] = factored_axes(name, p.shape)
+            # from the whole shape, as GSPMD's global view chooses them
+            shape = p.shape if self.tp is None else self.tp.global_shape(name, p.shape)
+            axes = self.axes[name] = factored_axes(name, shape)
             if axes is None:
                 state["v"][name] = torch.zeros_like(p, dtype=torch.float32)
             else:
@@ -238,7 +277,7 @@ class ClipAdafactor:
         """One update of ``params`` and ``state``, in place."""
         names = list(params)
         g = [grads[n].float() for n in names]
-        g_norm = ClipAdamW.global_norm(g)
+        g_norm = ClipAdamW.global_norm(g, self.tp, names)
         if bool(g_norm >= self.max_grad_norm):
             g = torch._foreach_div(g, g_norm)
             torch._foreach_mul_(g, self.max_grad_norm)
@@ -246,39 +285,79 @@ class ClipAdafactor:
         decay = float(f32(1) - f32(state["count"] + 1) ** f32(-DECAY_RATE))
         keep = float(f32(1) - f32(decay))
         lr = self.schedule(state["count"])
-        updates = []
-        for name, grad in zip(names, g):
-            p = params[name]
+        tp = self.tp
+        specs = [tp.specs.get(n) if tp is not None else None for n in names]
+
+        # whole-tensor means from this rank's slices: under tp each pass's
+        # reductions over a split dim go in one all-reduce
+        def partial(x, spec, dim=None, keepdim=False):
+            if tp is None:
+                return (x.mean() if dim is None else x.mean(dim, keepdim=keepdim)), None
+            return tp.partial_mean(x, spec, dim, keepdim)
+
+        def finish(parts):
+            return [m for m, _ in parts] if tp is None else tp.finish_means(parts)
+
+        # 1. the row and column means of g^2 (v for the unfactored), and
+        #    each parameter's mean square
+        stats, p_sq = [], []
+        for name, grad, spec in zip(names, g, specs):
             sq = grad * grad + ADAFACTOR_EPS
             axes = self.axes[name]
             if axes is None:
-                v = state["v"][name].mul_(decay).add_(sq, alpha=keep)
-                u = grad * v.rsqrt()
+                state["v"][name].mul_(decay).add_(sq, alpha=keep)
             else:
                 d1, d0 = axes
-                v_row = state["v_row"][name].mul_(decay).add_(sq.mean(d0), alpha=keep)
-                v_col = state["v_col"][name].mul_(decay).add_(sq.mean(d1), alpha=keep)
-                row_mean = v_row.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)
-                u = (grad * (v_row / row_mean).rsqrt().unsqueeze(d0)
+                stats += [partial(sq, spec, d0), partial(sq, spec, d1)]
+            p_sq.append(partial(params[name].float().square(), spec))
+        done = finish(stats + p_sq)
+        stats, p_rms = iter(done[:len(stats)]), [m.sqrt() for m in done[len(stats):]]
+        # 2. v_row, v_col, and the mean of v_row
+        row_means = []
+        for name, spec in zip(names, specs):
+            if self.axes[name] is not None:
+                d1, d0 = self.axes[name]
+                v_row = state["v_row"][name].mul_(decay).add_(next(stats), alpha=keep)
+                state["v_col"][name].mul_(decay).add_(next(stats), alpha=keep)
+                row_spec = spec.drop(d0) if spec is not None else None
+                row_means.append(partial(v_row, row_spec, d1 - 1 if d1 > d0 else d1,
+                                         keepdim=True))
+        row_means = iter(finish(row_means))
+        # 3. the update and its mean square
+        us, u_sq = [], []
+        for name, grad, spec in zip(names, g, specs):
+            if self.axes[name] is None:
+                u = grad * state["v"][name].rsqrt()
+            else:
+                d1, d0 = self.axes[name]
+                v_row, v_col = state["v_row"][name], state["v_col"][name]
+                u = (grad * (v_row / next(row_means)).rsqrt().unsqueeze(d0)
                      * v_col.rsqrt().unsqueeze(d1))
-            u = u / torch.clamp(u.square().mean().sqrt() / BLOCK_RMS_CLIP, min=1.0)
-            p_rms = p.float().square().mean().sqrt()
-            u = u * lr * torch.clamp(p_rms, min=PARAM_SCALE_MIN)
+            us.append(u)
+            u_sq.append(partial(u.square(), spec))
+        u_rms = [m.sqrt() for m in finish(u_sq)]
+        updates = []
+        for i, name in enumerate(names):
+            p = params[name]
+            u = us[i] / torch.clamp(u_rms[i] / BLOCK_RMS_CLIP, min=1.0)
+            us[i] = None
+            u = u * lr * torch.clamp(p_rms[i], min=PARAM_SCALE_MIN)
             updates.append((u + self.weight_decay * p.float()).to(p.dtype))
         torch._foreach_sub_([params[n] for n in names], updates)
         state["count"] += 1
 
 
-def build_optimizer(args):
+def build_optimizer(args, tp=None):
     """Global-norm clip + adamw (bf16 mu) | adafactor, on the schedule;
-    ``args.optimizer`` defaults to adamw (the RWR train block has no key)."""
+    ``args.optimizer`` defaults to adamw (the RWR train block has no key).
+    ``tp``: the parameters' tp layout (module docstring), None when whole."""
     optimizer = getattr(args, "optimizer", "adamw")
     if optimizer == "adafactor":
         return ClipAdafactor(build_lr_schedule(args), weight_decay=args.weight_decay,
-                             max_grad_norm=args.max_grad_norm)
+                             max_grad_norm=args.max_grad_norm, tp=tp)
     if optimizer != "adamw":
         raise ValueError(f"unknown --optimizer {optimizer!r} (adamw | adafactor)")
     return ClipAdamW(
         build_lr_schedule(args), b1=args.beta1, b2=args.beta2, eps=args.epsilon,
-        weight_decay=args.weight_decay, max_grad_norm=args.max_grad_norm,
+        weight_decay=args.weight_decay, max_grad_norm=args.max_grad_norm, tp=tp,
     )

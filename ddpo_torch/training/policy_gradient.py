@@ -25,7 +25,20 @@ and the state's ``grad_reduce`` (parallel/collectives.py
 ``GradientAllReduce``) averages it over ranks once per optimizer step,
 after accumulation and before the clip: equal rows per rank make that the
 global-batch mean JAX's GSPMD step takes; with a ``reduce_dtype`` it is
-JAX's ``grad_reduce_dtype``. ``inner_epoch_resident`` is not ported yet.
+JAX's ``grad_reduce_dtype``.
+
+Tensor parallelism: with ``tp`` (a parallel/sharding.py ``TensorParallel``)
+the state holds this rank's slices of the sharded parameters, and so do
+the accumulation buffer and the optimizer moments; ``state_dict`` gathers
+the whole state in JAX's global layout (every rank of the group calls it)
+and ``load_state_dict`` takes this rank's slices of a whole one, so a
+checkpoint written at one tp resumes at any other.
+
+``inner_epoch_resident`` is JAX's one-program inner epoch: the shuffle, the
+per-sample timestep permutations and the rebatch on the device, then every
+minibatch through ``train_step_fused``. The driver's fused host loop is the
+same function on permutations drawn on the host; ``inner_epoch_per_timestep``
+is the non-fused one (``train_step`` on each trained timestep).
 """
 
 from __future__ import annotations
@@ -33,6 +46,8 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+
+from ddpo_torch.parallel.sharding import place_train_state
 
 from ddpo_torch.core.scheduler import DDIMScheduler, DDIMState
 
@@ -53,11 +68,13 @@ class AccumulatingTrainState:
     """
 
     def __init__(self, apply_fn: Callable, params: Tensors, tx,
-                 accumulate: bool = True, grad_reduce: Optional[Callable] = None):
+                 accumulate: bool = True, grad_reduce: Optional[Callable] = None,
+                 tp=None):
         self.apply_fn = apply_fn
         self.params = params
         self.tx = tx
         self.grad_reduce = grad_reduce
+        self.tp = tp
         self.opt_state = tx.init(params)
         self.step = 0
         self.grad_acc: Optional[Tensors] = (
@@ -90,29 +107,53 @@ class AccumulatingTrainState:
             ga.add_(grads[k])
         self.n_acc += 1
 
+    def _moment_specs(self, moment: str, tensors: Tensors) -> dict:
+        return {k: place_train_state(self.tp, self.tx, k, moment) for k in tensors}
+
+    def global_params(self) -> Tensors:
+        """The whole parameters (gathered over tp; these ones without)."""
+        params = {k: p.detach() for k, p in self.params.items()}
+        return params if self.tp is None else self.tp.gather(params)
+
     def state_dict(self) -> dict:
+        """The whole state; under tp every rank of the group calls it."""
+        opt, grad_acc = self.opt_state, self.grad_acc
+        if self.tp is not None:
+            opt = {m: t if m == "count" else self.tp.gather(t, self._moment_specs(m, t))
+                   for m, t in opt.items()}
+            grad_acc = None if grad_acc is None else self.tp.gather(grad_acc)
         return {
-            "params": {k: p.detach() for k, p in self.params.items()},
-            "opt_state": self.opt_state,
+            "params": self.global_params(),
+            "opt_state": opt,
             "step": self.step,
-            "grad_acc": self.grad_acc,
+            "grad_acc": grad_acc,
             "n_acc": self.n_acc,
         }
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
+        """Load a whole state (this rank's slices of it under tp)."""
+        tp = self.tp
+
+        def local(tensors, specs=None):
+            return tensors if tp is None else tp.local(tensors, specs)
+
+        params = local(state["params"])
         for k, p in self.params.items():
-            p.copy_(state["params"][k])
+            p.copy_(params[k])
         opt = state["opt_state"]
         self.opt_state["count"] = int(opt["count"])
         for moment, tensors in self.opt_state.items():
             if moment != "count":
+                saved = local(opt[moment], self._moment_specs(moment, tensors)
+                              if tp is not None else None)
                 for k, m in tensors.items():
-                    m.copy_(opt[moment][k])
+                    m.copy_(saved[k])
         self.step = int(state["step"])
         if self.grad_acc is not None and state.get("grad_acc") is not None:
+            saved = local(state["grad_acc"])
             for k, ga in self.grad_acc.items():
-                ga.copy_(state["grad_acc"][k])
+                ga.copy_(saved[k])
         self.n_acc = int(state["n_acc"]) if self.grad_acc is not None else 0
 
 
@@ -249,3 +290,141 @@ def train_step_fused(
             g.div_(num_t)
     state.apply_gradients(grads=grads, do_update=do_opt_update)
     return state, {k: v / num_t for k, v in info_sum.items()}
+
+
+PER_T = ("latents", "next_latents", "log_probs", "ts")
+
+
+def rebatch(samples: Tensors, perm: torch.Tensor, t_perms: torch.Tensor,
+            train_batch_size: int) -> Tensors:
+    """The inner epoch's shuffle: rows in ``perm``'s order, each row's
+    timesteps in its own ``t_perms`` order (the reference's independent
+    per-sample permutation), cut into (n_batches, train_batch_size, ...)."""
+    shuffled = {k: v[perm] for k, v in samples.items()}
+    row = torch.arange(perm.shape[0], device=perm.device)[:, None]
+    for key in PER_T:
+        shuffled[key] = shuffled[key][row, t_perms]
+    n_batches = perm.shape[0] // train_batch_size
+    return {k: v.reshape(n_batches, train_batch_size, *v.shape[1:])
+            for k, v in shuffled.items()}
+
+
+def fused_minibatch(batched: Tensors, i: int, num_train_ts: int,
+                    rows: Optional[slice] = None) -> Tensors:
+    """Minibatch ``i`` of ``rebatch``'s output as ``train_step_fused`` takes
+    it: its first ``num_train_ts`` shuffled timesteps on a leading axis,
+    ``rows`` of it (all by default)."""
+    rows = slice(None) if rows is None else rows
+    batch = {"prompt_embeds": batched["embeds"][i][rows],
+             "uncond_embeds": batched["uncond_embeds"][i][rows],
+             "advantages": batched["advantages"][i][rows]}
+    for k in PER_T:
+        batch[k] = batched[k][i][rows, :num_train_ts].transpose(0, 1)
+    return batch
+
+
+def draw_permutations(total_b: int, num_timesteps: int, generator: torch.Generator,
+                      device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(perm, t_perms): a permutation of the rows and one of each row's
+    timesteps, from ``generator`` on ``device`` (JAX draws them from
+    ``jax.random``, which the port cannot reproduce: tests inject JAX's)."""
+    perm = torch.randperm(total_b, generator=generator, device=device)
+    keys = torch.rand((total_b, num_timesteps), generator=generator, device=device)
+    return perm, keys.argsort(dim=1)
+
+
+def inner_epoch_resident(
+    state: AccumulatingTrainState,
+    samples: Tensors,
+    scheduler_state: DDIMState,
+    scheduler: DDIMScheduler,
+    train_batch_size: int,
+    num_train_ts: int,
+    train_cfg: bool,
+    guidance_scale: float,
+    eta: float,
+    clip_range: float,
+    accumulation_steps: int = 1,
+    cfg_concat: bool = False,
+    perm: Optional[torch.Tensor] = None,
+    t_perms: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    dp: Tuple[int, int] = (1, 0),
+) -> Tuple[AccumulatingTrainState, Tensors]:
+    """One PPO inner epoch on the device (JAX's ``inner_epoch_resident``).
+
+    samples keys: latents/next_latents (B, T, 4, h, w), ts/log_probs (B, T),
+    advantages (B,), embeds (B, 77, D), uncond_embeds (B, 77, D): the whole
+    epoch's samples, gathered over dp. ``perm`` (B,) and ``t_perms`` (B, T)
+    are the row and per-row timestep permutations; unset, they are drawn
+    from ``generator`` (seeded alike on every rank, so every rank takes the
+    same global permutation). The rows are cut into minibatches of
+    ``train_batch_size`` (global: the per-rank size times dp) and each
+    minibatch trained by ``train_step_fused`` on its first ``num_train_ts``
+    shuffled timesteps; ``dp`` = (size, index): this rank trains its
+    index's contiguous rows of each minibatch, and the state's reduce
+    averages the gradients over dp. With ``accumulation_steps`` A > 1 the
+    minibatches go in groups of A: the first A - 1 accumulate, the last
+    updates. Returns (state, infos): each info (n_batches,), this rank's
+    rows'.
+    """
+    total_b, num_timesteps = samples["log_probs"].shape
+    n_batches = total_b // train_batch_size
+    assert n_batches * train_batch_size == total_b, (total_b, train_batch_size)
+    assert n_batches % accumulation_steps == 0, (
+        f"n_batches {n_batches} not divisible by accumulation_steps {accumulation_steps}")
+    size, index = dp
+    assert train_batch_size % size == 0, (train_batch_size, size)
+    if perm is None:
+        perm, t_perms = draw_permutations(total_b, num_timesteps, generator,
+                                          samples["log_probs"].device)
+    batched = rebatch(samples, perm, t_perms, train_batch_size)
+    local = train_batch_size // size
+    rows = slice(index * local, (index + 1) * local)
+    infos = []
+    for i in range(n_batches):
+        state, info = train_step_fused(
+            state, fused_minibatch(batched, i, num_train_ts, rows), scheduler_state,
+            scheduler, train_cfg, guidance_scale, eta, clip_range,
+            do_opt_update=(i + 1) % accumulation_steps == 0, cfg_concat=cfg_concat)
+        infos.append(info)
+    return state, {k: torch.stack([info[k] for info in infos]) for k in infos[0]}
+
+
+def inner_epoch_per_timestep(
+    state: AccumulatingTrainState,
+    samples: Tensors,
+    scheduler_state: DDIMState,
+    scheduler: DDIMScheduler,
+    train_batch_size: int,
+    num_train_ts: int,
+    train_cfg: bool,
+    guidance_scale: float,
+    eta: float,
+    clip_range: float,
+    perm: torch.Tensor,
+    t_perms: torch.Tensor,
+    accumulation_steps: int = 1,
+    cfg_concat: bool = False,
+) -> Tuple[AccumulatingTrainState, Tensors]:
+    """The non-fused inner epoch (``--fused_train_loop False``): the rows
+    and timesteps shuffled as ``inner_epoch_resident`` shuffles them, then
+    one ``train_step`` for each of a minibatch's first ``num_train_ts``
+    timesteps, accumulating in the state's buffer, the update on the last
+    timestep of every ``accumulation_steps``-th minibatch. Returns (state,
+    infos): each info (n_batches * num_train_ts,)."""
+    batched = rebatch(samples, perm, t_perms, train_batch_size)
+    infos = []
+    for i in range(perm.shape[0] // train_batch_size):
+        update = (i + 1) % accumulation_steps == 0
+        base = {"prompt_embeds": batched["embeds"][i],
+                "uncond_embeds": batched["uncond_embeds"][i],
+                "advantages": batched["advantages"][i]}
+        for j in range(num_train_ts):
+            batch = dict(base, **{k: batched[k][i][:, j] for k in PER_T})
+            state, info = train_step(state, batch, scheduler_state, scheduler, train_cfg,
+                                     guidance_scale, eta, clip_range,
+                                     do_opt_update=update and j == num_train_ts - 1,
+                                     cfg_concat=cfg_concat)
+            infos.append(info)
+    return state, {k: torch.stack([info[k] for info in infos]) for k in infos[0]}

@@ -139,10 +139,11 @@ class Parser:
         """base_seed is the same on every rank (model init: replicas start
         equal); seed = base_seed + dp_index (prompts, shuffles, sampler
         noise: each dp group draws its own), as ddpo_tpu/utils/parser.py:
-        140-150 with one rank a device. dp_index is rank // mesh_sp (the
-        ranks of an sp group are consecutive, parallel/mesh.py), so the sp
-        ranks of a group draw the same prompts and noise. An unset --seed
-        is drawn on rank 0 and broadcast."""
+        140-150 with one rank a device. dp_index is rank // (mesh_sp *
+        mesh_tp) (the ranks of one dp index are consecutive,
+        parallel/mesh.py), so the sp and tp ranks of a dp index draw the
+        same prompts and noise. An unset --seed is drawn on rank 0 and
+        broadcast."""
         seed = getattr(args, "seed", None)
         if seed is None:
             seed = int(np.random.randint(0, int(1e6)))
@@ -151,7 +152,8 @@ class Parser:
                 torch.distributed.broadcast_object_list(box, src=0)
                 seed = box[0]
         args.set("base_seed", seed)
-        seed = seed + process_index() // getattr(args, "mesh_sp", 1)
+        seed = seed + process_index() // (getattr(args, "mesh_sp", 1)
+                                          * getattr(args, "mesh_tp", 1))
         args.set("seed", seed)
         random.seed(seed)
         np.random.seed(seed)

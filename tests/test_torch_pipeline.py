@@ -149,22 +149,27 @@ def test_sigterm_checkpoints_and_exits(workdir, monkeypatch):
 
 
 def test_unported_options_raise(workdir, monkeypatch):
-    """What is still not ported refuses by name: the resident inner loop,
-    the tp mesh (alone and with sp), and generate under more than one
-    process. sp runs, but one process cannot hold a mesh of two (JAX's
-    mesh ValueError), and --grad_reduce_dtype under sp is refused, as JAX
-    asserts."""
+    """Every option of JAX's driver runs but vqa (callbacks.py) and
+    generate under more than one process. JAX's three tp refusals hold, with
+    its messages: tp with sp, LoRA with tp, --grad_reduce_dtype with tp (or
+    sp). One process cannot hold a mesh of two (JAX's mesh ValueError), and
+    --resident_inner_loop runs."""
     from ddpo_torch.pipelines import generate, policy_gradient
 
-    for flags in (["--resident_inner_loop", "True"], ["--mesh_tp", "2"],
-                  ["--mesh_tp", "2", "--mesh_sp", "2"]):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            policy_gradient.main(COMMON + ["--num_train_epochs", "1"] + flags)
-    with pytest.raises(ValueError, match=r"mesh 0x2x1 != 1 devices"):
-        policy_gradient.main(COMMON + ["--num_train_epochs", "1", "--mesh_sp", "2"])
-    with pytest.raises(AssertionError, match="supports pure-dp meshes"):
-        policy_gradient.main(COMMON + ["--num_train_epochs", "1", "--mesh_sp", "2",
-                                       "--grad_reduce_dtype", "bfloat16"])
+    one = COMMON + ["--num_train_epochs", "1"]
+    for flags, message in (
+        (["--mesh_tp", "2", "--mesh_sp", "2"], "mesh_sp and mesh_tp cannot be combined"),
+        (["--mesh_tp", "2", "--lora_rank", "2"], "lora_rank requires tp=1"),
+        (["--mesh_tp", "2", "--grad_reduce_dtype", "bfloat16"], "supports pure-dp meshes"),
+        (["--mesh_sp", "2", "--grad_reduce_dtype", "bfloat16"], "supports pure-dp meshes"),
+    ):
+        with pytest.raises(AssertionError, match=message):
+            policy_gradient.main(one + flags)
+    for flags, shape in ((["--mesh_sp", "2"], "0x2x1"), (["--mesh_tp", "2"], "0x1x2")):
+        with pytest.raises(ValueError, match=f"mesh {shape} != 1 devices"):
+            policy_gradient.main(one + flags)
+    rewards = policy_gradient.main(one + ["--resident_inner_loop", "True"])
+    assert len(rewards) == 1
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="WORLD_SIZE > 1"):
         generate.main(["--dataset", "debug-animals", "--device", "cpu"])
