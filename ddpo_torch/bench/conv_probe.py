@@ -35,7 +35,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from ddpo_torch.ops.conv import conv3x3_direct, tap_gemm, tap_weight_kn
+from ddpo_torch.ops.conv import conv3x3_direct, tap_gemm, tap_operand_kn
 
 B, H, W, CIN, COUT = 16, 64, 64, 320, 320
 ITERS = 10
@@ -87,7 +87,7 @@ def _probe(reference, tap_map, counter):
             return reference(x, w)
         if w.shape[-1] * x.shape[1] * 9 != w.numel():
             raise ValueError(f"weight {tuple(w.shape)} does not fit x {tuple(x.shape)}")
-        return tap_gemm(x, tap_weight_kn(w), w.shape[-1], tap_map, counter)
+        return tap_gemm(x, tap_operand_kn(w), w.shape[-1], tap_map, counter)
 
     probe.__doc__ = (f"{counter}: x (B, Cin, H, W) -> (B, Cout, H, W) in x's dtype; the "
                      f"kernel on a CUDA tensor, {reference.__name__} on a CPU tensor.")

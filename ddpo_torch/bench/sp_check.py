@@ -1,11 +1,12 @@
-"""The sp or tp mesh axis against the unsharded UNet, one forward and one update.
+"""The sp and tp mesh axes against the unsharded UNet, one forward and one update.
 
-Run as the ranks of one sp group (dp = 1), or with ``--mode tp`` of one tp
-group, e.g. two ranks on one card:
+Run as the ranks of one sp group (dp = 1), which are then the ranks of one
+tp group: one launch for the three modes below, against one set of
+unsharded references, e.g. two ranks on one card:
 
-    torchrun --nproc_per_node 2 -m ddpo_torch.bench.sp_check [--mode tp]
+    torchrun --nproc_per_node 2 -m ddpo_torch.bench.sp_check
     python -m torch.distributed.run --nproc_per_node 2 -m ddpo_torch.bench.sp_check \\
-        --device cpu --preset tiny --resolution 64 [--mode tp]
+        --device cpu --preset tiny --resolution 64
 
 Every rank builds the same UNet from a seed (SD-1.4 width by default) and
 the same inputs, then, at the sampler's setting (no grad, inside
@@ -18,7 +19,7 @@ the same inputs, then, at the sampler's setting (no grad, inside
             2B = 2), reduced as the driver reduces them, against the
             unsharded gradients;
   attention (``--sp_mode attention``, parallel/sequence.py): the same two;
-  tp        (``--mode tp``, ``--mesh_tp``: parallel/sharding.py and
+  tp        (``--mesh_tp``: parallel/sharding.py and
             parallel/tensor.py): the same two, with each rank's slices of
             the gradients gathered (``gather_state_dict``) before the
             comparison. The row-parallel partials (bf16 in the bf16 run)
@@ -89,7 +90,7 @@ MAX_RATIO = 1.5  # (b): the sharded bf16 run's error maximum over the unsharded 
 RMS_RATIO = 1.1  # (b): the same for the errors' RMS
 OLD_BOUND = 2.0 ** -6  # printed beside the bf16-to-bf16 maximum, which is no gate
 BATCH = 2  # samples: the sampler's UNet call sees 2B = 4, the rollout's of phase 14a
-ITERS = 5  # timed forwards
+ITERS = 3  # timed forwards
 
 
 def _sync(device):
@@ -154,15 +155,14 @@ def main(argv=None) -> dict:
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--preset", default="sd14")
     parser.add_argument("--resolution", type=int, default=512)
-    parser.add_argument("--mode", default="sp", choices=("sp", "tp"))
     args = parser.parse_args(argv)
     maybe_initialize_distributed()
     device = resolve_device(args.device)
-    tp = args.mode == "tp"
-    # one sp group, or one tp group
-    mesh = create_mesh(MeshConfig(sp=1 if tp else process_count(),
-                                  tp=process_count() if tp else 1), device)
-    rank = mesh.tp_index if tp else mesh.sp_index
+    # the same ranks as one sp group, then as one tp group
+    n = process_count()
+    sp_mesh = create_mesh(MeshConfig(sp=n, tp=1), device)
+    tp_mesh = create_mesh(MeshConfig(sp=1, tp=n), device)
+    rank = sp_mesh.sp_index
     _, _, unet = build_models(args.preset, device)
     init_weights_(unet, torch.Generator(device=device).manual_seed(0))
     sample_unet = copy.deepcopy(unet).to(torch.bfloat16).requires_grad_(False)
@@ -177,7 +177,7 @@ def main(argv=None) -> dict:
     ctx = torch.randn((2 * BATCH, 77, ctx_dim), generator=gen, device=device)
     xt, tt, ct = x[:2], torch.tensor([500, 500], device=device), ctx[:2]
 
-    def update(apply, spatial: bool, params=params, layout=None):
+    def update(apply, spatial: bool, mesh, params=params, layout=None):
         """One update's gradients at 2B = 2, reduced as the driver does
         (under tp, each rank's slices gathered into the whole)."""
         loss = apply(params, xt, tt, ct).square().mean()
@@ -194,18 +194,21 @@ def main(argv=None) -> dict:
             eps_ref = sample_unet(x, t, ctx)
             eps32_ref = unet(x, t, ctx)
         plain_ms = _median_ms(lambda: sample_unet(x, t, ctx), device, ITERS)
-        grads_ref = update(make_train_apply(unet, torch.bfloat16, remat=True), False)
-        grads32_ref = update(make_train_apply(unet, torch.float32, remat=True), False)
+        grads_ref = update(make_train_apply(unet, torch.bfloat16, remat=True), False, sp_mesh)
+        grads32_ref = update(make_train_apply(unet, torch.float32, remat=True), False, sp_mesh)
     # the unsharded bf16 run's error against the fp32 reference: (b)'s yardstick
     unsharded = {"eps": error_stats(eps_ref, eps32_ref), "grads": error_stats(grads_ref, grads32_ref)}
 
-    report = {"rank": rank, "sp": mesh.sp, "tp": mesh.tp, "batch_2B": 2 * BATCH,
+    report = {"rank": rank, "sp": sp_mesh.sp, "batch_2B": 2 * BATCH,
               "unsharded_forward_ms": plain_ms, "bf16_unsharded": unsharded,
               "bounds": {"fp32": FP32_BOUND, "max_ratio": MAX_RATIO, "rms_ratio": RMS_RATIO,
                          "old_bf16": OLD_BOUND}}
     ok = True
-    for mode in ("tp",) if tp else ("spatial", "attention"):
+    for mode in ("spatial", "attention", "tp"):
         update_params, layout = params, None
+        mesh = tp_mesh if mode == "tp" else sp_mesh
+        if device.type == "cuda":
+            torch.cuda.empty_cache()  # the last mode's blocks, before tp's copies
         if mode == "tp":
             axis = mesh.axis("tp")
             layout = TensorParallel(axis, param_specs(params))
@@ -237,7 +240,7 @@ def main(argv=None) -> dict:
             fwd_comm = comm_counts()
             ms = _median_ms(lambda: apply(x, t, ctx), device, ITERS)
             reset_comm()
-            grads = update(train_apply, mode == "spatial", update_params, layout)
+            grads = update(train_apply, mode == "spatial", mesh, update_params, layout)
             upd_comm = comm_counts()
             table = None
             if mode == "spatial":
@@ -246,7 +249,7 @@ def main(argv=None) -> dict:
                     table = module_table(sample_unet, shard_rows(x, mesh.axis(), 2), t, ctx, rows)
             with torch.no_grad():
                 eps32 = apply32(x, t, ctx)
-            grads32 = update(train_apply32, mode == "spatial", update_params, layout)
+            grads32 = update(train_apply32, mode == "spatial", mesh, update_params, layout)
         set_attention_sharding(None)
         fp32 = {"eps": error_stats(eps32, eps32_ref), "grads": error_stats(grads32, grads32_ref)}
         sharded = {"eps": error_stats(eps, eps32_ref), "grads": error_stats(grads, grads32_ref)}

@@ -1,8 +1,8 @@
 """Times the tap-GEMM kernels on the card: the direct conv
-(ops.conv.conv3x3_direct, its weight layout included; bf16 on the wgmma
-kernel, fp32 on the FMA one) and the W8A8 s8 conv (ops.quant.tap_gemm_s8)
-alone and with the quantize work each call needs before it, beside
-F.conv2d (cuDNN).
+(ops.conv.conv3x3_direct, its weight operand made once per weight; bf16 on
+the wgmma kernel, fp32 on its 3xTF32 one) and the W8A8 s8 conv
+(ops.quant.tap_gemm_s8) alone and with the quantize work each call needs
+before it, beside F.conv2d (cuDNN).
 
 It times whatever ``ddpo_torch`` is first on the path, so the same file
 times another checkout's kernels, e.g. the parent commit's unpacked with
@@ -27,7 +27,10 @@ import torch
 import torch.nn.functional as F
 
 BF16_SHAPES = [(8, 320, 64, 64, 320), (8, 2560, 8, 8, 1280), (4, 128, 512, 512, 128)]
-FP32_SHAPES = [(8, 320, 64, 64, 320)]
+# the UNet's fp32 conv widths (the DDPO pipeline's fp32 path runs every
+# stride-1 3x3 conv here inside batch_invariant())
+FP32_SHAPES = [(8, 320, 64, 64, 320), (8, 640, 32, 32, 640), (8, 1280, 16, 16, 1280),
+               (8, 2560, 8, 8, 1280)]
 S8_SHAPES = [(8, 320, 64, 64, 320), (8, 640, 32, 32, 640), (8, 1920, 16, 16, 1280),
              (8, 2560, 8, 8, 1280)]
 

@@ -29,14 +29,24 @@
 // a batch. It is not JAX's (dy, dx, cin) order, which only moves the fp32
 // rounding.
 //
-// fp32 (tap_gemm_kernel) stays on the CUDA cores in FMA: TF32 tensor cores
-// keep 10 mantissa bits and would break the 1e-4 bounds against the fp32
-// plain version. A block computes a 128-pixel x 64-channel tile of one
-// image with 256 threads, each owning 8 pixels x 4 channels; K streams
-// through two shared buffers in stages of 16, gathered per tap straight
-// from NCHW x with masks (no padded copies in device memory). Ragged pixel
-// counts, Cin (K = 36 at the UNet's conv_in) and Cout (4 at its conv_out)
-// are masked in the kernel on both paths.
+// fp32 (tap_gemm_tf32_kernel): the same tap-GEMM on the tensor cores as
+// 3xTF32 products (wgmma.cuh): x and each weight value split into two tf32
+// values, three wgmma.m64nNk8 products into fp32 sums, the two small ones
+// first. A staged row holds 32 fp32 channels, so a chunk is 32 channels and
+// four k8 steps a tap; ldmatrix gives the tf32 A fragments at the bf16
+// addresses, and the consumers split them in registers. The weight comes
+// split once per weight version (tf32_split_kernel: its hi rows, then its lo
+// rows), a ring stage holding the hi and the lo tile of a (chunk, tap). The
+// tensor cores round their sums toward zero, so each tap's 12 products are
+// a fresh sum, added into the running ones in registers with Kahan's
+// compensation; the three sets of sums take N / 2 registers each, so N is
+// at most 64 (tap_tiles.cuh pick_n_tf32). The summation order is fixed as
+// in bf16: (chunk, tap, k step, the three products). Bound: the
+// 3xTF32 products, 3 * 2*B*H*W*9*Cin*Cout over 494.7 TFLOP/s: 0.366 ms at
+// (8, 320, 64, 64) -> 320 (0.902 ms for the plain flops at the 67 TFLOP/s
+// of the CUDA cores). Ragged pixel counts, Cin (K = 36 at the UNet's
+// conv_in) and Cout (4 at its conv_out) are masked in the kernel on both
+// paths.
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -44,170 +54,10 @@
 
 namespace {
 
-constexpr int BM = 128;  // output pixels per block
-constexpr int BN = 64;   // output channels per block
-constexpr int BK = 16;   // K values (tap, cin) per stage
-constexpr int NT = 256;  // threads: 16 (pixels) x 16 (channels)
 constexpr int kTaps = 9;
 
 // Cin and Cout of the laid-out weight: multiples of 8 (16-byte rows for TMA)
 __host__ __device__ constexpr int padded(int n) { return (n + 7) / 8 * 8; }
-
-template <int MAP>
-__device__ __forceinline__ void tap_offset(int tap, int& oy, int& ox) {
-  if constexpr (MAP == 2) {
-    oy = 0;
-    ox = 0;
-  } else {
-    oy = tap >= 6 ? 1 : (tap >= 3 ? 0 : -1);
-    ox = MAP == 0 ? tap - 3 * (oy + 1) - 1 : 0;
-  }
-}
-
-__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-
-// advance (tap, ci) by `step` values of K = (tap, cin)
-__device__ __forceinline__ void advance(int& tap, int& ci, int step, int Cin) {
-  ci += step;
-  while (ci >= Cin) {
-    ci -= Cin;
-    ++tap;
-  }
-}
-
-template <typename T, int MAP>
-__global__ void __launch_bounds__(NT) tap_gemm_kernel(
-    const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out, int Cin,
-    int H, int W, int Cout) {
-  __shared__ __align__(16) float As[2][BK][BM];
-  const int cin_p = padded(Cin);
-  __shared__ __align__(16) float Bs[2][BK][BN + 4];  // + 4: the K-major loads' stores spread
-
-  const int tid = threadIdx.x;
-  const int HW = H * W;
-  const int K = kTaps * Cin;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int64_t img = blockIdx.z;
-  const T* xb = x + img * int64_t(Cin) * HW;
-  T* ob = out + img * int64_t(Cout) * HW;
-
-  // A loader: pixel m0 + a_m, K rows a_k + 2 j of each stage (j < 8)
-  const int a_m = tid % BM;
-  const int a_k = tid / BM;
-  const int pix = m0 + a_m;
-  const bool pix_ok = pix < HW;
-  const int ph = pix_ok ? pix / W : 0;
-  const int pw = pix_ok ? pix - ph * W : 0;
-  // B loader: K row b_k of each stage, channels n0 + b_n + 16 j (j < 4);
-  // 16 neighbouring threads read 16 neighbouring K values of one channel
-  const int b_k = tid % BK;
-  const int b_n = tid / BK;
-
-  float a_reg[8], b_reg[4];
-  // (tap, ci) of the K row a_k of the next stage to load
-  int tap = 0, ci = 0;
-  advance(tap, ci, a_k, Cin);
-
-  auto load = [&](int k0) {
-    int t = tap, c = ci;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float v = 0.f;
-      if (pix_ok && t < kTaps) {
-        int oy, ox;
-        tap_offset<MAP>(t, oy, ox);
-        const int hh = ph + oy, ww = pw + ox;
-        if (hh >= 0 && hh < H && ww >= 0 && ww < W) v = ddpo::to_float(xb[c * HW + hh * W + ww]);
-      }
-      a_reg[j] = v;
-      advance(t, c, 2, Cin);
-    }
-    const int k = k0 + b_k, kt = k / Cin;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + b_n + 16 * j;
-      b_reg[j] = (n < Cout && k < K)
-                     ? ddpo::to_float(w[(int64_t(n) * kTaps + kt) * cin_p + (k - kt * Cin)])
-                     : 0.f;
-    }
-    advance(tap, ci, BK, Cin);
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) As[buf][a_k + 2 * j][a_m] = a_reg[j];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) Bs[buf][b_k][b_n + 16 * j] = b_reg[j];
-  };
-
-  // compute: pixels tx*4 .. +3 and 64 + tx*4 .. +3, channels ty*4 .. +3
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  const int nk = (K + BK - 1) / BK;
-  load(0);
-  store(0);
-  __syncthreads();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int buf = kt & 1;
-    const bool more = kt + 1 < nk;
-    if (more) load((kt + 1) * BK);
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][k][tx * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[buf][k][64 + tx * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[buf][k][ty * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bb[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
-    }
-    // the other buffer was last read before the barrier that ended stage kt-1
-    if (more) store(buf ^ 1);
-    __syncthreads();
-  }
-
-  // epilogue: 4 consecutive pixels of one channel per store where they are
-  // all inside the map and H*W keeps them aligned; single stores elsewhere
-  const bool vec = HW % 4 == 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int co = n0 + ty * 4 + j;
-    if (co >= Cout) continue;
-    T* orow = ob + int64_t(co) * HW;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int p = m0 + half * 64 + tx * 4;
-      const float* r = &acc[half * 4][0];
-      if (vec && p + 3 < HW) {
-        store4(orow + p, r[0 * 4 + j], r[1 * 4 + j], r[2 * 4 + j], r[3 * 4 + j]);
-      } else {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (p + i < HW) orow[p + i] = ddpo::from_float<T>(r[i * 4 + j]);
-      }
-    }
-  }
-}
-
-template <typename T, int MAP>
-cudaError_t launch(const void* x, const void* w, void* out, int B, int Cin, int H, int W,
-                   int Cout, cudaStream_t stream) {
-  const dim3 grid((H * W + BM - 1) / BM, (Cout + BN - 1) / BN, B);
-  tap_gemm_kernel<T, MAP><<<grid, NT, 0, stream>>>(static_cast<const T*>(x),
-                                                   static_cast<const T*>(w),
-                                                   static_cast<T*>(out), Cin, H, W, Cout);
-  return cudaGetLastError();
-}
 
 // ---- bf16 on the tensor cores: the Hopper tap-GEMM of tap_tiles.cuh ----
 
@@ -238,19 +88,41 @@ cudaError_t launch_wgmma(int map, const void* x, const void* w, void* out, int B
   }
 }
 
-template <typename T>
-cudaError_t dispatch_map(int map, const void* x, const void* w, void* out, int B, int Cin,
-                         int H, int W, int Cout, cudaStream_t stream) {
-  switch (map) {
-    case 0:
-      return launch<T, 0>(x, w, out, B, Cin, H, W, Cout, stream);
-    case 1:
-      return launch<T, 1>(x, w, out, B, Cin, H, W, Cout, stream);
-    case 2:
-      return launch<T, 2>(x, w, out, B, Cin, H, W, Cout, stream);
-    default:
-      return cudaErrorInvalidValue;
+// ---- fp32 on the tensor cores: 3xTF32 ----
+
+template <int N>
+__global__ void __launch_bounds__(3 * ddpo::tap::WG, 1)
+    tap_gemm_tf32_kernel(const __grid_constant__ CUtensorMap wmap, const ddpo::tap::Args a) {
+  ddpo::tap::tap_gemm_block<false, N, true, true>(&wmap, a);
+}
+
+template <int N>
+cudaError_t launch_tf32_n(const ddpo::tap::Args& a, const void* w, cudaStream_t stream) {
+  return ddpo::tap::launch_n<N>(tap_gemm_tf32_kernel<N>, a, w, 4, 2 * padded(a.Cout),
+                                padded(a.Cin), stream, true);
+}
+
+// w: the split weight, (2 padded(Cout), 9, padded(Cin)) fp32, hi rows then lo
+cudaError_t launch_tf32(int map, const void* x, const void* w, void* out, int B, int Cin, int H,
+                        int W, int Cout, cudaStream_t stream) {
+  if (int64_t(B) * (H + 2) * (W + 2) >= (int64_t(1) << 31)) return cudaErrorInvalidValue;
+  ddpo::tap::Args a{};
+  a.x = x, a.out = out, a.B = B, a.Cin = Cin, a.H = H, a.W = W, a.Cout = Cout, a.map = map;
+  a.wlo = padded(Cout);
+  a.vec = W % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  switch (ddpo::tap::pick_n_tf32(Cout)) {
+    case 64: return launch_tf32_n<64>(a, w, stream);
+    case 32: return launch_tf32_n<32>(a, w, stream);
+    default: return launch_tf32_n<8>(a, w, stream);
   }
+}
+
+// out[i] = tf32(w[i]) and out[n + i] = tf32(w[i] - out[i]): the split of an
+// fp32 weight into its hi and lo halves (wgmma.cuh tf32_split)
+__global__ void __launch_bounds__(256) tf32_split_kernel(const float* __restrict__ w,
+                                                         uint32_t* __restrict__ out, int64_t n) {
+  const int64_t i = int64_t(blockIdx.x) * 256 + threadIdx.x;
+  if (i < n) ddpo::tf32_split(w[i], out[i], out[n + i]);
 }
 
 // (co, tap, ci) of a weight at element strides (s_co, s_tap, s_ci) ->
@@ -277,20 +149,21 @@ __global__ void __launch_bounds__(256) tap_weight_kernel(const T* __restrict__ w
 
 // x: contiguous NCHW (B, Cin, H, W); w: contiguous (padded(Cout), 9,
 // padded(Cin)), output-major with K in (tap, cin) order and zeros in the
-// pads (ddpo_conv_tap_weight lays it out); out: contiguous (B, Cout, H, W),
-// all in the dtype given. map: 0 shifted 3x3 (SAME zero padding), 1 row
-// shift only, 2 no shift. Returns cudaGetLastError() (0 on success).
+// pads (ddpo_conv_tap_weight lays it out), and at fp32 its split, twice as
+// many rows: the hi rows, then the lo rows (ddpo_tf32_split); out:
+// contiguous (B, Cout, H, W), all in the dtype given. map: 0 shifted 3x3
+// (SAME zero padding), 1 row shift only, 2 no shift. Returns
+// cudaGetLastError() (0 on success).
 extern "C" int ddpo_tap_gemm(const void* x, const void* w, void* out, int dtype, int map,
                              int B, int Cin, int H, int W, int Cout, void* stream) {
   const int64_t hw = int64_t(H) * W;
   if (B < 1 || B > 65535 || Cin < 1 || H < 1 || W < 1 || Cout < 1 || map < 0 || map > 2 ||
-      (Cout + BN - 1) / BN > 65535 || int64_t(Cin) * hw > 0x7fffffff ||
-      int64_t(Cout) * hw > 0x7fffffff ||
-      int64_t(kTaps) * padded(Cin) * padded(Cout) > 0x7fffffff)
+      int64_t(Cin) * hw > 0x7fffffff || int64_t(Cout) * hw > 0x7fffffff ||
+      int64_t(2 * kTaps) * padded(Cin) * padded(Cout) > 0x7fffffff)
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == ddpo::kFloat32)
-    return int(dispatch_map<float>(map, x, w, out, B, Cin, H, W, Cout, s));
+    return int(launch_tf32(map, x, w, out, B, Cin, H, W, Cout, s));
   if (dtype == ddpo::kBFloat16)
     return int(launch_wgmma(map, x, w, out, B, Cin, H, W, Cout, s));
   return int(cudaErrorInvalidValue);
@@ -317,5 +190,14 @@ extern "C" int ddpo_conv_tap_weight(const void* w, void* out, int dtype, int Cou
                                                        s_co, s_tap, s_ci);
   else
     return int(cudaErrorInvalidValue);
+  return int(cudaGetLastError());
+}
+
+// w: n fp32 values; out: 2 n, the tf32 hi of each value, then its lo (what
+// ddpo_tap_gemm reads at fp32). Returns cudaGetLastError().
+extern "C" int ddpo_tf32_split(const void* w, void* out, int64_t n, void* stream) {
+  if (n < 1) return int(cudaErrorInvalidValue);
+  tf32_split_kernel<<<unsigned((n + 255) / 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(w), static_cast<uint32_t*>(out), n);
   return int(cudaGetLastError());
 }

@@ -1106,13 +1106,14 @@ extern "C" int ddpo_flash_bwd_dq(const void* q, const void* k, const void* v,
   return run<true>(a, dtype, stream);
 }
 
-// 1 where the bf16 flash kernels' producers (the forward's, dQ's and
-// dK/dV's) load the (B, S, H, D) array at base with these element strides
-// by TMA, 0 where they stage it by plain loads
+// 1 where the flash kernels' producers (the bf16 forward's, dQ's and
+// dK/dV's; elem_bytes 4: the fp32 forward's Q and K) load the (B, S, H, D)
+// array at base with these element strides by TMA, 0 where they stage it
+// by plain loads
 extern "C" int ddpo_flash_tma_ok(const void* base, int B, int S, int H, int D, int64_t sb,
-                                 int64_t ss, int64_t sh) {
+                                 int64_t ss, int64_t sh, int elem_bytes) {
   CUtensorMap map;
-  return ddpo::bshd_tensor_map(&map, base, B, S, H, D, sb, ss, sh, 64) == cudaSuccess;
+  return ddpo::bshd_tensor_map(&map, base, B, S, H, D, sb, ss, sh, 64, elem_bytes) == cudaSuccess;
 }
 
 #else  // the dK/dV half

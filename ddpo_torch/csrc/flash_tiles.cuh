@@ -144,11 +144,12 @@ struct Turns {
 };
 
 // the host's choice of producer path: TMA for every array, or none
+// (elem_bytes 4: fp32 arrays, 32 values a 128-byte row)
 inline bool tensor_maps(CUtensorMap* maps, const void* const* base, const int64_t* strides, int n,
-                        int B, const int* S, int H, int D, const int* rows) {
+                        int B, const int* S, int H, int D, const int* rows, int elem_bytes = 2) {
   for (int i = 0; i < n; ++i)
     if (bshd_tensor_map(&maps[i], base[i], B, S[i], H, D, strides[3 * i], strides[3 * i + 1],
-                        strides[3 * i + 2], rows[i]) != cudaSuccess)
+                        strides[3 * i + 2], rows[i], elem_bytes) != cudaSuccess)
       return false;
   return true;
 }

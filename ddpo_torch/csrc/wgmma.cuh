@@ -3,7 +3,8 @@
 // memory (SS) and B in shared memory, the mbarriers that pace their operand
 // pipelines, TMA loads, and the host side's tensor maps.
 //
-// wgmma.m64nNk16 (bf16, fp32 sums) and m64nNk32 (s8, s32 sums): the
+// wgmma.m64nNk16 (bf16, fp32 sums), m64nNk8 (tf32, fp32 sums: the fp32
+// kernels' 3xTF32 products, below) and m64nNk32 (s8, s32 sums): the
 // warpgroup's four warps each own 16 of the 64 rows. A warp's A fragment is
 // mma.sync's (m16n8k16 bf16 or m16n8k32 s8, see mma.cuh), so one ldmatrix.x4
 // of 16 rows x 32 bytes gives it, and so does a bf16 C fragment of the same
@@ -145,6 +146,17 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
                                             uint32_t bytes, int c0, int c1, int c2) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// the 3-d tile at coordinates (c0, c1, c2) of the tensor map into shared
+// address dst, completing on bar (whose phase expects its bytes)
+__device__ __forceinline__ void tma_copy_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
   asm volatile(
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
@@ -406,6 +418,154 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[R], uint64_t adesc, uint64_t
 #undef DDPO_R32
 #undef DDPO_R64
 
+// ---- tf32 (the fp32 kernels' 3xTF32 products) ----
+//
+// wgmma.m64nNk8 with .tf32 operands and fp32 sums: a k step is 8 values of
+// 32 bits, 32 bytes, as a bf16 k16 step is, so the K-major descriptors and
+// their k-step offsets above serve unchanged. tf32 takes no transpose
+// immediates: both shared-memory operands are K-major. The A fragment of a
+// warp's 16 rows x 8 columns (registers a0..a3 of lane l, g = l / 4,
+// t = l % 4): (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4), which is what
+// ldmatrix.x4 gives from 16 rows x 32 bytes at the bf16 A fragment's
+// addresses. The accumulator's layout is the bf16 one.
+//
+// The split: x = hi + lo with hi = tf32(x) and lo = tf32(x - hi) (round to
+// nearest, ties away; x - hi is exact in fp32), about 22 of fp32's 24
+// bits; a * b ~ lo_a hi_b + hi_a lo_b + hi_a hi_b, three tf32 products
+// into the same fp32 sums, the two small ones first. Every operand handed
+// to a tf32 wgmma is such a rounded value (its low 13 bits 0), so nothing
+// rests on what the tensor cores do with the low bits of an fp32 word.
+
+// x rounded to tf32, as the bits of an fp32 word whose low 13 bits are 0
+__device__ __forceinline__ uint32_t tf32_round(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_round(x);
+  lo = tf32_round(x - __uint_as_float(hi));
+}
+
+// wgmma_tf32_rs<N>: d[0 .. N/2) = (accumulate ? d : 0) + a * b, A (tf32
+// fragments) from registers, B K-major at the descriptor; wgmma_tf32_ss<N>
+// the same with both operands K-major at their descriptors.
+//
+// The tensor cores round each k step's sum into the fp32 accumulators
+// toward zero, not to nearest, so a long chain of steps in one accumulator
+// drifts: on an H100 a 4096-key P V summed in place was off by 1.3e-5
+// where the fp32 plain version is off by 1e-6. The kernels keep the chains short, a fresh
+// accumulator for a few k steps (a tap, a key tile, 32 columns of D), and
+// add the pieces into fp32 registers, rounded to nearest.
+template <int N, int R>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[R], const uint32_t (&a)[4],
+                                              uint64_t desc, int accumulate = 1) {
+  static_assert(R >= N / 2, "accumulator array too short");
+  if constexpr (N == 8) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+                 "%0, %1, %2, %3"
+                 "}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  } else if constexpr (N == 16) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7"
+                 "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  } else if constexpr (N == 24) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11"
+                 "}, {%12, %13, %14, %15}, %16, p, 1, 1;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+                   "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  } else if constexpr (N == 32) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+                 "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+                   "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  } else if constexpr (N == 40) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n40k8.f32.tf32.tf32 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19"
+                 "}, {%20, %21, %22, %23}, %24, p, 1, 1;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+                   "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+                   "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  } else if constexpr (N == 48) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+                 "%20, %21, %22, %23"
+                 "}, {%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+                   "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+                   "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  } else if constexpr (N == 56) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %33, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n56k8.f32.tf32.tf32 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+                 "%20, %21, %22, %23, %24, %25, %26, %27"
+                 "}, {%28, %29, %30, %31}, %32, p, 1, 1;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+                   "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+                   "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+                   "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  } else if constexpr (N == 64) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+                 "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+                 "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+                   "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+                   "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+                   "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  } else {
+    static_assert(N == 8, "wgmma_tf32_rs: N is 8 .. 64 in steps of 8");
+  }
+}
+
+template <int N, int R>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[R], uint64_t adesc, uint64_t bdesc,
+                                              int accumulate) {
+  static_assert(R >= N / 2, "accumulator array too short");
+  if constexpr (N == 32) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+                 "}, %16, %17, p, 1, 1;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+                   "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+                 : "l"(adesc), "l"(bdesc), "r"(accumulate));
+  } else if constexpr (N == 64) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+                 "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+                 "}, %32, %33, p, 1, 1;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+                   "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+                   "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+                   "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+                 : "l"(adesc), "l"(bdesc), "r"(accumulate));
+  } else {
+    static_assert(N == 32, "wgmma_tf32_ss: N is 32 or 64");
+  }
+}
+
+
 // ---- host: tensor maps ----
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -445,30 +605,36 @@ inline cudaError_t weight_tensor_map(CUtensorMap* map, const void* w, int elem_b
   const cuuint64_t strides[2] = {cuuint64_t(kpad) * elem_bytes, cuuint64_t(9) * kpad * elem_bytes};
   const cuuint32_t box[3] = {cuuint32_t(128 / elem_bytes), 1, cuuint32_t(box_n)};
   const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = fn(map, elem_bytes == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
-                                             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+  const CUresult r = fn(map, elem_bytes == 1   ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                            : elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                              : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                         3, const_cast<void*>(w), dims, strides, box, unit,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The tensor map of a bf16 (B, S, H, D) array read through its (b, s, h)
-// element strides (unit d stride): tiles of 64 d values (one 128-byte
-// swizzled row) by `rows` positions of one (b, h). Reads past D or S fill
-// zeros. Fails (so the caller stages by hand) where TMA cannot take the
-// array: a base off 16 bytes, a stride that is not a multiple of 16 bytes.
+// The tensor map of a bf16 (or, elem_bytes 4, fp32) (B, S, H, D) array read
+// through its (b, s, h) element strides (unit d stride): tiles of one
+// 128-byte swizzled row (64 bf16 or 32 fp32 d values) by `rows` positions
+// of one (b, h). Reads past D or S fill zeros. Fails (so the caller stages
+// by hand) where TMA cannot take the array: a base off 16 bytes, a stride
+// that is not a multiple of 16 bytes.
 inline cudaError_t bshd_tensor_map(CUtensorMap* map, const void* base, int B, int S, int H, int D,
-                                   int64_t sb, int64_t ss, int64_t sh, int rows) {
+                                   int64_t sb, int64_t ss, int64_t sh, int rows,
+                                   int elem_bytes = 2) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0) return cudaErrorNotSupported;
   for (int64_t st : {sb, ss, sh})
-    if (st <= 0 || st % 8 != 0) return cudaErrorNotSupported;
+    if (st <= 0 || st * elem_bytes % 16 != 0) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(H), cuuint64_t(S), cuuint64_t(B)};
-  const cuuint64_t strides[3] = {cuuint64_t(sh) * 2, cuuint64_t(ss) * 2, cuuint64_t(sb) * 2};
-  const cuuint32_t box[4] = {64, 1, cuuint32_t(rows), 1};
+  const cuuint64_t strides[3] = {cuuint64_t(sh) * elem_bytes, cuuint64_t(ss) * elem_bytes,
+                                 cuuint64_t(sb) * elem_bytes};
+  const cuuint32_t box[4] = {cuuint32_t(128 / elem_bytes), 1, cuuint32_t(rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+  const CUresult r = fn(map, elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                        4, const_cast<void*>(base), dims,
                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -40,6 +40,9 @@ launches: Dict[str, int] = {
     "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "gn_stats": 0, "gn_silu": 0,
     "conv3x3": 0, "conv_probe_p1": 0, "conv_probe_p2": 0, "conv_probe_p6": 0,
     "conv_probe_p7": 0, "conv3x3_s8": 0,
+    # the tap-GEMM's weight operand, once per weight version (ops/conv.py):
+    # the layout kernel, and at fp32 the tf32 split kernel after it
+    "tap_layout": 0, "tf32_split": 0,
 }
 
 
@@ -72,8 +75,8 @@ class KernelLibrary:
         lib.ddpo_flash_bwd_dq.restype = i32
         lib.ddpo_flash_bwd_dkv.argtypes = [p] * 8 + [i32] * 6 + [p, ctypes.c_float, p]
         lib.ddpo_flash_bwd_dkv.restype = i32
-        # base, B, S, H, D, strides of (b, s, h)
-        lib.ddpo_flash_tma_ok.argtypes = [p, i32, i32, i32, i32, i64, i64, i64]
+        # base, B, S, H, D, strides of (b, s, h), bytes an element
+        lib.ddpo_flash_tma_ok.argtypes = [p, i32, i32, i32, i32, i64, i64, i64, i32]
         lib.ddpo_flash_tma_ok.restype = i32
         # x, out (2, n_runs), dtype, n_runs, run_len, stream
         lib.ddpo_gn_stats.argtypes = [p, p, i32, i64, i64, p]
@@ -99,6 +102,9 @@ class KernelLibrary:
         # w, out (Cout8, 9, Cin8), dtype, Cout, Cin, strides of (co, tap, ci), stream
         lib.ddpo_conv_tap_weight.argtypes = [p, p, i32, i32, i32, i64, i64, i64, p]
         lib.ddpo_conv_tap_weight.restype = i32
+        # w (n fp32), out (2 n: the tf32 hi values, then the lo), n, stream
+        lib.ddpo_tf32_split.argtypes = [p, p, i64, p]
+        lib.ddpo_tf32_split.restype = i32
         lib.ddpo_error_string.argtypes = [i32]
         lib.ddpo_error_string.restype = ctypes.c_char_p
         self.lib = lib

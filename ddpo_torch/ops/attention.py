@@ -18,7 +18,10 @@ Kernels (each replaces a Pallas kernel of the JAX package):
     ``_flash_bwd_dkv_kernel``).
 
 In bf16 both files run every product on Hopper's tensor cores (wgmma, fed
-by TMA); fp32 runs on the CUDA cores, where the fp32 bounds hold.
+by TMA). The fp32 forward (csrc/flash_fwd_tf32.cu) runs there too, as
+3xTF32 products: each operand split into two tf32 values and three tf32
+products summed in fp32, about 22 of fp32's 24 bits, so the fp32 bounds
+hold. The fp32 backward is autograd through the plain version (below).
 
 ``attention(..., spatial=axis)`` (JAX's ``spatial_axis``, self-attention
 of a UNet whose H is sharded over the axis): K/V are all-gathered over the
@@ -133,15 +136,16 @@ def flash_fwd(q, k, v, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def flash_uses_tma(t: torch.Tensor) -> bool:
-    """Whether the bf16 flash kernels' producers (the forward's, dq's and
-    dk/dv's) load this (B, S, H, D) CUDA tensor by TMA. Else they stage it
-    with plain loads (a base off 16 bytes, or a stride off a multiple of 8
-    elements); the consumers' bits are the same either way. A kernel takes
-    TMA only where all its inputs allow it."""
+    """Whether the flash kernels' producers load this (B, S, H, D) CUDA
+    tensor by TMA: in bf16 the forward's, dq's and dk/dv's, in fp32 the
+    forward's Q and K (V is transposed by plain loads). Else they stage it
+    with plain loads (a base off 16 bytes, or a stride off a whole 16
+    bytes); the consumers' bits are the same either way. A kernel takes TMA
+    only where all its inputs allow it."""
     b, s, h, d = t.shape
     kl = _build.load_library()
     return bool(kl.lib.ddpo_flash_tma_ok(t.data_ptr(), b, s, h, d, t.stride(0), t.stride(1),
-                                         t.stride(2)))
+                                         t.stride(2), t.element_size()))
 
 
 def flash_attention_bwd_reference(

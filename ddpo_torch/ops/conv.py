@@ -15,16 +15,24 @@ x's dtype, as JAX adds it. Under autograd the product goes through
 differentiates its XLA conv.
 
 ``tap_gemm`` launches the kernel for ``conv3x3_direct`` and for the conv
-probes of ddpo_torch/bench/conv_probe.py. ``tap_weight`` lays the OIHW
-weight out as the kernel's operand: (Cout, 9, Cin), K = (tap, cin)
-contiguous for each output (the weight tile a TMA load brings in), Cout and
-Cin padded with zeros to multiples of 8 (16-byte rows), on the card with a
-layout kernel of its own. The layout is made once per weight and kept while
-the weight lives and is not written to (keyed on its ``data_ptr()`` and
-``_version``, as ops/quant.py keeps the int8 codes): the sampler's 50 steps
-lay each conv's weight out once, not 50 times. The trainer's convs see a
-fresh bf16 cast of the fp32 masters at every call, so they lay it out at
-every call, as before.
+probes of ddpo_torch/bench/conv_probe.py, on the operand ``tap_operand``
+(``tap_operand_kn`` for the probes) makes once per weight version: the
+layout below, or at fp32, where the kernel runs 3xTF32 products on the
+tensor cores, the layout split into its tf32 hi and lo values by a split
+kernel (``tf32_split_reference``'s order: the hi rows, then the lo rows).
+At fp32 only the split is kept, so a weight has two copies beside it, not
+three. ``tap_weight`` lays the OIHW weight out: (Cout, 9, Cin), K = (tap,
+cin) contiguous for each output (the weight tile a TMA load brings in),
+Cout and Cin padded with zeros to multiples of 8 (16-byte rows), on the
+card with a layout kernel of its own. The operand is made once per weight
+and kept while the weight lives and is not written to (keyed on its
+``data_ptr()`` and ``_version``, as ops/quant.py keeps the int8 codes): the
+sampler's 50 steps lay each conv's weight out once, not 50 times. The
+trainer's convs see a fresh bf16 cast of the fp32 masters at every call, so
+they lay it out at every call, as before; at fp32 they see the masters
+themselves, so each optimizer step, which writes every master, costs one
+layout and one split launch a conv weight at the next call. Both kernels
+count their launches (``_build.launches``: ``tap_layout``, ``tf32_split``).
 
 ``library_conv`` is the library branch of every 3x3 conv of the models,
 stride 1 and 2. cuDNN gives an image other bits in another batch: on the
@@ -71,6 +79,8 @@ _CONV_OVERRIDE: Optional[bool] = None
 
 # id(source weight) -> (weakref to it, data_ptr, _version, its tap_weight layout)
 _TAP_WEIGHTS: Dict[int, tuple] = {}
+# id(fp32 source weight) -> (weakref, data_ptr, _version, its layout's tf32 split)
+_TF32_SPLITS: Dict[int, tuple] = {}
 
 
 def set_conv_kernel_enabled(value: Optional[bool]) -> None:
@@ -91,10 +101,10 @@ def tap_gemm(x: torch.Tensor, w_nk: torch.Tensor, cout: int, tap_map: str,
     * w_nk[co, t * padded(Cin) + cin], zero outside the map; on CUDA tensors
     only.
 
-    x: contiguous (B, Cin, H, W); w_nk: ``tap_weight``'s contiguous
-    (padded(cout), 9 * padded(Cin)) in x's dtype; the result (B, cout, H, W)
-    has x's dtype. ``counter`` names the entry of ``_build.launches`` this
-    launch adds to.
+    x: contiguous (B, Cin, H, W); w_nk: ``tap_operand``'s contiguous
+    (padded(cout), 9 * padded(Cin)) in x's dtype, twice the rows at fp32 (the
+    split); the result (B, cout, H, W) has x's dtype. ``counter`` names the
+    entry of ``_build.launches`` this launch adds to.
     """
     if not (x.is_cuda and w_nk.device == x.device):
         raise ValueError(f"tap_gemm runs on one CUDA device, got {x.device} and {w_nk.device}")
@@ -104,8 +114,9 @@ def tap_gemm(x: torch.Tensor, w_nk: torch.Tensor, cout: int, tap_map: str,
     if x.dim() != 4 or not x.is_contiguous() or not w_nk.is_contiguous():
         raise ValueError("tap_gemm needs a contiguous NCHW x and a contiguous weight")
     b, cin, h, w = x.shape
-    if tuple(w_nk.shape) != (padded(cout), 9 * padded(cin)):
-        raise ValueError(f"weight {tuple(w_nk.shape)} is not ({padded(cout)}, 9 * {padded(cin)})")
+    rows = padded(cout) * (2 if x.dtype == torch.float32 else 1)
+    if tuple(w_nk.shape) != (rows, 9 * padded(cin)):
+        raise ValueError(f"weight {tuple(w_nk.shape)} is not ({rows}, 9 * {padded(cin)})")
     out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device)
     kl = _build.load_library()
     err = kl.lib.ddpo_tap_gemm(
@@ -114,6 +125,30 @@ def tap_gemm(x: torch.Tensor, w_nk: torch.Tensor, cout: int, tap_map: str,
     )
     kl.check(err, f"{counter} launch")
     _build.launches[counter] += 1
+    return out
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """fp32 values rounded to tf32 (10 mantissa bits, to nearest, ties away
+    from zero), as fp32: the card's ``cvt.rna.tf32.f32``, on the bits."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split_reference(w: torch.Tensor) -> torch.Tensor:
+    """The split kernel's plain version: (hi, lo) of fp32 ``w`` stacked on
+    dim 0, hi = tf32(w), lo = tf32(w - hi) (w - hi is exact in fp32)."""
+    hi = tf32_round(w)
+    return torch.cat([hi, tf32_round(w - hi)])
+
+
+def _tf32_split(w: torch.Tensor) -> torch.Tensor:
+    """The split kernel on a contiguous fp32 CUDA tensor."""
+    out = torch.empty((2 * w.shape[0], *w.shape[1:]), dtype=w.dtype, device=w.device)
+    kl = _build.load_library()
+    kl.check(kl.lib.ddpo_tf32_split(w.data_ptr(), out.data_ptr(), w.numel(),
+                                    _build.stream_handle(w.device)), "tf32 split launch")
+    _build.launches["tf32_split"] += 1
     return out
 
 
@@ -149,33 +184,55 @@ def _lay_out(w: torch.Tensor, cout: int, cin: int, strides) -> torch.Tensor:
     kl.check(kl.lib.ddpo_conv_tap_weight(w.data_ptr(), out.data_ptr(), _build.dtype_code(w.dtype),
                                          cout, cin, *strides, _build.stream_handle(w.device)),
              "conv weight layout launch")
+    _build.launches["tap_layout"] += 1
     return out
 
 
 def tap_weight(weight: torch.Tensor) -> torch.Tensor:
-    """OIHW (Cout, Cin, 3, 3) -> the tap-GEMM's (padded(Cout), 9 * padded(Cin))
-    operand: on a CUDA tensor the layout kernel's, made once per weight
-    version; on a CPU tensor ``tap_weight_reference``."""
+    """OIHW (Cout, Cin, 3, 3) -> the layout (padded(Cout), 9 * padded(Cin)),
+    made anew at each call: on a CUDA tensor by the layout kernel, on a CPU
+    tensor ``tap_weight_reference``. ``tap_gemm`` takes ``tap_operand``'s
+    operand, which is this layout (its tf32 split at fp32) kept per weight
+    version."""
     if weight.device.type == "cpu":
         return tap_weight_reference(weight.detach())
     if weight.device.type != "cuda" or weight.dim() != 4 or weight.shape[2:] != (3, 3):
         raise ValueError(f"tap_weight takes a CUDA OIHW 3x3 weight, got {tuple(weight.shape)} "
                          f"on {weight.device}")
     cout, cin = weight.shape[:2]
-    return cached_per_version(_TAP_WEIGHTS, weight, lambda: _lay_out(
-        weight.detach().contiguous(), cout, cin, (9 * cin, 1, 9)))
+    return _lay_out(weight.detach().contiguous(), cout, cin, (9 * cin, 1, 9))
 
 
 def tap_weight_kn(w_kn: torch.Tensor) -> torch.Tensor:
-    """The same operand from a (9, Cin, Cout)-ordered weight of 9 * Cin * Cout
-    values, (tap, cin) major, as the conv probes take theirs (any shape
-    that reshapes to (9 * Cin, Cout) with Cout last); once per weight."""
+    """``tap_weight``'s layout from a (9, Cin, Cout)-ordered weight of 9 * Cin
+    * Cout values, (tap, cin) major, as the conv probes take theirs (any
+    shape that reshapes to (9 * Cin, Cout) with Cout last)."""
     cout = w_kn.shape[-1]
     cin = w_kn.numel() // (9 * cout)
     if w_kn.device.type == "cpu":
         return tap_weight_reference(w_kn.detach().reshape(3, 3, cin, cout).permute(3, 2, 0, 1))
-    return cached_per_version(_TAP_WEIGHTS, w_kn, lambda: _lay_out(
-        w_kn.detach().contiguous(), cout, cin, (1, cin * cout, cout)))
+    return _lay_out(w_kn.detach().contiguous(), cout, cin, (1, cin * cout, cout))
+
+
+def _operand(source: torch.Tensor, lay_out: Callable) -> torch.Tensor:
+    """``tap_gemm``'s operand from a CUDA weight, once per version of it:
+    ``lay_out()``, or at fp32 its tf32 split alone."""
+    if source.dtype == torch.float32:
+        return cached_per_version(_TF32_SPLITS, source, lambda: _tf32_split(lay_out()))
+    return cached_per_version(_TAP_WEIGHTS, source, lay_out)
+
+
+def tap_operand(weight: torch.Tensor) -> torch.Tensor:
+    """The tap-GEMM's weight operand from a CUDA OIHW 3x3 weight: ``tap_weight``'s
+    layout, or at fp32 its tf32 split (twice the rows), made once per weight
+    version."""
+    return _operand(weight, lambda: tap_weight(weight))
+
+
+def tap_operand_kn(w_kn: torch.Tensor) -> torch.Tensor:
+    """``tap_operand`` from a (9, Cin, Cout)-ordered CUDA weight, as the conv
+    probes take theirs (``tap_weight_kn``)."""
+    return _operand(w_kn, lambda: tap_weight_kn(w_kn))
 
 
 def conv3x3_reference(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -206,7 +263,7 @@ def conv3x3_direct(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"no conv3x3 kernel for device {x.device}")
     if weight.shape[1:] != (x.shape[1], 3, 3):
         raise ValueError(f"weight {tuple(weight.shape)} does not fit x {tuple(x.shape)}")
-    return tap_gemm(x.contiguous(), tap_weight(weight), weight.shape[0], "shift3x3",
+    return tap_gemm(x.contiguous(), tap_operand(weight), weight.shape[0], "shift3x3",
                     "conv3x3")
 
 

@@ -454,17 +454,28 @@ def test_flash_backward_on_tensor_core_forward(cuda, b, sq, sk, h, d):
 def test_conv_weight_layout_kernel(cuda, dtype, cout, cin):
     """The layout kernel gives the plain (padded(Cout), 9 * padded(Cin))
     layout bit for bit, from an OIHW weight and from the probes' (9, Cin,
-    Cout) order; it is kept while the weight is unchanged and made again
+    Cout) order, one counted launch each; the operand made from it (at fp32
+    its tf32 split) is kept while the weight is unchanged and made again
     after an in-place write."""
+    from ddpo_torch.ops.conv import tap_operand, tf32_split_reference
+
+    def operand_reference(w):
+        laid = tap_weight_reference(w.cpu())
+        return tf32_split_reference(laid) if dtype == torch.float32 else laid
+
     weight = torch.randn((cout, cin, 3, 3), device=cuda).to(dtype)
+    before = _build.launch_counts()["tap_layout"]
     w_nk = tap_weight(weight)
     assert w_nk.dtype == dtype and torch.equal(w_nk.cpu(), tap_weight_reference(weight.cpu()))
-    assert tap_weight(weight) is w_nk
     w9 = weight.permute(2, 3, 1, 0).reshape(9, cin, cout).contiguous()
     assert torch.equal(tap_weight_kn(w9), w_nk)
+    assert _build.launch_counts()["tap_layout"] == before + 2
+    operand = tap_operand(weight)
+    assert torch.equal(operand.cpu(), operand_reference(weight))
+    assert tap_operand(weight) is operand
     weight.mul_(2)
-    again = tap_weight(weight)
-    assert again is not w_nk and torch.equal(again.cpu(), tap_weight_reference(weight.cpu()))
+    again = tap_operand(weight)
+    assert again is not operand and torch.equal(again.cpu(), operand_reference(weight))
 
 
 @pytest.mark.cuda
@@ -713,3 +724,106 @@ def test_vae_encoder_on_kernels_matches_plain(cuda, monkeypatch, conv_switch):
         set_conv_kernel_enabled(None)
     assert out.shape == (2, 8, 16, 16) and torch.isfinite(out).all()
     assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+def _attention64(q, k, v):
+    """(out, lse) of the same values in fp64."""
+    q, k, v = (t.double() for t in (q, k, v))
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * q.shape[-1] ** -0.5
+    return (torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, -1), v),
+            torch.logsumexp(logits, -1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 20, 40, 80, 96, 160, 192, 256])
+@pytest.mark.parametrize("sq,sk", [(300, 257), (257, 700), (700, 300)])
+def test_flash_fp32_tensor_core_kernel(cuda, sq, sk, d):
+    """The fp32 forward (3xTF32 on wgmma, csrc/flash_fwd_tf32.cu) at every
+    tile shape it takes (D padded to 8: one or two consumer warpgroups, 64-
+    or 32-key tiles, ragged last tiles): within 1e-4 of the fp32 plain
+    version, its error against fp64 at most 4 times the plain version's,
+    two calls and image 0 alone bit-equal to the batch."""
+    q, k, v = (torch.from_numpy(x).to(cuda) for x in _qkv(3, sq, sk, 2, d, seed=d))
+    out, lse = flash_attention_fwd(q, k, v)
+    again, lse2 = flash_attention_fwd(q, k, v)
+    ref, ref_lse = attention_reference(q, k, v), attention_lse_reference(q, k)
+    out64, lse64 = _attention64(q, k, v)
+    assert (out - ref).abs().max().item() <= 1e-4 and (lse - ref_lse).abs().max().item() <= 1e-4
+    assert (out.double() - out64).abs().max() <= 4 * (ref.double() - out64).abs().max()
+    assert (lse.double() - lse64).abs().max() <= 4 * (ref_lse.double() - lse64).abs().max()
+    assert torch.equal(out, again) and torch.equal(lse, lse2)
+    out1, lse1 = flash_attention_fwd(q[:1], k[:1], v[:1])
+    assert torch.equal(out1, out[:1]) and torch.equal(lse1, lse[:1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [20, 40, 80, 160])
+@pytest.mark.parametrize("layout", ["fused_qkv", "odd_offset"])
+def test_flash_fp32_producer_paths_give_the_same_bits(cuda, layout, d):
+    """fp32 q, k, v as views of one (B, S, 3, H, D) tensor, and at an odd
+    element offset, which TMA cannot take (Q and K then come by plain
+    loads): the same bits as the call on contiguous copies."""
+    rng = np.random.default_rng(d)
+    b, s, h = 2, 300, 2
+    flat = torch.from_numpy(rng.standard_normal(b * s * 3 * h * d + 1).astype(np.float32))
+    flat = flat.to(cuda)
+    qkv = (flat[:-1] if layout == "fused_qkv" else flat[1:]).view(b, s, 3, h, d)
+    q, k, v = qkv.unbind(2)
+    assert flash_uses_tma(q) == (layout == "fused_qkv" and d % 4 == 0)
+    out, lse = flash_attention_fwd(q, k, v)
+    out_c, lse_c = flash_attention_fwd(*(t.contiguous() for t in (q, k, v)))
+    assert torch.equal(out, out_c) and torch.equal(lse, lse_c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,cin,cout,h,w", [(2, 4, 320, 64, 64), (2, 320, 4, 64, 64),
+                                            (2, 320, 320, 13, 17), (3, 96, 24, 3, 5),
+                                            (2, 2560, 1280, 8, 8), (2, 128, 128, 32, 32)])
+def test_conv3x3_fp32_tensor_core_kernel(cuda, b, cin, cout, h, w):
+    """The fp32 tap-GEMM (3xTF32 on wgmma): conv_in's K = 36, conv_out's
+    Cout = 4 (N = 8), W not a multiple of 8, maps smaller than a tile, N =
+    32 and 64, the UNet's deepest Cin = 2560 (720 taps summed): within 1e-4
+    max(1, max|ref|) of the plain version, its error against fp64 at most 4
+    times the plain version's, image 0 alone bit-equal to the batch."""
+    gen = torch.Generator(device=cuda).manual_seed(cin + cout)
+    x = torch.randn((b, cin, h, w), generator=gen, device=cuda)
+    weight = torch.randn((cout, cin, 3, 3), generator=gen, device=cuda) * (9 * cin) ** -0.5
+    out = conv3x3_direct(x, weight)
+    ref = conv3x3_reference(x, weight)
+    ref64 = torch.nn.functional.conv2d(x.double(), weight.double(), padding=1)
+    assert (out - ref).abs().max().item() <= _bound(torch.float32, ref)
+    assert (out.double() - ref64).abs().max() <= 4 * (ref.double() - ref64).abs().max()
+    assert torch.equal(conv3x3_direct(x[:1], weight), out[:1])
+
+
+@pytest.mark.cuda
+def test_conv3x3_fp32_halo_frame_bits(cuda):
+    """The sp path's halo'd frame at fp32: the SAME map on a (4, 320, 34,
+    64) shard with its first and last rows dropped gives the unsharded
+    map's rows bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    x = torch.randn((4, 320, 64, 64), generator=gen, device=cuda)
+    weight = torch.randn((320, 320, 3, 3), generator=gen, device=cuda) * 0.02
+    xh = torch.nn.functional.pad(x, (0, 0, 1, 1))[:, :, :34].contiguous()
+    assert torch.equal(conv3x3_direct(xh, weight)[:, :, 1:-1], conv3x3_direct(x, weight)[:, :, :32])
+
+
+@pytest.mark.cuda
+def test_tf32_split_kernel_matches_plain(cuda):
+    """The weight's split kernel gives tf32_split_reference's hi and lo
+    bit for bit; the fp32 operand is the layout's split, made once per
+    weight version, without the layout kept beside it."""
+    from ddpo_torch.ops import conv as conv_ops
+
+    w = torch.randn((40, 9 * 96), device=cuda) * 3
+    assert torch.equal(conv_ops._tf32_split(w).cpu(), conv_ops.tf32_split_reference(w.cpu()))
+    weight = torch.randn((40, 96, 3, 3), device=cuda)
+    before = _build.launch_counts()
+    operand = conv_ops.tap_operand(weight)
+    after = _build.launch_counts()
+    assert (after["tap_layout"] - before["tap_layout"], after["tf32_split"]
+            - before["tf32_split"]) == (1, 1)
+    assert torch.equal(operand.cpu(), conv_ops.tf32_split_reference(tap_weight_reference(weight.cpu())))
+    assert conv_ops.tap_operand(weight) is operand and id(weight) not in conv_ops._TAP_WEIGHTS
+    weight.mul_(2)
+    assert conv_ops.tap_operand(weight) is not operand

@@ -89,7 +89,7 @@ def test_sp_check_two_gloo_ranks_on_the_tiny_preset(tmp_path):
         reports.append(json.loads(line[-1][len("SP_CHECK "):]))
     for rep in reports:
         assert rep["ok"]
-        for mode in ("spatial", "attention"):
+        for mode in ("spatial", "attention", "tp"):
             m = rep[mode]
             assert m["passed"] and m["finite"]
             for key in ("eps", "grads"):
@@ -97,3 +97,5 @@ def test_sp_check_two_gloo_ranks_on_the_tiny_preset(tmp_path):
                 assert bf16_gate(m["bf16_sharded"][key], rep["bf16_unsharded"][key])
     # both ranks compare the same eps and gradients
     assert reports[0]["spatial"]["fp32"] == reports[1]["spatial"]["fp32"]
+    assert reports[0]["tp"]["fp32"] == reports[1]["tp"]["fp32"]
+
