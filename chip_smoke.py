@@ -161,8 +161,20 @@ Phases, in order; any failure exits non-zero:
      load_clip_checkpoint and load_weights; the ViT-L/14 tower's ms for a
      batch of 4 at fp32; the aesthetic, rotational, thumbnail and (random
      ViT-B/32 and B/32 text, hash tokenizer) consistency rewards at fp32
-     on (c)'s images, ms a batch on the card, each within 1e-4 of the same
-     function with device="cpu" (max|d| over the batch's largest |score|).
+     on (c)'s images, ms a batch on the card; on the first two images each
+     within 1e-4 of the same function with device="cpu" (max|d| over the
+     largest |score|);
+     (e) the vqa reward's BLIP-2 (models/blip2.py) at blip2-opt-2.7b width,
+     random (seed 0), fp32, over a synthetic byte-level tokenizer directory
+     (OPT's specials, the 256 byte tokens, a few merges, fillers up to
+     50265, <image>): 8 images ((c)'s and their mirrors) x 2 questions of
+     assets/vqa_v0.txt through callbacks.vqa_score_fn, 8 new tokens; the
+     parameter count, the reward's ms a batch, the ViT-g's, the Q-Former's
+     and generate's ms (one call each after a warm-up), peak memory,
+     whether regex and PIL are present; then a copy cut to 2 layers per
+     tower at full width on the card against the CPU on the same weights
+     and the first two images' rows: generated ids equal, query outputs
+     and prompt logits within 1e-4 of max|cpu|.
   12. the serving extras at SD-1.4 width: (a) the s8 tap-GEMM
      (csrc/conv3x3_s8.cu), which quantizes x as it stages it, against its
      plain version (the codes in torch, then their exact sums) on the same
@@ -2627,9 +2639,15 @@ def phase_checkpoint_generate(export, serving_images, serving_counts):
     return result
 
 
+# 11d and 11e hold the card against the CPU on this many of their images
+# (the CPU's fp32 towers take most of those phases' seconds)
+CPU_CHECK_IMAGES = 2
+
+
 def phase_clip_rewards(workdir, images, prompts):
-    """11d: the CLIP rewards at fp32 on 11c's images, on the card against
-    the same functions on the CPU."""
+    """11d: the CLIP rewards at fp32 on 11c's images, timed on the card;
+    the card against the same functions on the CPU on the first
+    CPU_CHECK_IMAGES of them."""
     import numpy as np
     import torch
 
@@ -2691,6 +2709,7 @@ def phase_clip_rewards(workdir, images, prompts):
             clip_model_params=b32, tokenizer=tokenizer, device=device),
     }
     bound = 1e-4
+    n = CPU_CHECK_IMAGES
     for name, make in rewards.items():
         fn = make("cuda")
         fn(images, prompts, None)  # warm-up
@@ -2699,24 +2718,231 @@ def phase_clip_rewards(workdir, images, prompts):
             start = time.perf_counter()
             scores, _ = fn(images, prompts, None)
             times.append((time.perf_counter() - start) * 1e3)
+        card_scores, _ = fn(images[:n], prompts[:n], None)
         del fn
         torch.cuda.empty_cache()
         start = time.perf_counter()
-        cpu_scores, _ = make("cpu")(images, prompts, None)
+        cpu_scores, _ = make("cpu")(images[:n], prompts[:n], None)
         cpu_s = time.perf_counter() - start
-        scores, cpu_scores = np.asarray(scores, np.float64), np.asarray(cpu_scores, np.float64)
-        rel = float(np.abs(scores - cpu_scores).max() / np.abs(cpu_scores).max())
+        scores = np.asarray(scores, np.float64)
+        card_scores, cpu_scores = (np.asarray(card_scores, np.float64),
+                                   np.asarray(cpu_scores, np.float64))
+        rel = float(np.abs(card_scores - cpu_scores).max() / np.abs(cpu_scores).max())
         log(f"11d {name}: scores {np.round(scores.ravel(), 6).tolist()}; "
             f"{statistics.median(times):.1f} ms a batch of {len(images)} on the card (median of 3, "
-            f"preprocessing included), {cpu_s:.1f} s on the CPU; max|cuda - cpu| / max|cpu| = "
-            f"{rel:.3e} (bound {bound:g})")
-        if scores.shape != cpu_scores.shape or not np.isfinite(scores).all() or not rel <= bound:
+            f"preprocessing included); images 0-{n - 1} {cpu_s:.1f} s on the CPU, "
+            f"max|cuda - cpu| / max|cpu| = {rel:.3e} (bound {bound:g})")
+        if (card_scores.shape != cpu_scores.shape or not np.isfinite(scores).all()
+                or not rel <= bound):
             fail(f"the {name} reward on the card differs from the CPU's")
     shutil.rmtree(clip_dir, ignore_errors=True)
 
 
+# 11e: the tokenizer directory's size (OPT's) and the words given merges
+OPT_TOKENS = 50265
+VQA_MERGE_WORDS = ("Question", " Answer", ":", " who", " what", " is", " the", " doing",
+                   " playing", " cat", " piano")
+
+
+def write_byte_level_tokenizer(path: str, num_query_tokens: int) -> None:
+    """A BLIP-2 (OPT) processor directory with a synthetic byte-level
+    vocabulary: OPT's four specials, the 256 byte tokens, merges of a few
+    words, filler tokens (two byte characters each) up to OPT's 50265, and
+    <image> after them; the slow BlipImageProcessor at 224 px."""
+    from ddpo_torch.models.tokenizer import bytes_to_unicode
+
+    b2u = bytes_to_unicode()
+    chars = [b2u[b] for b in range(256)]
+    vocab = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3}
+    vocab.update((c, len(vocab) + i) for i, c in enumerate(chars))
+    merges = []
+    for word in VQA_MERGE_WORDS:
+        parts = [b2u[c] for c in word.encode()]
+        while len(parts) > 1:
+            if (parts[0], parts[1]) not in merges:
+                merges.append((parts[0], parts[1]))
+                vocab.setdefault(parts[0] + parts[1], len(vocab))
+            parts = [parts[0] + parts[1]] + parts[2:]
+    for a in chars:
+        for b in chars:
+            if len(vocab) == OPT_TOKENS:
+                break
+            vocab.setdefault(a + b, len(vocab))
+    special = {"content": "</s>", "lstrip": False, "rstrip": False, "normalized": True,
+               "single_word": False}
+    files = {
+        "vocab.json": vocab,
+        "added_tokens.json": {"<image>": OPT_TOKENS},
+        "special_tokens_map.json": {"bos_token": special, "eos_token": special,
+                                    "unk_token": special,
+                                    "pad_token": dict(special, content="<pad>"),
+                                    "additional_special_tokens": ["<image>"]},
+        "tokenizer_config.json": {
+            "add_bos_token": True, "bos_token": "</s>", "eos_token": "</s>",
+            "unk_token": "</s>", "pad_token": "<pad>", "padding_side": "right",
+            "clean_up_tokenization_spaces": False,
+            "added_tokens_decoder": {str(OPT_TOKENS): {"content": "<image>", "special": True}}},
+        "preprocessor_config.json": {
+            "image_processor_type": "BlipImageProcessor", "size": {"height": 224, "width": 224},
+            "resample": 3, "do_rescale": True, "rescale_factor": 1 / 255,
+            "do_normalize": True, "image_mean": [0.48145466, 0.4578275, 0.40821073],
+            "image_std": [0.26862954, 0.26130258, 0.27577711]},
+        "processor_config.json": {"num_query_tokens": num_query_tokens},
+    }
+    os.makedirs(path, exist_ok=True)
+    for name, content in files.items():
+        with open(os.path.join(path, name), "w") as f:
+            json.dump(content, f)
+    with open(os.path.join(path, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+
+
+def phase_vqa(workdir, images):
+    """11e: the vqa reward's BLIP-2 at blip2-opt-2.7b width (random, seed
+    0, fp32) on 11c's images and their mirrors, 2 questions each from
+    assets/vqa_v0.txt, through vqa_score_fn; then a copy cut to 2 layers
+    per tower, same weights and inputs, on the card against the CPU."""
+    import importlib.util
+    import re
+
+    import numpy as np
+    import torch
+
+    from ddpo_torch.models.blip2 import (BLIP2_OPT_2_7B, Blip2Processor, build_blip2,
+                                         flops_per_image, greedy_settings, init_random_)
+    from ddpo_torch.training import callbacks
+    from ddpo_torch.utils.loaders import load_general_prompts
+
+    log(f"11e regex: {'present' if importlib.util.find_spec('regex') else 'absent'}, PIL: "
+        f"{'present' if importlib.util.find_spec('PIL') else 'absent'} (the port's BPE needs "
+        "regex, its image processor PIL)")
+    cfg = BLIP2_OPT_2_7B
+    marks = [time.perf_counter()]
+    tok_dir = os.path.join(workdir, "blip2-tokenizer")
+    write_byte_level_tokenizer(tok_dir, cfg.num_query_tokens)
+    processor = Blip2Processor.from_dir(tok_dir)
+    generation = greedy_settings({"bos_token_id": 2, "eos_token_id": 2, "pad_token_id": 1})
+    marks.append(time.perf_counter())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    model = build_blip2(cfg, "cuda")
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    init_random_(model, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    params = sum(p.numel() for p in model.parameters())
+    log(f"11e random BLIP-2 at blip2-opt-2.7b width (seed 0, fp32): {params} parameters "
+        f"({sum(p.numel() for p in model.vision_model.parameters())} ViT-g, "
+        f"{sum(p.numel() for p in model.qformer.parameters()) + model.query_tokens.numel()} "
+        f"Q-Former, {sum(p.numel() for p in model.language_model.parameters())} OPT); "
+        f"tokenizer directory ({len(processor.tokenizer)} tokens) written and read, the "
+        "model's storage made on the card, its random weights: "
+        + ", ".join(f"{b - a:.2f}" for a, b in zip(marks, marks[1:])) + " s")
+
+    entries = load_general_prompts("assets/vqa_v0.txt")
+    images = np.concatenate([images, images[:, :, ::-1]])
+    metadata = [{"questions": e["questions"][:2], "answers": e["answers"][:2]}
+                for e in entries[:len(images)]]
+    prompts = [e["prompt"] for e in entries[:len(images)]]
+    fn = callbacks.vqa_score_fn(model, processor, generation, "cuda")
+    fn(images, prompts, metadata)  # warm-up
+    start = time.perf_counter()
+    scores, info = fn(images, prompts, metadata)
+    reward_ms = (time.perf_counter() - start) * 1e3
+    if scores.shape != (len(images), 1) or info != {} or not np.isfinite(scores).all() \
+            or scores.min() < 0 or scores.max() > 1:
+        fail(f"11e scores {scores.ravel().tolist()} (info {info}) are not (N, 1) in [0, 1]")
+
+    rows = [f"Question: {q} Answer:" for m in metadata for q in m["questions"]]
+    inputs = processor([im for im in (np.clip(images, 0, 1) * 255).astype(np.uint8)
+                        for _ in range(2)], rows)
+    pixels = torch.as_tensor(inputs["pixel_values"], device="cuda")
+    ids = torch.as_tensor(inputs["input_ids"], device="cuda")
+    mask = torch.as_tensor(inputs["attention_mask"], device="cuda")
+    def timed(call):
+        """(result, ms) of one call, timed with CUDA events (the reward's
+        warm-up has run every kernel of it)."""
+        begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        begin.record()
+        result = call()
+        end.record()
+        torch.cuda.synchronize()
+        return result, begin.elapsed_time(end)
+
+    with torch.no_grad():
+        image, vit_ms = timed(lambda: model.vision_model(pixels))
+        queries = model.query_tokens.expand(len(pixels), -1, -1)
+        _, qformer_ms = timed(lambda: model.language_projection(model.qformer(queries, image)))
+        out, generate_ms = timed(lambda: model.generate(pixels, ids, mask, 8, **generation))
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    flops = flops_per_image(cfg) * len(pixels)
+    # the bytes of what the tower and the Q-Former read: their own weights
+    # (OPT's are generate's), the pixels and the projected queries out
+    front = [model.vision_model, model.qformer, model.language_projection]
+    front_params = sum(p.numel() for m in front for p in m.parameters()) + model.query_tokens.numel()
+    nbytes = 4 * (front_params + pixels.numel() + len(pixels) * cfg.num_query_tokens
+                  * cfg.text.hidden_size)
+    bound_ms, bound_by = roofline(flops, nbytes, "float32")
+    text = processor.batch_decode(out.cpu().numpy(), skip_special_tokens=True)
+    log(f"11e {len(images)} images x 2 questions, 8 new tokens: scores "
+        f"{scores.ravel().tolist()}; reward {reward_ms:.1f} ms a batch (one call after a "
+        f"warm-up; preprocessing and decoding included); one call each: ViT-g {vit_ms:.2f} ms "
+        f"for {len(pixels)} images, Q-Former and projection {qformer_ms:.2f} ms, generate "
+        f"{generate_ms:.2f} ms ({out.shape[1] - ids.shape[1]} new of {out.shape[1]} ids); tower "
+        f"+ Q-Former {flops / 1e12:.2f} TFLOP and {nbytes / 2**30:.2f} GiB, bound "
+        f"{bound_ms:.2f} ms by {bound_by} at the fp32 peak; peak memory above the phase's "
+        f"start {peak / 2**30:.2f} GiB ({4 * params / 2**30:.2f} GiB of weights)")
+    log(f"11e row 0 decoded: {text[0]!r}")
+
+    # the cut copy: the first 2 layers of each tower, the rest as it is, on
+    # the first CPU_CHECK_IMAGES images' rows (2 questions each)
+    check_start = time.perf_counter()
+    rows = slice(0, 2 * CPU_CHECK_IMAGES)
+    cut_cfg = cfg.with_layers(2, 2, 2)
+    layer_at = re.compile(r"\.(layers|layer)\.(\d+)\.")
+    state = {k: v for k, v in model.state_dict().items()
+             if not layer_at.search(k) or int(layer_at.search(k).group(2)) < 2}
+    del model, fn
+    torch.cuda.empty_cache()
+    results = {}
+    for device in ("cuda", "cpu"):
+        cut = build_blip2(cut_cfg, device)
+        cut.load_state_dict({k: v.to(device) for k, v in state.items()})
+        args = [torch.as_tensor(inputs[k][rows], device=device)
+                for k in ("pixel_values", "input_ids", "attention_mask")]
+        start = time.perf_counter()
+        with torch.no_grad():
+            features = cut.image_features(args[0])
+            embeds, full_mask = cut.prompt_embeds(features, args[1], args[2], True)
+            positions = (full_mask.cumsum(-1) - 1).masked_fill(full_mask == 0, 1)
+            logits = cut.language_model(embeds, full_mask, positions)
+            generated = cut.generate(*args, 8, **generation)
+        results[device] = (features.cpu(), logits.cpu(), generated.cpu(),
+                           time.perf_counter() - start)
+        del cut
+    del state
+    torch.cuda.empty_cache()
+    bound = 1e-4
+    errs = {name: float((results["cuda"][i] - results["cpu"][i]).abs().max()
+                        / results["cpu"][i].abs().max())
+            for i, name in enumerate(("query outputs", "logits"))}
+    same_ids = torch.equal(results["cuda"][2], results["cpu"][2])
+    log(f"11e cut to 2 layers per tower at full width, card against CPU on the same weights "
+        f"and the first {rows.stop} rows: max|d| / max|cpu| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (bound {bound:g}); generated ids equal: {same_ids} "
+        f"({results['cuda'][2].shape[1]} ids a row); forward and generate "
+        f"{results['cuda'][3]:.2f} s on the card, {results['cpu'][3]:.2f} s on the CPU; the "
+        f"check {time.perf_counter() - check_start:.1f} s in all")
+    if not same_ids or not all(e <= bound for e in errs.values()):
+        fail("11e BLIP-2 on the card differs from the CPU")
+
+
 def phase_checkpoints(serving_images, serving_counts):
-    """11: local checkpoints and the CLIP rewards at SD-1.4 width."""
+    """11: local checkpoints and the CLIP rewards at SD-1.4 width, and the
+    vqa reward's BLIP-2 at blip2-opt-2.7b width."""
     import torch
 
     workdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -2731,6 +2957,9 @@ def phase_checkpoints(serving_images, serving_counts):
     marks.append(("11c", time.perf_counter()))
     phase_clip_rewards(workdir, result.images, result.prompts)
     marks.append(("11d", time.perf_counter()))
+    phase_vqa(workdir, result.images)
+    torch.cuda.empty_cache()
+    marks.append(("11e", time.perf_counter()))
     shutil.rmtree(workdir, ignore_errors=True)
     log("phase 11 wall: " + ", ".join(f"{name} {t - marks[i][1]:.1f} s"
                                       for i, (name, t) in enumerate(marks[1:])))

@@ -28,11 +28,17 @@ text and vision encoders do, in both directions.
 (or transformers) checkpoint directory, in the diffusers-Flax msgpack
 layout or the torch-safetensors one, through the port's own readers
 (utils/tensor_files.py), into the port's state_dicts.
+
+``load_blip2`` reads a transformers BLIP-2 (OPT) directory, or a Hub name
+found in the Hub cache (``resolve_pretrained``), onto the port's
+models/blip2.py: safetensors (one file or shards) or pytorch_model*.bin.
 """
 
 from __future__ import annotations
 
+import json
 import os
+import re
 from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
@@ -248,3 +254,116 @@ def load_clip_checkpoint(path: str) -> Dict[str, torch.Tensor]:
             raise FileNotFoundError(f"no flax/safetensors CLIP weights under {path}")
         state = read_safetensors(st_path)
     return _drop_position_ids(state)
+
+
+# ----------------------------------- BLIP-2 ---------------------------------- #
+
+# keys of a BLIP-2 checkpoint that generation never reads: the Q-Former's
+# text FFN and text embeddings, and position_ids buffers
+_BLIP2_UNUSED = re.compile(
+    r"^qformer\.(encoder\.layer\.\d+\.(intermediate|output)\.|embeddings\.)|position_ids$")
+_QKV_BIAS = re.compile(r"^(vision_model\.encoder\.layers\.\d+\.self_attn\.)(q_bias|v_bias)$")
+
+
+def hub_cache_dir() -> str:
+    """The Hub cache transformers reads offline: HF_HUB_CACHE (or the older
+    HUGGINGFACE_HUB_CACHE), else HF_HOME/hub, where HF_HOME defaults to
+    $XDG_CACHE_HOME/huggingface, then ~/.cache/huggingface."""
+    home = os.environ.get("HF_HOME") or os.path.join(
+        os.environ.get("XDG_CACHE_HOME") or "~/.cache", "huggingface")
+    cache = (os.environ.get("HF_HUB_CACHE") or os.environ.get("HUGGINGFACE_HUB_CACHE")
+             or os.path.join(home, "hub"))
+    return os.path.expanduser(cache)
+
+
+def resolve_pretrained(name: str) -> str:
+    """A model name as transformers resolves it offline: a local
+    directory, else the Hub cache's snapshot of ``refs/main``
+    (``<cache>/models--{org}--{name}/snapshots/<commit>``); otherwise
+    FileNotFoundError naming every path tried. Nothing is downloaded."""
+    if os.path.isdir(name):
+        return name
+    repo = os.path.join(hub_cache_dir(), "models--" + name.replace("/", "--"))
+    ref = os.path.join(repo, "refs", "main")
+    tried = [os.path.abspath(name), ref]
+    if os.path.isfile(ref):
+        with open(ref) as f:
+            snapshot = os.path.join(repo, "snapshots", f.read().strip())
+        if os.path.isdir(snapshot):
+            return snapshot
+        tried.append(snapshot)
+    raise FileNotFoundError(
+        f"{name!r} is neither a local directory nor in the Hub cache; tried "
+        + ", ".join(tried) + " (the port downloads nothing: put the model's files in one "
+        "of these places, or set HF_HOME or HF_HUB_CACHE)")
+
+
+def read_pretrained_weights(path: str) -> Dict[str, torch.Tensor]:
+    """The state_dict a transformers directory holds: model.safetensors,
+    pytorch_model.bin (read with ``weights_only``), or the shards that
+    either's ``.index.json`` names, as CPU tensors."""
+    from ddpo_torch.utils.tensor_files import read_safetensors
+
+    def read_bin(fname):
+        return torch.load(fname, map_location="cpu", weights_only=True, mmap=True)
+
+    for fname, read in (("model.safetensors", read_safetensors), ("pytorch_model.bin", read_bin)):
+        full = os.path.join(path, fname)
+        if os.path.exists(full):
+            return dict(read(full))
+        if os.path.exists(full + ".index.json"):
+            with open(full + ".index.json") as f:
+                shards = sorted(set(json.load(f)["weight_map"].values()))
+            state = {}
+            for shard in shards:
+                state.update(read(os.path.join(path, shard)))
+            return state
+    raise FileNotFoundError(f"no weights under {path}: looked for model.safetensors, "
+                            "pytorch_model.bin and their .index.json")
+
+
+def blip2_state_dict(state: Mapping[str, torch.Tensor], model: nn.Module) -> Dict[str, torch.Tensor]:
+    """transformers' Blip2ForConditionalGeneration keys -> ``model``'s
+    (models/blip2.py): the same names, but the tower's separate q_bias and
+    v_bias become qkv.bias (k's part zero), lm_head.weight is left to
+    embed_tokens (the head is tied), and the keys generation never reads are dropped.
+    Unknown or missing keys raise, naming them."""
+    out, split = {}, {}
+    for key, value in state.items():
+        match = _QKV_BIAS.match(key)
+        if match:
+            split.setdefault(match.group(1), {})[match.group(2)] = value
+        elif not _BLIP2_UNUSED.search(key) and key != "language_model.lm_head.weight":
+            out[key] = value
+    for prefix, parts in split.items():
+        if set(parts) != {"q_bias", "v_bias"}:
+            raise KeyError(f"{prefix}: q_bias and v_bias come in pairs, found {sorted(parts)}")
+        out[prefix + "qkv.bias"] = torch.cat(
+            [parts["q_bias"], torch.zeros_like(parts["q_bias"]), parts["v_bias"]])
+    want = set(model.state_dict())
+    unknown, missing = sorted(set(out) - want), sorted(want - set(out))
+    if unknown or missing:
+        raise KeyError(f"BLIP-2 checkpoint keys: unknown {unknown[:8]}, missing {missing[:8]}")
+    return out
+
+
+def load_blip2(name: str, device):
+    """A BLIP-2 (OPT) directory or Hub name -> (model on ``device`` at fp32,
+    Blip2Processor, greedy settings of generation_config.json). The model
+    is built on the meta device and its storage made on ``device``, then
+    filled from the checkpoint."""
+    from ddpo_torch.models.blip2 import Blip2Config, Blip2Processor, build_blip2, greedy_settings
+
+    path = resolve_pretrained(name)
+    with open(os.path.join(path, "config.json")) as f:
+        cfg = Blip2Config.from_dict(json.load(f))
+    generation = {"bos_token_id": cfg.text.bos_token_id, "eos_token_id": cfg.text.eos_token_id,
+                  "pad_token_id": cfg.text.pad_token_id}
+    gen_path = os.path.join(path, "generation_config.json")
+    if os.path.exists(gen_path):
+        with open(gen_path) as f:
+            generation = json.load(f)
+    processor = Blip2Processor.from_dir(path)
+    model = build_blip2(cfg, device)
+    model.load_state_dict(blip2_state_dict(read_pretrained_weights(path), model))
+    return model, processor, greedy_settings(generation)

@@ -60,7 +60,7 @@ class HashTokenizer:
 
 
 @functools.lru_cache(maxsize=1)
-def _bytes_to_unicode():
+def bytes_to_unicode():
     """GPT-2/CLIP reversible byte <-> printable-unicode map (data table)."""
     bs = (
         list(range(ord("!"), ord("~") + 1))
@@ -75,6 +75,30 @@ def _bytes_to_unicode():
             cs.append(256 + n)
             n += 1
     return dict(zip(bs, (chr(c) for c in cs)))
+
+
+def bpe_merge(token: str, ranks: dict, end: str = "") -> List[str]:
+    """Greedy lowest-rank pair merging of ``token``'s characters, the last
+    one carrying the end-of-word marker ``end`` (CLIP's ``</w>``; GPT-2's
+    byte-level BPE has none)."""
+    word = tuple(token[:-1]) + (token[-1] + end,)
+    while len(word) > 1:
+        pairs = set(zip(word[:-1], word[1:]))
+        bigram = min(pairs, key=lambda p: ranks.get(p, float("inf")))
+        if bigram not in ranks:
+            break
+        first, second = bigram
+        merged = []
+        i = 0
+        while i < len(word):
+            if i < len(word) - 1 and word[i] == first and word[i + 1] == second:
+                merged.append(first + second)
+                i += 2
+            else:
+                merged.append(word[i])
+                i += 1
+        word = tuple(merged)
+    return list(word)
 
 
 def _basic_clean(text: str) -> str:
@@ -135,7 +159,7 @@ class CLIPBPETokenizer:
         self.encoder = dict(vocab)
         self.decoder = {v: k for k, v in self.encoder.items()}
         self.bpe_ranks = {tuple(m): i for i, m in enumerate(merges)}
-        self.byte_encoder = _bytes_to_unicode()
+        self.byte_encoder = bytes_to_unicode()
         self.byte_decoder = {v: k for k, v in self.byte_encoder.items()}
         self.bos_id = self.encoder.get("<|startoftext|>", BOS_ID)
         self.eos_id = self.encoder.get("<|endoftext|>", EOS_ID)
@@ -166,30 +190,7 @@ class CLIPBPETokenizer:
         cached = self._cache.get(token)
         if cached is not None:
             return cached
-        word = tuple(token[:-1]) + (token[-1] + "</w>",)
-        while len(word) > 1:
-            pairs = set(zip(word[:-1], word[1:]))
-            bigram = min(
-                pairs, key=lambda p: self.bpe_ranks.get(p, float("inf"))
-            )
-            if bigram not in self.bpe_ranks:
-                break
-            first, second = bigram
-            merged = []
-            i = 0
-            while i < len(word):
-                if (
-                    i < len(word) - 1
-                    and word[i] == first
-                    and word[i + 1] == second
-                ):
-                    merged.append(first + second)
-                    i += 2
-                else:
-                    merged.append(word[i])
-                    i += 1
-            word = tuple(merged)
-        result = list(word)
+        result = bpe_merge(token, self.bpe_ranks, "</w>")
         self._cache[token] = result
         return result
 

@@ -13,9 +13,11 @@ arguments (a state_dict under transformers' torch keys, e.g. from
 models/convert.py ``load_clip_checkpoint``; the aesthetic MLP from
 ``<cache>/sac+logos+ava1-l14-linearMSE.pth``) and raise ddpo_tpu's
 RuntimeError without them. They run on the card unless ``device="cpu"``
-is passed, in fp32. Server-based: llava_vqa and llava_bertscore, pickle
-over HTTP POST through urllib with the JAX client's retry on HTTP 500.
-vqa (BLIP-2 through transformers) is not ported and raises.
+is passed, in fp32. vqa runs the port's BLIP-2 (models/blip2.py, loaded
+by models/convert.py ``load_blip2`` from a local directory or the Hub
+cache) at fp32 on the card unless ``device="cpu"``. Server-based:
+llava_vqa and llava_bertscore, pickle over HTTP POST through urllib with
+the JAX client's retry on HTTP 500.
 """
 
 from __future__ import annotations
@@ -343,12 +345,58 @@ def single_satisfaction(outputs, answers) -> np.ndarray:
     return np.array([ans in out for ans, out in zip(answers, outputs)], dtype=int)
 
 
-def vqa_satisfaction(*args, **kwargs) -> RewardFn:
-    raise NotImplementedError(
-        "the 'vqa' reward is not ported: it runs BLIP-2 (Salesforce/blip2-opt-2.7b) "
-        "through transformers, and neither those weights nor a port of the model "
-        "are in the repository"
-    )
+def vqa_score_fn(vlm, processor, generation: dict, device, max_new_tokens: int = 8) -> RewardFn:
+    """The vqa reward's scoring on a loaded BLIP-2 (models/blip2.py): each
+    image repeated once per question, ``"Question: {q} Answer:"`` prompts
+    padded to the longest, greedy decoding of ``max_new_tokens``, the
+    decoded rows stripped, and the mean over the questions of whether the
+    answer occurs in its row. The rows hold the prompt too, so an answer
+    word that the question holds scores, as in JAX."""
+    import torch
+
+    def _fn(images, prompts, metadata):
+        n_questions = len(metadata[0]["questions"])
+        images_u8 = (np.clip(images, 0, 1) * 255).astype(np.uint8)
+
+        questions = [
+            f'Question: {m["questions"][i]} Answer:'
+            for m in metadata
+            for i in range(n_questions)
+        ]
+        answers = [m["answers"][i] for m in metadata for i in range(n_questions)]
+        images_rep = [img for img in images_u8 for _ in range(n_questions)]
+
+        inputs = processor(images_rep, questions)
+        generated = vlm.generate(
+            torch.as_tensor(inputs["pixel_values"], device=device),
+            torch.as_tensor(inputs["input_ids"], device=device),
+            torch.as_tensor(inputs["attention_mask"], device=device),
+            max_new_tokens=max_new_tokens, image_tokens=processor.image_tokens, **generation)
+        text = [t.strip() for t in processor.batch_decode(generated.cpu().numpy(),
+                                                           skip_special_tokens=True)]
+
+        correct = single_satisfaction(text, answers)
+        scores = correct.reshape(len(images), n_questions).mean(-1, keepdims=True)
+        return scores, {}
+
+    return _fn
+
+
+def vqa_satisfaction(model_name="Salesforce/blip2-opt-2.7b", jit=False, device=None,
+                     vae=None, **kwargs) -> RewardFn:
+    """BLIP-2 VQA scoring at fp32, on ``device``: by default the device of
+    the driver's ``vae=`` (the driver's --device), else the card.
+    ``model_name`` is a local directory, or a Hub name found in the Hub
+    cache (models/convert.py ``resolve_pretrained``)."""
+    from ddpo_torch.models.convert import load_blip2, resolve_pretrained
+    from ddpo_torch.utils.serialization import resolve_device
+
+    path = resolve_pretrained(model_name)
+    if device is None:
+        device = next(vae.parameters()).device if vae is not None else "cuda"
+    device = resolve_device(device)
+    vlm, processor, generation = load_blip2(path, device)
+    return vqa_score_fn(vlm, processor, generation, device)
 
 
 LLAVA_RETRIES = 1000  # the JAX client's Retry(total=1000, backoff_factor=1)

@@ -216,9 +216,10 @@ def test_rewards_match_jax(name):
 
 
 def test_unported_rewards_raise():
-    # only vqa is not ported; the CLIP rewards are, and without their
-    # weights raise as JAX's do (tests/test_torch_rewards_clip.py)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    # vqa without its model directory names the paths it tried
+    # (tests/test_torch_vqa.py); the CLIP rewards without their weights
+    # raise as JAX's do (tests/test_torch_rewards_clip.py)
+    with pytest.raises(FileNotFoundError, match="blip2-opt-2.7b"):
         t_callbacks.callback_fns["vqa"]()
     for name in ("aesthetic", "consistency", "rotational", "thumbnail"):
         with pytest.raises(RuntimeError, match="unavailable"):

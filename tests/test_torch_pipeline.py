@@ -149,8 +149,8 @@ def test_sigterm_checkpoints_and_exits(workdir, monkeypatch):
 
 
 def test_unported_options_raise(workdir, monkeypatch):
-    """Every option of JAX's driver runs but vqa (callbacks.py) and
-    generate under more than one process. JAX's three tp refusals hold, with
+    """Every option of JAX's driver runs but generate under more than one
+    process. JAX's three tp refusals hold, with
     its messages: tp with sp, LoRA with tp, --grad_reduce_dtype with tp (or
     sp). One process cannot hold a mesh of two (JAX's mesh ValueError), and
     --resident_inner_loop runs."""

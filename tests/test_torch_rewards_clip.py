@@ -135,7 +135,7 @@ def test_consistency_matches_jax(monkeypatch):
 
 def test_clip_rewards_need_their_weights_as_in_jax():
     """Without weights every CLIP factory raises JAX's RuntimeError; vqa
-    names what it lacks."""
+    names the paths where it looked for its model."""
     for name, kwargs in (("aesthetic", {}), ("rotational", {}), ("thumbnail", {}),
                          ("consistency", {}), ("consistency", {"clip_model_params": {}})):
         with pytest.raises(RuntimeError) as t_err:
@@ -143,7 +143,7 @@ def test_clip_rewards_need_their_weights_as_in_jax():
         with pytest.raises(RuntimeError) as j_err:
             j_callbacks.callback_fns[name](**kwargs)
         assert str(t_err.value) == str(j_err.value)
-    with pytest.raises(NotImplementedError, match="BLIP-2.*transformers"):
+    with pytest.raises(FileNotFoundError, match="blip2-opt-2.7b.*tried"):
         t_callbacks.callback_fns["vqa"]()
 
 
