@@ -213,7 +213,18 @@ Phases, in order; any failure exits non-zero:
      both host pickles, and (b) must start at epoch 1. Printed: each
      all-reduce's bytes and seconds, the seconds per update, the epoch
      walls, each rank's peak memory and launches. Each rank's whole output
-     goes to chiprun_out/phase13/.
+     goes to chiprun_out/phase13/. Every two-rank launch (13a, 13b, 14's)
+     prints per rank where its time outside the work went
+     (``launch_breakdown``, from the driver's ``launch timeline`` lines and
+     the launch's wall): the seconds from the process's start to its first
+     epoch (the interpreter and imports, the gloo group, the card's
+     context, the kernel library's hash and load, the models' random init,
+     the sampler's bf16 copy, the rest), the work, each run's start-up /
+     work / exit, and from the last epoch's training end to the return
+     (rank 0's checkpoint copy, the join of its write, the bucket sync, the
+     rest), with the checkpoint's bytes and the JPEG library's first load;
+     then the launch's teardown after the later rank's return; 15c prints
+     the same for its in-process epoch.
   14. the sp mesh axis, two ranks of one sp group on the one card (gloo):
      (k) the kernels at the sp path's new shapes against their plain
      versions: flash forward and backward at local Sq != Sk (2, 2048 x 4096,
@@ -221,8 +232,14 @@ Phases, in order; any failure exits non-zero:
      on a halo'd (4, 320, 34, 64) frame, the SAME map's first and last rows
      dropped, against the plain VALID-over-H conv (and conv3x3 bit for bit
      against the unsharded map's rows, the s8 kernel against
-     conv3x3_w8a8(padding=VALID_ROWS)); (a) one DDPO epoch of
-     ``policy_gradient --mesh_sp 2`` (the spatial mode) as phase 13's
+     conv3x3_w8a8(padding=VALID_ROWS)). Then one launch of two ranks
+     (``MESH_WORKER``) runs 14a, 14d, 15a and 14b/14c/15b in turn in each
+     process: ``policy_gradient.main`` once for each run (the launch
+     counts, the collectives and the peak memory restarted before each, the
+     run's checkpoint directory removed by rank 0 after it, its bytes
+     printed), then ``sp_check.main``; each part of the output is checked
+     as its phase says. (a) one DDPO epoch of
+     ``policy_gradient --mesh_sp 2 --sp_mode spatial`` as phase 13's
      (DDIM-5, 1 of its steps trained: 2 updates), inside
      batch_invariant(): both ranks print the same rewards, parameter digests
      and initial noise, the first minibatch recomputes on-policy (|dlogp| <=
@@ -234,8 +251,21 @@ Phases, in order; any failure exits non-zero:
      gradient); printed: those per forward with
      their bytes and seconds, the ms of a sampler UNet step, s an update,
      the gradient all-reduce's bytes and seconds, peak memory per rank;
-     (b, c) ``ddpo_torch.bench.sp_check`` on two ranks (one launch, which
-     also runs 15b): the sharded UNet's
+     (d) the same epoch with ``--sp_mode attention``: every sp rank computes
+     the whole UNet and only the self-attentions split their queries
+     (parallel/sequence.py), the gradients' mean over the world, the reward
+     on the main thread; both ranks print the same rewards, parameter
+     digests and initial noise and ``sp=2 attention`` (no fallback), the
+     first minibatch recomputes on-policy, each rank launches 14a's kernels
+     (the flash kernels at local Sq 2048 and 512, 10 a forward; 128 and 32
+     take the plain path), and the sequence collectives are exactly 16
+     output gathers a sampler UNet forward, 32 output gathers, 16 dq
+     gathers and 16 + 16 dk/dv sums a trainer apply (forward, remat,
+     backward), and one output gather a VAE decode (its mid-block
+     attention); printed: those per call with their bytes and seconds, ms
+     a sampler UNet step, s an update, the gradient all-reduce's bytes and
+     seconds, peak memory per rank; (b, c) ``ddpo_torch.bench.sp_check``
+     in the same launch (which also runs 15b): the sharded UNet's
      eps at the rollout's 2B = 4 and one update's gradients, spatial (b) and
      attention (c) modes, against the unsharded ones: at fp32 within 2^-12
      of their max, and in bf16 with an error against the unsharded fp32
@@ -245,9 +275,9 @@ Phases, in order; any failure exits non-zero:
      memory. Each rank's output goes to chiprun_out/phase14/.
   15. the tp mesh axis, two ranks of one tp group on the card (gloo), and
      the resident inner loop: (k) the flash kernels at 4 local heads against
-     their plain versions; (a) one DDPO epoch of ``policy_gradient
-     --mesh_tp 2`` (DDIM-5, 1 timestep trained: 2 updates, inside
-     batch_invariant()): both ranks print
+     their plain versions; (a) in phase 14's launch, one DDPO epoch of
+     ``policy_gradient --mesh_tp 2`` (DDIM-5, 1 timestep trained: 2
+     updates, inside batch_invariant()): both ranks print
      the same rewards, initial noise and gathered-parameter digests, the
      replicated leaves are bit-equal across the ranks, the first minibatch
      recomputes on-policy (|dlogp| <= 1e-5, clipfrac 0), each rank launches
@@ -261,8 +291,7 @@ Phases, in order; any failure exits non-zero:
      most 1e-2 of the update's norm and the first group's losses within
      1e-4, then one ``--resident_inner_loop True`` driver epoch at phase 7's
      settings cut to DDIM-20 with 2 timesteps trained (finite loss, the
-     first minibatch on-policy). Each rank's output goes to
-     chiprun_out/phase15/.
+     first minibatch on-policy).
 
 The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}. With no CUDA device, or run
@@ -278,6 +307,7 @@ from __future__ import annotations
 
 import contextlib
 import glob
+import io
 import json
 import os
 import shutil
@@ -3298,16 +3328,80 @@ def rank_values(outs, pattern, cast=str):
     return found
 
 
-def run_ranks(tag, argv, cwd, env, timeout, module="ddpo_torch.pipelines.policy_gradient"):
-    """Two ranks of ``module`` (the DDPO driver) on the one card (LOCAL_RANK 0
-    each); each rank's whole output goes to chiprun_out/phase<tag's phase>/."""
+class Tee(io.StringIO):
+    """Keeps what is written and passes it on to ``stream`` at once."""
+
+    def __init__(self, stream):
+        super().__init__()
+        self.stream = stream
+
+    def write(self, text):
+        self.stream.write(text)
+        self.stream.flush()
+        return super().write(text)
+
+
+def timelines(out):
+    """The ``launch timeline (s)`` objects a rank printed, one per driver
+    ``main`` (or sp_check run), in order."""
+    return [json.loads(line.split("launch timeline (s) ", 1)[1])
+            for line in out.splitlines() if "launch timeline (s) " in line]
+
+
+def launch_breakdown(tag, outs, launched, returned, smi):
+    """Each rank's start-up, work and exit for one two-rank launch, from its
+    timeline lines (wall clock: the launch ran from ``launched`` to
+    ``returned``): the seconds from the process's start to its first work
+    (the interpreter and imports, then the driver's start-up parts), each
+    run's work, the start-ups of later runs in the same process, and from
+    the last work's end to its return (the parts the driver timed); then
+    the launch's wall, its teardown after the later rank's return, and the
+    slower rank's seconds outside its work."""
+    outside, last_return = [], 0.0
+    for rank, out in enumerate(outs):
+        runs = timelines(out)
+        if not runs:
+            fail(f"{tag}: rank {rank} printed no launch timeline")
+        first, last = runs[0], runs[-1]
+        if first["before_main"] is None:
+            fail(f"{tag}: rank {rank} could not read its process's age")
+        to_work = first["before_main"] + first["main_to_work"]
+        work_start = first["returned_at"] - first["exit_to_return"] - first["work"]
+        work = sum(r["work"] for r in runs)
+        between = last["returned_at"] - last["exit_to_return"] - work_start - work
+        last_return = max(last_return, last["returned_at"])
+        parts = ", ".join(f"{k} {v:.2f}" for k, v in first["startup"].items())
+        leaving = ", ".join(f"{k} {v:.2f}" for k, v in last["exit"].items())
+        each = "; ".join(f"{r['main_to_work']:.2f} / {r['work']:.2f} / {r['exit_to_return']:.2f}"
+                         + (f" (checkpoint {r['checkpoint']})"
+                            if rank == 0 and (r.get("checkpoint") or {}).get("bytes") else "")
+                         for r in runs)
+        log(f"{tag} rank {rank}: {to_work:.2f} s from the process's start to its first work "
+            f"(the interpreter and imports {first['before_main']:.2f}, then {parts}); work "
+            f"{work:.2f} s" + (f" with {between:.2f} s of in-process start-ups and exits between "
+                               f"its {len(runs)} runs" if len(runs) > 1 else "")
+            + f"; {last['exit_to_return']:.2f} s from the last work's end to the return "
+            f"({leaving}); each run's start-up / work / exit {each}; the JPEG library's first "
+            f"load {first.get('jpeg_library') or 0:.3f} s ({smi})")
+        outside.append(returned - (work_start - to_work) - work)
+    log(f"{tag}: the launch's wall {returned - launched:.1f} s, its teardown after the later "
+        f"rank's return {returned - last_return:.2f} s, outside the work {max(outside):.1f} s "
+        f"on the slower rank ({smi})")
+
+
+def run_ranks(tag, argv, cwd, env, timeout, module="ddpo_torch.pipelines.policy_gradient",
+              smi="", cmd=None):
+    """Two ranks of ``module`` (the DDPO driver), or of ``cmd``, on the one
+    card (LOCAL_RANK 0 each); each rank's whole output goes to
+    chiprun_out/phase<tag's phase>/, and its start-up and exit are logged
+    (``launch_breakdown``)."""
     from ddpo_torch.parallel.launch import launch
 
     os.makedirs(cwd, exist_ok=True)
-    start = time.perf_counter()
-    results = launch([sys.executable, "-m", module, *argv],
-                     2, timeout=timeout, env=env, cwd=cwd, local_rank=lambda r: 0)
-    wall = time.perf_counter() - start
+    launched = time.time()
+    results = launch(cmd or [sys.executable, "-m", module, *argv], 2, timeout=timeout,
+                     env=env, cwd=cwd, local_rank=lambda r: 0)
+    returned = time.time()
     logdir = os.path.join(REPO, "chiprun_out", f"phase{tag[:2]}")
     os.makedirs(logdir, exist_ok=True)
     for rank, (rc, out) in enumerate(results):  # every rank's log before a failure
@@ -3317,7 +3411,9 @@ def run_ranks(tag, argv, cwd, env, timeout, module="ddpo_torch.pipelines.policy_
         if rc != 0:
             print(out[-6000:], file=sys.stderr, flush=True)
             fail(f"{tag}: rank {rank} exited {rc}")
-    return [out for _, out in results], wall
+    outs = [out for _, out in results]
+    launch_breakdown(tag, outs, launched, returned, smi)
+    return outs, returned - launched
 
 
 def check_ranks(tag, outs, want, smi, epochs, remote, args):
@@ -3420,7 +3516,7 @@ def phase_ddpo_ranks(unet_gn, vae_gn, unet_conv, smi):
     marks = [("start", time.perf_counter())]
 
     outs, wall = run_ranks("13a", PHASE13_ARGV + ["--num_train_epochs", "1"],
-                           os.path.join(work, "host_a"), env, timeout=420)
+                           os.path.join(work, "host_a"), env, timeout=420, smi=smi)
     marks.append(("13a", time.perf_counter()))
     first = check_ranks("13a", outs, want, smi, [0], remote, args)
     log(f"13a: two ranks, one epoch, {wall:.1f} s from launch to exit ({smi})")
@@ -3435,7 +3531,7 @@ def phase_ddpo_ranks(unet_gn, vae_gn, unet_conv, smi):
 
     outs, wall = run_ranks("13b", PHASE13_ARGV + ["--num_train_epochs", "2", "--resume", "True",
                                                   "--grad_reduce_dtype", "bfloat16"],
-                           os.path.join(work, "host_b"), env, timeout=480)
+                           os.path.join(work, "host_b"), env, timeout=480, smi=smi)
     marks.append(("13b", time.perf_counter()))
     resumed = rank_values(outs, r"resumed from checkpoint at epoch (\d+)", int)
     fetched = rank_values(outs, r"(fetched remote checkpoints)")
@@ -3472,9 +3568,6 @@ SP_PER_UNET_BACKWARD = {"halo": 48, "halo_top": 3, "psum": 61, "gather_kv": 16}
 # (B, Sq, Sk, H, D) at the trainer's 2B = 2 (train batch 1): the two levels
 # whose local queries meet the flash gate, against the gathered K/V
 SP_FLASH_CASES = [(2, 2048, 4096, 8, 40), (2, 512, 1024, 8, 80)]
-# 14b/14c/15b's two ranks: the bf16 and fp32 passes of the three modes
-# (300 s until the fp32 passes joined)
-SP_CHECK_TIMEOUT = 600
 # cut: DDIM-5, 1 of its timesteps trained (2 updates), so phases 13-15 keep
 # the script well inside its limit on a slow host (the sharded sampler's
 # steps are its slowest part)
@@ -3571,79 +3664,216 @@ def sp_comm_expected(forwards, applies, updates):
     return want
 
 
-def phase_sp_ranks(unet_gn, vae_gn, unet_conv, smi):
-    """14a: one DDPO epoch on two ranks of one sp group (spatial mode);
-    14b/14c (and 15b): ddpo_torch.bench.sp_check, the sharded UNet's eps
-    and an update's gradients against the unsharded ones, in both sp modes
-    and tp's."""
-    import numpy as np
-    import torch
+# the attention mode (--sp_mode attention): every sp rank computes the whole
+# UNet and only the self-attentions split their queries; at SD-1.4 all 16
+# do (S = 4096, 1024 and 256 five times each, the mid block's 64), each
+# gathering its output rows once a forward; an update's backward gathers
+# each one's dq and sums its dk and dv over the ranks (the output gather's
+# backward is a slice); the VAE decoder's mid-block attention shards too
+# (one gather a decode: it is in neither per-call count)
+SEQ_PER_UNET_FORWARD = {"seq_out": 16}
+SEQ_PER_TRAINER_APPLY = {"seq_out": 32, "seq_q.bwd": 16, "seq_k.bwd": 16, "seq_v.bwd": 16}
+SEQ_PER_VAE_DECODE = {"seq_out": 1}
+# one launch of two ranks for 14a, 14d, 15a and then 14b/14c/15b: each rank
+# calls policy_gradient.main once for each (tag, argv), then sp_check.main;
+# before each, the launch counts, the collectives and the peak memory start
+# again (a line starting with MESH_MARK and the tag splits the output), and
+# after each driver run rank 0 removes the run's checkpoints (no check reads
+# them), so the phase holds one checkpoint at a time
+MESH_MARK = "[ chip_smoke worker ] run "
+MESH_WORKER = r"""
+import gc, glob, json, os, shutil, sys
+import torch
+from ddpo_torch.bench import sp_check
+from ddpo_torch.ops import _build
+from ddpo_torch.ops.spatial import reset_comm
+from ddpo_torch.parallel import destroy_distributed, process_barrier, process_index
+from ddpo_torch.pipelines import policy_gradient
 
+MARK = %r
+
+
+def fresh(tag):
+    gc.collect()  # the last run's models and state
+    torch.cuda.empty_cache()
+    _build.reset_launch_counts()
+    reset_comm()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"{MARK}{tag}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated at its "
+          "start", flush=True)
+
+
+for tag, argv in json.loads(sys.argv[1]):
+    fresh(tag)
+    policy_gradient.main(argv)
+    process_barrier(tag)  # every rank's checkpoint files are written
+    if process_index() == 0:
+        for d in glob.glob(os.path.join(os.environ["DDPO_BUCKET"], "**", "checkpoints"),
+                           recursive=True):
+            size = sum(os.path.getsize(f) for f in glob.glob(os.path.join(d, "**"),
+                                                              recursive=True)
+                       if os.path.isfile(f))
+            shutil.rmtree(d)
+            print(f"{MARK}{tag} end: removed {d} ({size} bytes)", flush=True)
+fresh("sp_check")
+ok = sp_check.main([])["ok"]
+destroy_distributed()
+sys.exit(0 if ok else 1)
+""" % MESH_MARK
+# the launch's time limit: four runs and the start-up (about 300 s on the card)
+MESH_TIMEOUT = 900
+
+
+def split_runs(outs, tags):
+    """Each rank's output cut at the worker's marks: {tag: [rank 0's part,
+    rank 1's part]}, the parts in ``tags``' order."""
+    import re
+
+    parts = {tag: [] for tag in tags}
+    for out in outs:
+        pieces = re.split(r"^" + re.escape(MESH_MARK) + r"(\S+?): .*$", out, flags=re.M)
+        found = dict(zip(pieces[1::2], pieces[2::2]))
+        if list(found) != list(tags):
+            fail(f"14-15: a rank's runs were {list(found)}, expected {list(tags)}")
+        for tag in tags:
+            parts[tag].append(found[tag])
+    return parts
+
+
+def mesh_run(argv, unet_gn, vae_gn, unet_conv, flash_per_forward):
+    """(args, n_updates, forwards, the expected launches) of one mesh run
+    of the DDPO driver: the sampler's 2B calls and the trainer's forward and
+    remat recompute, inside batch_invariant()."""
     from ddpo_torch.pipelines import policy_gradient
 
-    torch.cuda.empty_cache()
-    args = policy_gradient.Parser().parse_args("pg", list(PHASE14_ARGV), setup=False)
+    args = policy_gradient.Parser().parse_args("pg", list(argv), setup=False)
     steps, n_sample = args.n_inference_steps, args.num_sample_batches_per_epoch
     num_ts = int(steps * args.train_timestep_ratio)
     n_updates = args.sample_batch_size * n_sample // args.train_batch_size * num_ts
-    forwards = steps * n_sample + 2 * n_updates  # sampler + trainer forward and remat
-    log(f"14: two ranks, one sp group (dp 1 x sp 2, --sp_mode spatial) on one card, "
-        f"--dataset compressed-animals at SD-1.4 width, sample batch {args.sample_batch_size}, "
-        f"train batch {args.train_batch_size}, {steps} steps, CFG {args.guidance_scale}; cut: "
-        f"--train_timestep_ratio {args.train_timestep_ratio} ({n_updates} updates)")
+    forwards = steps * n_sample + 2 * n_updates
     want = expected(
-        flash_fwd=FLASH_PER_SP_FORWARD * forwards,
-        flash_bwd_dq=FLASH_PER_SP_FORWARD * n_updates,
-        flash_bwd_dkv=FLASH_PER_SP_FORWARD * n_updates,
+        flash_fwd=flash_per_forward * forwards,
+        flash_bwd_dq=flash_per_forward * n_updates,
+        flash_bwd_dkv=flash_per_forward * n_updates,
         gn_stats=unet_gn * forwards + vae_gn * n_sample,
         conv3x3=unet_conv * forwards,
     )
-    want_comm = sp_comm_expected(forwards, steps * n_sample + n_updates, n_updates)
-    work = tempfile.mkdtemp(prefix="chip_smoke_sp_")
-    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
-               DDPO_BUCKET=os.path.join(work, "bucket"))
-    marks = [("start", time.perf_counter())]
-    cwd = os.path.join(work, "host")
-    outs, wall = run_ranks("14a", PHASE14_ARGV, cwd, env, timeout=480)
-    marks.append(("14a", time.perf_counter()))
+    return args, n_updates, forwards, want
 
+
+def first_minibatch(tag, cwd, args, what):
+    """The first minibatch's recompute from the run's train_info/0_0_0.npy
+    (rank 0's, the infos' mean over dp): fails unless on-policy."""
+    import numpy as np
+
+    found = glob.glob(os.path.join(cwd, "logs", "**", tag, "train_info", "0_0_0.npy"),
+                      recursive=True)
+    if len(found) != 1:
+        fail(f"{tag}: expected one {tag}/train_info/0_0_0.npy under {cwd}/logs, found {found}")
+    infos = np.load(found[0], allow_pickle=True).item()
+    num_ts = int(args.n_inference_steps * args.train_timestep_ratio)
+    first_dlogp = (2.0 * args.train_batch_size * num_ts * infos["approx_kl"][0]) ** 0.5
+    log(f"{tag}: first minibatch (2B = {2 * args.train_batch_size} against the sampler's "
+        f"2B = {2 * args.sample_batch_size}, {what}) approx_kl {infos['approx_kl'][0]:.3e}, "
+        f"clipfrac {infos['clipfrac'][0]:.3f}, max|dlogp| <= {first_dlogp:.3e} (bound 1e-5)")
+    if not (first_dlogp <= 1e-5 and infos["clipfrac"][0] == 0.0):
+        fail(f"{tag}: the first minibatch's recompute is off-policy")
+    if not np.isfinite([*infos["loss"], *infos["approx_kl"]]).all():
+        fail(f"{tag}: non-finite train infos")
+
+
+def equal_ranks(tag, outs, mode_line):
+    """The checks every mesh run shares: both ranks print ``mode_line``, one
+    epoch's equal rewards and parameter digests, and the same initial noise
+    (one dp slice); returns (rewards, digests, noise) of rank 0."""
     rewards = rank_values(outs, r"epoch (\d+) mean reward: (\S+)")
     noise = rank_values(outs, r"initial noise digest (\w+)")
     digests = rank_values(outs, r"epoch (\d+) params digest (\w+)")
-    modes = rank_values(outs, r"(sp=2 spatial)")
+    modes = rank_values(outs, "(" + mode_line + ")")
+    if not all(modes) or any("falling back to sp_mode" in out for out in outs):
+        fail(f"{tag}: a rank did not run '{mode_line}'")
+    if rewards[0] != rewards[1] or len(rewards[0]) != 1:
+        fail(f"{tag}: the ranks' rewards differ: {rewards}")
+    if digests[0] != digests[1] or len(digests[0]) != 1:
+        fail(f"{tag}: the ranks' parameter digests differ: {digests}")
+    if noise[0] != noise[1] or len(noise[0]) != 1:
+        fail(f"{tag}: the ranks of one dp slice must draw the same noise: {noise}")
+    return rewards[0], digests[0], noise[0]
+
+
+def rank_end(tag, outs, rank, want, smi):
+    """A rank's peak memory and launches (fails unless ``want``)."""
+    ends = rank_values(outs, r"rank (\d+): peak memory (\S+) GiB \| kernel launches (\{.*\})")
+    if len(ends[rank]) != 1:
+        fail(f"{tag}: rank {rank} printed no peak memory and launches")
+    launched = json.loads(ends[rank][0][2])
+    log(f"{tag} rank {rank}: launches {launched}, expected {want}")
+    if not launches_match(launched, want):
+        fail(f"{tag}: rank {rank} launched {launched}, expected {want}")
+    return ends[rank][0][1]
+
+
+def check_mesh_run(tag, outs, cwd, run, kind, mode_line, what, want_comm, keep, smi,
+                   pinned=None):
+    """The checks and numbers every mesh run of the DDPO driver shares:
+    ``equal_ranks``, an on-policy first minibatch, each rank's ``kind``
+    collectives of the epoch (those ``keep`` names) exactly ``want_comm``
+    and, where ``pinned`` gives (a sampler forward's, a trainer apply's),
+    its per-call counts exactly those, each rank's launches; logged per
+    rank: the sampler step, the update, the gradient all-reduce and the
+    peak memory. ``run`` is ``mesh_run``'s. Returns (rewards, digests,
+    noise, each rank's epoch collectives, each rank's per-call pair)."""
+    args, n_updates, forwards, want = run
+    steps = args.n_inference_steps
     samples = rank_values(outs, r"sample batch \d+: \d+ samples in (\S+)s", float)
     updates = rank_values(outs, r"epoch 0\.0: .*\| (\S+)s, (\S+) s an update \((\d+)\)")
     reduces = rank_values(outs, r"gradient all-reduce \((\w+), (\w+)\): (\d+) calls, (\d+) bytes "
                                 r"each, seconds (.*)")
-    ends = rank_values(outs, r"rank (\d+): peak memory (\S+) GiB \| kernel launches (\{.*\})")
-    comms = rank_values(outs, r"rank \d+: sp collectives \(calls, bytes, seconds\) (\{.*\})",
+    comms = rank_values(outs, rf"rank \d+: {kind} collectives \(calls, bytes, seconds\) (\{{.*\}})",
                         json.loads)
-    if rewards[0] != rewards[1] or len(rewards[0]) != 1:
-        fail(f"14a: the sp ranks' rewards differ: {rewards}")
-    if digests[0] != digests[1] or len(digests[0]) != 1:
-        fail(f"14a: the sp ranks' parameter digests differ: {digests}")
-    if noise[0] != noise[1] or len(noise[0]) != 1:
-        fail(f"14a: the sp ranks of one dp slice must draw the same noise: {noise}")
-    if not all(modes) or not all(len(c) == 1 for c in comms) or not all(len(e) == 1 for e in ends):
-        fail(f"14a: a rank did not run the spatial mode or print its collectives and launches")
-    found = glob.glob(os.path.join(cwd, "logs", "**", "train_info", "0_0_0.npy"), recursive=True)
-    if len(found) != 1:
-        fail(f"14a: expected one train_info/0_0_0.npy under {cwd}/logs, found {found}")
-    infos = np.load(found[0], allow_pickle=True).item()
-    first_dlogp = (2.0 * args.train_batch_size * num_ts * infos["approx_kl"][0]) ** 0.5
-    log(f"14a: first minibatch (2B = {2 * args.train_batch_size} sharded against the "
-        f"sampler's 2B = {2 * args.sample_batch_size} sharded) approx_kl "
-        f"{infos['approx_kl'][0]:.3e}, clipfrac {infos['clipfrac'][0]:.3f}, max|dlogp| <= "
-        f"{first_dlogp:.3e} (bound 1e-5)")
-    if not (first_dlogp <= 1e-5 and infos["clipfrac"][0] == 0.0):
-        fail("14a: the first minibatch's recompute is off-policy")
-    log(f"14a: rewards {rewards[0]}, params digests {digests[0]}, initial noise digests "
-        f"{noise[0]} (equal on both sp ranks) ({smi})")
+    per_call = rank_values(outs, rf"{kind} collectives a sampler UNet forward (\{{.*?\}}) \| a "
+                                 r"trainer apply (\{.*?\}) \(calls")
+    rewards, digests, noise = equal_ranks(tag, outs, mode_line)
+    if not all(len(c) == 1 for c in comms) or (pinned and not all(len(p) == 1 for p in per_call)):
+        fail(f"{tag}: a rank did not print its collectives")
+    first_minibatch(tag, cwd, args, what)
     for rank in range(2):
-        comm = comms[rank][0]
-        calls = {k: v[0] for k, v in comm.items() if not k.startswith("shard_in")}
+        calls = {k: v[0] for k, v in comms[rank][0].items() if keep(k)}
         if calls != want_comm:
-            fail(f"14a: rank {rank} made the collectives {calls}, expected {want_comm}")
+            fail(f"{tag}: rank {rank} made the collectives {calls}, expected {want_comm}")
+        if pinned:
+            fwd, apply = (json.loads(x) for x in per_call[rank][0])
+            got = ({k: v[0] for k, v in fwd.items()},
+                   {k: v[0] for k, v in apply.items() if keep(k)})
+            if got != tuple(pinned):
+                fail(f"{tag}: rank {rank} collectives a forward {got[0]} and an apply "
+                     f"{got[1]}, pinned {pinned[0]} and {pinned[1]}")
+        _, per_update, n = updates[rank][0]
+        reduce = ""
+        if reduces[rank]:
+            _, dtype, red_calls, nbytes, secs = reduces[rank][0]
+            reduce = (f"gradient all-reduce ({dtype}) {red_calls} calls of {int(nbytes)} bytes, "
+                      f"seconds {secs}; ")
+        peak = rank_end(tag, outs, rank, want, smi)
+        log(f"{tag} rank {rank}: sampler {samples[rank][0]:.2f} s for {steps} steps = "
+            f"{1e3 * samples[rank][0] / steps:.1f} ms a sampler UNet step (the batch's VAE "
+            f"decode and collectives included); {per_update} s an update ({n}); {reduce}"
+            f"peak memory {peak} GiB ({smi})")
+    return rewards, digests, noise, [c[0] for c in comms], [p[0] if p else None for p in per_call]
+
+
+def check_sp_spatial(outs, cwd, unet_gn, vae_gn, unet_conv, smi):
+    """14a: one DDPO epoch of --mesh_sp 2 --sp_mode spatial."""
+    run = mesh_run(PHASE14_ARGV, unet_gn, vae_gn, unet_conv, FLASH_PER_SP_FORWARD)
+    args, n_updates, forwards, _ = run
+    want_comm = sp_comm_expected(forwards, args.n_inference_steps
+                                 * args.num_sample_batches_per_epoch + n_updates, n_updates)
+    rewards, digests, noise, comms, _ = check_mesh_run(
+        "14a", outs, cwd, run, "sp", "sp=2 spatial", "sharded, against the sampler's sharded",
+        want_comm, lambda k: not k.startswith("shard_in"), smi)
+    log(f"14a: rewards {rewards}, params digests {digests}, initial noise digests {noise} "
+        f"(equal on both sp ranks) ({smi})")
+    for rank, comm in enumerate(comms):
         per_fwd = {k: (SP_PER_UNET_FORWARD[k], comm[k][1] / comm[k][0] * SP_PER_UNET_FORWARD[k],
                        comm[k][2] / comm[k][0] * SP_PER_UNET_FORWARD[k])
                    for k in SP_PER_UNET_FORWARD}
@@ -3657,37 +3887,65 @@ def phase_sp_ranks(unet_gn, vae_gn, unet_conv, smi):
             f"steps at 2B = {2 * args.sample_batch_size}, the trainer's forward and remat at 2B "
             f"= {2 * args.train_batch_size}); the backwards' over {n_updates} updates "
             f"(calls, bytes, s) {bwd} ({smi})")
-        step_ms = 1e3 * samples[rank][0] / steps
-        _, per_update, n = updates[rank][0]
-        _, dtype, red_calls, nbytes, secs = reduces[rank][0]
-        log(f"14a rank {rank}: sampler {samples[rank][0]:.2f} s for {steps} steps = "
-            f"{step_ms:.1f} ms a sampler UNet step (the batch's VAE decode and collectives "
-            f"included); "
-            f"{per_update} s an update ({n}); gradient all-reduce ({dtype}) {red_calls} calls of "
-            f"{int(nbytes)} bytes, seconds {secs}; peak memory {ends[rank][0][1]} GiB ({smi})")
-        launched = json.loads(ends[rank][0][2])
-        log(f"14a rank {rank}: launches {launched}, expected {want}")
-        if not launches_match(launched, want):
-            fail(f"14a: rank {rank} launched {launched}, expected {want}")
-    log(f"14a: {wall:.1f} s from launch to exit ({smi})")
-
-    phase_sp_check(os.path.join(work, "check"), env, smi)
-    marks.append(("14b+c and 15b", time.perf_counter()))
-    shutil.rmtree(work, ignore_errors=True)
-    log("phase 14 wall: " + ", ".join(f"{name} {t - marks[i][1]:.1f} s"
-                                      for i, (name, t) in enumerate(marks[1:])))
 
 
-def phase_sp_check(cwd, env, smi):
-    """14b/14c/15b: ddpo_torch.bench.sp_check on two ranks of the
-    one card, one launch: the sharded UNet's eps and an update's gradients
-    against the unsharded ones, (a) at fp32, (b) bf16 against the fp32
-    reference; 14b and 14c for one sp group (spatial and attention modes),
-    15b for one tp group."""
-    outs, wall = run_ranks("14b", [], cwd, env, timeout=SP_CHECK_TIMEOUT,
-                           module="ddpo_torch.bench.sp_check")
-    log(f"14b+c and 15b: {wall:.1f} s from launch to exit (timeout {SP_CHECK_TIMEOUT} s) "
-        f"({smi})")
+def check_sp_attention(outs, cwd, unet_gn, vae_gn, unet_conv, smi):
+    """14d: one DDPO epoch of --mesh_sp 2 --sp_mode attention, at 14a's
+    settings: the same flash launches as 14a's (local Sq 2048 and 512 meet
+    the gate, 128 and 32 take the plain path), the pinned sequence
+    collectives, the gradients' mean over the world."""
+    run = mesh_run(PHASE14_ARGV, unet_gn, vae_gn, unet_conv, FLASH_PER_SP_FORWARD)
+    args, n_updates, _, _ = run
+    n_sample = args.num_sample_batches_per_epoch
+    want_comm = {}
+    for per, calls in ((SEQ_PER_UNET_FORWARD, args.n_inference_steps * n_sample),
+                       (SEQ_PER_TRAINER_APPLY, n_updates), (SEQ_PER_VAE_DECODE, n_sample)):
+        for k, v in per.items():
+            want_comm[k] = want_comm.get(k, 0) + v * calls
+    rewards, digests, noise, comms, per_call = check_mesh_run(
+        "14d", outs, cwd, run, "sp", "sp=2 attention",
+        "queries split over sp, against the sampler's", want_comm, lambda k: True, smi,
+        pinned=(SEQ_PER_UNET_FORWARD, SEQ_PER_TRAINER_APPLY))
+    log(f"14d: rewards {rewards}, params digests {digests}, initial noise digests {noise} "
+        f"(equal on both sp ranks) ({smi})")
+    for rank, (comm, (fwd, apply)) in enumerate(zip(comms, per_call)):
+        log(f"14d rank {rank}: sequence collectives a sampler UNet forward at 2B = "
+            f"{2 * args.sample_batch_size} (calls, bytes this rank put in, s) {fwd}; a trainer "
+            f"apply at 2B = {2 * args.train_batch_size} (forward, remat, backward) {apply}; "
+            f"the epoch's {comm} (pinned host staging + gloo; seconds include the wait for the "
+            f"other rank; the gradient all-reduce is the mean over the world) ({smi})")
+
+
+def check_tp(outs, cwd, unet_gn, vae_gn, unet_conv, smi):
+    """15a: one DDPO epoch of --mesh_tp 2."""
+    run = mesh_run(PHASE15_ARGV, unet_gn, vae_gn, unet_conv, FLASH_PER_UNET_FORWARD)
+    args, n_updates, forwards, _ = run
+    want_comm = {"tp_reduce": TP_PER_UNET_FORWARD["tp_reduce"] * forwards,
+                 "tp_copy.bwd": TP_PER_TRAINER_APPLY["tp_copy.bwd"] * n_updates}
+    replicated = rank_values(outs, r"epoch (\d+) replicated params digest (\w+) \((\d+) tensors")
+    if replicated[0] != replicated[1] or len(replicated[0]) != 1:
+        fail(f"15a: the replicated leaves differ across the tp ranks: {replicated}")
+    rewards, digests, noise, _, per_call = check_mesh_run(
+        "15a", outs, cwd, run, "tp", "tp=2: the transformer blocks' Linears split",
+        "row-parallel products at K = C / 2", want_comm, want_comm.__contains__, smi,
+        pinned=(TP_PER_UNET_FORWARD, TP_PER_TRAINER_APPLY))
+    log(f"15a: rewards {rewards}, gathered params digests {digests}, replicated leaves' "
+        f"digests {replicated[0]} (bit-equal on both ranks), initial noise digests {noise} "
+        f"(equal on both tp ranks) ({smi})")
+    for rank, (fwd, apply) in enumerate(per_call):
+        log(f"15a rank {rank}: tp collectives a sampler UNet forward at 2B = "
+            f"{2 * args.sample_batch_size} (calls, bytes this rank put in, s) {fwd}; a trainer "
+            f"apply at 2B = {2 * args.train_batch_size} (forward, remat, backward) {apply} "
+            f"(pinned {TP_PER_UNET_FORWARD}, {TP_PER_TRAINER_APPLY}: pinned host staging + "
+            f"gloo, fp32 sums of bf16 partials; seconds include the wait for the other rank) "
+            f"({smi})")
+
+
+def check_sp_reports(outs, smi):
+    """14b/14c/15b: ddpo_torch.bench.sp_check's reports, the sharded UNet's
+    eps and an update's gradients against the unsharded ones, (a) at fp32,
+    (b) bf16 against the fp32 reference; 14b and 14c for one sp group
+    (spatial and attention modes), 15b for one tp group."""
     reports = rank_values(outs, r"^SP_CHECK (\{.*\})$", json.loads)
     if not all(len(r) == 1 for r in reports):
         fail("14b: a rank printed no SP_CHECK line")
@@ -3728,6 +3986,53 @@ def phase_sp_check(cwd, env, smi):
         log(f"14b+c and 15b rank {rank}: peak memory {rep['peak_gib']:.2f} GiB ({smi})")
 
 
+def phase_mesh_ranks(unet_gn, vae_gn, unet_conv, smi):
+    """14a, 14d, 15a and 14b/14c/15b in one launch of two ranks on the one
+    card (MESH_WORKER): the spatial and attention modes of sp and the tp
+    axis through the DDPO driver, each checked as its phase says, then
+    sp_check's three modes against the unsharded UNet."""
+    from ddpo_torch.native import build as native_build
+    from ddpo_torch.ops import _build
+
+    # the ranks load the libraries built here, never building them at once
+    _build.load_library()
+    native_build.build()
+    import re
+
+    import torch
+
+    torch.cuda.empty_cache()
+    runs = [("14a", PHASE14_ARGV + ["--sp_mode", "spatial"]),
+            ("14d", PHASE14_ARGV + ["--sp_mode", "attention"]),
+            ("15a", PHASE15_ARGV)]
+    args, n_updates, _, _ = mesh_run(PHASE14_ARGV, unet_gn, vae_gn, unet_conv,
+                                     FLASH_PER_SP_FORWARD)
+    log(f"14-15: one launch of two ranks on one card (gloo): 14a --mesh_sp 2 --sp_mode "
+        f"spatial, 14d --mesh_sp 2 --sp_mode attention, 15a --mesh_tp 2 (each dp 1), then "
+        f"sp_check (14b, 14c, 15b); --dataset compressed-animals at SD-1.4 width, sample batch "
+        f"{args.sample_batch_size}, train batch {args.train_batch_size}, "
+        f"{args.n_inference_steps} steps, CFG {args.guidance_scale}; cut: "
+        f"--train_timestep_ratio {args.train_timestep_ratio} ({n_updates} updates a run)")
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               DDPO_BUCKET=os.path.join(work, "bucket"))
+    cwd = os.path.join(work, "host")
+    argv = json.dumps([(tag, a + ["--savepath", f"models/{tag}"]) for tag, a in runs])
+    outs, wall = run_ranks("14-15", [], cwd, env, timeout=MESH_TIMEOUT, smi=smi,
+                           cmd=[sys.executable, "-c", MESH_WORKER, argv])
+    parts = split_runs(outs, [tag for tag, _ in runs] + ["sp_check"])
+    removed = rank_values(outs, re.escape(MESH_MARK) + r"(\S+) end: removed \S+ \((\d+) bytes\)")
+    log("14-15: the bytes written, each run's checkpoint directory (removed after the run "
+        "by rank 0): " + ", ".join(f"{tag} {int(nbytes)}" for tag, nbytes in removed[0])
+        + f" ({smi})")
+    check_sp_spatial(parts["14a"], cwd, unet_gn, vae_gn, unet_conv, smi)
+    check_sp_attention(parts["14d"], cwd, unet_gn, vae_gn, unet_conv, smi)
+    check_tp(parts["15a"], cwd, unet_gn, vae_gn, unet_conv, smi)
+    check_sp_reports(parts["sp_check"], smi)
+    log(f"14-15: {wall:.1f} s from launch to exit ({smi})")
+    shutil.rmtree(work, ignore_errors=True)
+
+
 # ---- phase 15: the tp mesh axis, two ranks on the one card; the resident loop ----
 
 # (B, S, S, H, D): the flash kernels at tp = 2's local heads (8 / 2) at the
@@ -3755,114 +4060,6 @@ def check_tp_kernels(flash_results, bwd_results):
 
     check_flash(flash_results, TP_FLASH_CASES, (torch.bfloat16,), "15k ")
     check_flash_bwd(bwd_results, TP_FLASH_CASES, (torch.bfloat16,), "15k ")
-
-
-def phase_tp_ranks(unet_gn, vae_gn, unet_conv, smi):
-    """15a: one DDPO epoch of --mesh_tp 2 on two ranks of the one card (15b
-    runs in 14b's launch)."""
-    import numpy as np
-    import torch
-
-    from ddpo_torch.native import build as native_build
-    from ddpo_torch.ops import _build
-    from ddpo_torch.pipelines import policy_gradient
-
-    # the ranks load the libraries built here, never building them at once
-    _build.load_library()
-    native_build.build()
-    torch.cuda.empty_cache()
-    args = policy_gradient.Parser().parse_args("pg", list(PHASE15_ARGV), setup=False)
-    steps, n_sample = args.n_inference_steps, args.num_sample_batches_per_epoch
-    num_ts = int(steps * args.train_timestep_ratio)
-    n_updates = args.sample_batch_size * n_sample // args.train_batch_size * num_ts
-    forwards = steps * n_sample + 2 * n_updates  # sampler + trainer forward and remat
-    log(f"15: two ranks, one tp group (dp 1 x tp 2) on one card, --dataset compressed-animals "
-        f"at SD-1.4 width, sample batch {args.sample_batch_size}, train batch "
-        f"{args.train_batch_size}, {steps} steps, CFG {args.guidance_scale}; cut: "
-        f"--train_timestep_ratio {args.train_timestep_ratio} ({n_updates} updates)")
-    # per rank, as phase 7 at this shape: every self-attention on 4 local heads
-    want = expected(
-        flash_fwd=FLASH_PER_UNET_FORWARD * forwards,
-        flash_bwd_dq=FLASH_PER_UNET_FORWARD * n_updates,
-        flash_bwd_dkv=FLASH_PER_UNET_FORWARD * n_updates,
-        gn_stats=unet_gn * forwards + vae_gn * n_sample,
-        conv3x3=unet_conv * forwards,
-    )
-    want_comm = {"tp_reduce": TP_PER_UNET_FORWARD["tp_reduce"] * forwards,
-                 "tp_copy.bwd": TP_PER_TRAINER_APPLY["tp_copy.bwd"] * n_updates}
-    work = tempfile.mkdtemp(prefix="chip_smoke_tp_")
-    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
-               DDPO_BUCKET=os.path.join(work, "bucket"))
-    cwd = os.path.join(work, "host")
-    outs, wall = run_ranks("15a", PHASE15_ARGV, cwd, env, timeout=480)
-
-    rewards = rank_values(outs, r"epoch (\d+) mean reward: (\S+)")
-    noise = rank_values(outs, r"initial noise digest (\w+)")
-    digests = rank_values(outs, r"epoch (\d+) params digest (\w+)")
-    replicated = rank_values(outs, r"epoch (\d+) replicated params digest (\w+) \((\d+) tensors")
-    modes = rank_values(outs, r"(tp=2: the transformer blocks' Linears split)")
-    samples = rank_values(outs, r"sample batch \d+: \d+ samples in (\S+)s", float)
-    updates = rank_values(outs, r"epoch 0\.0: .*\| (\S+)s, (\S+) s an update \((\d+)\)")
-    per_call = rank_values(outs, r"tp collectives a sampler UNet forward (\{.*?\}) \| a trainer "
-                                 r"apply (\{.*?\}) \(calls")
-    ends = rank_values(outs, r"rank (\d+): peak memory (\S+) GiB \| kernel launches (\{.*\})")
-    comms = rank_values(outs, r"rank \d+: tp collectives \(calls, bytes, seconds\) (\{.*\})",
-                        json.loads)
-    if rewards[0] != rewards[1] or len(rewards[0]) != 1:
-        fail(f"15a: the tp ranks' rewards differ: {rewards}")
-    if digests[0] != digests[1] or len(digests[0]) != 1:
-        fail(f"15a: the tp ranks' gathered parameter digests differ: {digests}")
-    if replicated[0] != replicated[1] or len(replicated[0]) != 1:
-        fail(f"15a: the replicated leaves differ across the tp ranks: {replicated}")
-    if noise[0] != noise[1] or len(noise[0]) != 1:
-        fail(f"15a: the tp ranks of one dp slice must draw the same noise: {noise}")
-    if not all(modes) or not all(len(c) == 1 for c in comms) or \
-            not all(len(e) == 1 for e in ends) or not all(len(p) == 1 for p in per_call):
-        fail("15a: a rank did not run tp or print its collectives and launches")
-    found = glob.glob(os.path.join(cwd, "logs", "**", "train_info", "0_0_0.npy"), recursive=True)
-    if len(found) != 1:
-        fail(f"15a: expected one train_info/0_0_0.npy under {cwd}/logs, found {found}")
-    infos = np.load(found[0], allow_pickle=True).item()
-    first_dlogp = (2.0 * args.train_batch_size * num_ts * infos["approx_kl"][0]) ** 0.5
-    log(f"15a: first minibatch (2B = {2 * args.train_batch_size} against the sampler's "
-        f"2B = {2 * args.sample_batch_size}, row-parallel products at K = C / 2) approx_kl "
-        f"{infos['approx_kl'][0]:.3e}, clipfrac {infos['clipfrac'][0]:.3f}, max|dlogp| <= "
-        f"{first_dlogp:.3e} (bound 1e-5)")
-    if not (first_dlogp <= 1e-5 and infos["clipfrac"][0] == 0.0):
-        fail("15a: the first minibatch's recompute is off-policy")
-    if not np.isfinite([*infos["loss"], *infos["approx_kl"]]).all():
-        fail("15a: non-finite train infos")
-    log(f"15a: rewards {rewards[0]}, gathered params digests {digests[0]}, replicated leaves' "
-        f"digests {replicated[0]} (bit-equal on both ranks), initial noise digests {noise[0]} "
-        f"(equal on both tp ranks) ({smi})")
-    for rank in range(2):
-        calls = {k: v[0] for k, v in comms[rank][0].items() if k in want_comm}
-        if calls != want_comm:
-            fail(f"15a: rank {rank} made the tp collectives {calls}, expected {want_comm}")
-        fwd, apply = (json.loads(x) for x in per_call[rank][0])
-        got_fwd = {k: v[0] for k, v in fwd.items()}
-        got_apply = {k: v[0] for k, v in apply.items() if k in TP_PER_TRAINER_APPLY}
-        if got_fwd != TP_PER_UNET_FORWARD or got_apply != TP_PER_TRAINER_APPLY:
-            fail(f"15a: rank {rank} tp collectives a forward {got_fwd} and an apply "
-                 f"{got_apply}, pinned {TP_PER_UNET_FORWARD} and {TP_PER_TRAINER_APPLY}")
-        step_ms = 1e3 * samples[rank][0] / steps
-        _, per_update, n = updates[rank][0]
-        log(f"15a rank {rank}: tp collectives a sampler UNet forward at 2B = "
-            f"{2 * args.sample_batch_size} (calls, bytes this rank put in, s) {fwd}; a trainer "
-            f"apply at 2B = {2 * args.train_batch_size} (forward, remat, backward) {apply} "
-            f"(pinned {TP_PER_UNET_FORWARD}, {TP_PER_TRAINER_APPLY}: pinned host staging + "
-            f"gloo, fp32 sums of bf16 partials; seconds include the wait for the other rank) "
-            f"({smi})")
-        log(f"15a rank {rank}: sampler {samples[rank][0]:.2f} s for {steps} steps = "
-            f"{step_ms:.1f} ms a sampler UNet step (the batch's VAE decode and collectives "
-            f"included); {per_update} s an update ({n}); peak memory {ends[rank][0][1]} GiB "
-            f"({smi})")
-        launched = json.loads(ends[rank][0][2])
-        log(f"15a rank {rank}: launches {launched}, expected {want}")
-        if not launches_match(launched, want):
-            fail(f"15a: rank {rank} launched {launched}, expected {want}")
-    log(f"15a: {wall:.1f} s from launch to exit ({smi})")
-    shutil.rmtree(work, ignore_errors=True)
 
 
 class _SGD:
@@ -3981,12 +4178,21 @@ def phase_resident(smi):
     work = tempfile.mkdtemp(prefix="chip_smoke_resident_")
     here = os.getcwd()
     os.chdir(work)
+    printed = Tee(sys.stdout)  # the driver's lines, shown as they come, then read
     try:
         t0 = time.perf_counter()
-        rewards = policy_gradient.main(argv + ["--resident_inner_loop", "True"])
+        with contextlib.redirect_stdout(printed):
+            rewards = policy_gradient.main(argv + ["--resident_inner_loop", "True"])
         wall = time.perf_counter() - t0
     finally:
         os.chdir(here)
+    (run,) = timelines(printed.getvalue())
+    log(f"15c: the driver in this process: {run['main_to_work']:.2f} s from main to its epoch ("
+        + ", ".join(f"{k} {v:.2f}" for k, v in run["startup"].items())
+        + f"), the epoch {run['work']:.2f} s, {run['exit_to_return']:.2f} s from its training "
+        f"end to the return ("
+        + ", ".join(f"{k} {v:.2f}" for k, v in run["exit"].items())
+        + f"); checkpoint {run['checkpoint']} ({smi})")
     found = glob.glob(os.path.join(work, "logs", "**", "train_info", "0_0_0.npy"),
                       recursive=True)
     if len(found) != 1:
@@ -4088,11 +4294,9 @@ def main() -> None:
     phase_ddpo_ranks(unet_gn, vae_gn, unet_conv, smi)
     done("13")
     check_sp_kernels(flash_results, bwd_results, conv_results, s8_results, smi)
-    phase_sp_ranks(unet_gn, vae_gn, unet_conv, smi)
-    done("14")
     check_tp_kernels(flash_results, bwd_results)
-    phase_tp_ranks(unet_gn, vae_gn, unet_conv, smi)
-    done("15a")
+    phase_mesh_ranks(unet_gn, vae_gn, unet_conv, smi)
+    done("14-15b")
     phase_resident(smi)
     done("15c")
 

@@ -50,9 +50,11 @@ rank put in, seconds: staging and the collective, with the wait for the
 other rank), the kernel launches of one bf16 forward, the median ms of a
 bf16 forward beside the unsharded one's, and the three parameter tensors
 with the largest shares of the bf16 gradients' squared error against
-fp32, sharded and unsharded; per rank, the peak device memory. Each error
-is printed over max|ref| and as it is (absolute). The last line is
-``SP_CHECK <json>``.
+fp32, sharded and unsharded; per rank, the peak device memory and the
+launch's timeline as the DDPO driver prints it (the process's age at
+``main``, the start-up's parts, the checks' seconds, the wall clock at the
+return). Each error is printed over max|ref| and as it is (absolute). The
+last line is ``SP_CHECK <json>``.
 """
 
 from __future__ import annotations
@@ -83,6 +85,7 @@ from ddpo_torch.parallel import (
 from ddpo_torch.parallel.sharding import TensorParallel, param_specs
 from ddpo_torch.parallel.spatial import make_spatial_unet_apply
 from ddpo_torch.pipelines.policy_gradient import gradient_reduce, make_train_apply
+from ddpo_torch.utils.profiling import StepTimer, launch_timeline, process_seconds
 from ddpo_torch.utils.serialization import build_models, init_weights_, resolve_device
 
 FP32_BOUND = 2.0 ** -12  # (a): sharded against unsharded at fp32, of max|ref|
@@ -156,16 +159,27 @@ def main(argv=None) -> dict:
     parser.add_argument("--preset", default="sd14")
     parser.add_argument("--resolution", type=int, default=512)
     args = parser.parse_args(argv)
-    maybe_initialize_distributed()
+    entered = time.perf_counter()
+    before_main = process_seconds()  # the interpreter and the imports
+    boot = StepTimer()
+    with boot.phase("gloo_group"):
+        maybe_initialize_distributed()
     device = resolve_device(args.device)
+    if device.type == "cuda":
+        with boot.phase("cuda_context"):
+            torch.zeros(1, device=device)
     # the same ranks as one sp group, then as one tp group
     n = process_count()
-    sp_mesh = create_mesh(MeshConfig(sp=n, tp=1), device)
-    tp_mesh = create_mesh(MeshConfig(sp=1, tp=n), device)
+    with boot.phase("gloo_group"):
+        sp_mesh = create_mesh(MeshConfig(sp=n, tp=1), device)
+        tp_mesh = create_mesh(MeshConfig(sp=1, tp=n), device)
     rank = sp_mesh.sp_index
-    _, _, unet = build_models(args.preset, device)
-    init_weights_(unet, torch.Generator(device=device).manual_seed(0))
-    sample_unet = copy.deepcopy(unet).to(torch.bfloat16).requires_grad_(False)
+    with boot.phase("models"):
+        _, _, unet = build_models(args.preset, device)
+        init_weights_(unet, torch.Generator(device=device).manual_seed(0))
+    with boot.phase("sampler_copy"):
+        sample_unet = copy.deepcopy(unet).to(torch.bfloat16).requires_grad_(False)
+    checks_start = time.perf_counter()
     unet.requires_grad_(True)
     params = dict(unet.named_parameters())
 
@@ -298,6 +312,8 @@ def main(argv=None) -> dict:
     if device.type == "cuda":
         report["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
         print(f"[ sp_check ] rank {rank}: peak memory {report['peak_gib']:.2f} GiB", flush=True)
+    timeline = launch_timeline(entered, before_main, boot, checks_start, time.perf_counter())
+    print(f"[ sp_check ] rank {rank}: launch timeline (s) {json.dumps(timeline)}", flush=True)
     print("SP_CHECK " + json.dumps(report, sort_keys=True), flush=True)
     return report
 

@@ -10,12 +10,15 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
+import time
 from typing import Optional
 
 import numpy as np
 
 _lib = None
 _lock = threading.Lock()
+# seconds the first use took to find (or build) and load the library
+load_seconds: Optional[float] = None
 
 
 def load(path: str):
@@ -33,12 +36,14 @@ def load(path: str):
 
 def _get_lib():
     """Build (at first use) and load the library; raises if it cannot."""
-    global _lib
+    global _lib, load_seconds
     with _lock:
         if _lib is None:
             from ddpo_torch.native.build import build
 
+            start = time.perf_counter()
             _lib = load(build())
+            load_seconds = time.perf_counter() - start
     return _lib
 
 

@@ -58,6 +58,12 @@ over processes, rank r on cuda:LOCAL_RANK:
     on a fresh host fetches the checkpoints from the bucket first;
   - ``--profile_dir`` traces epoch start_epoch + 1 with torch.profiler, one
     Chrome trace per rank;
+  - each rank's last line is its ``launch timeline``: the seconds from the
+    process's start to ``main``, from there to the first epoch (the gloo
+    group, the card's context, the kernel library's load, the models'
+    init, the sampler's copy and the rest), the epochs, and from the last
+    epoch's training end to the return (the checkpoint's copy, its
+    write's join, the bucket sync);
   - ``--mesh_sp n`` lays the ranks out as JAX's (dp, sp) mesh
     (parallel/mesh.py: rank r has dp_index r // n, sp_index r % n; WORLD_SIZE
     must divide by n): the n ranks of an sp group share one dp slice, its
@@ -71,8 +77,9 @@ over processes, rank r on cuda:LOCAL_RANK:
     splits its queries (parallel/sequence.py), so the gradients are whole
     and the reduce is the mean over the world; the reward callbacks then
     run on the main thread, since the attention context's collectives must
-    come in the same order on every rank. Rewards and prompts are gathered
-    once per dp group, and the infos are averaged over dp;
+    come in the same order on every rank (printed: its collectives a sampler
+    UNet forward and a trainer apply, as tp's below). Rewards and prompts
+    are gathered once per dp group, and the infos are averaged over dp;
   - ``--mesh_tp n`` lays the ranks out as JAX's (dp, 1, tp) mesh (rank r:
     dp_index r // n, tp_index r % n): the n ranks of a tp group share one
     dp slice, its prompts, noise and seed, and split every transformer
@@ -153,6 +160,7 @@ from ddpo_torch.training.stat_tracking import PerPromptStatTracker
 from ddpo_torch.utils import Timer, fs
 from ddpo_torch.utils.checkpoints import (
     host_file,
+    last_save,
     prune_checkpoints,
     restore_train_state,
     save_train_state,
@@ -162,7 +170,7 @@ from ddpo_torch.utils.checkpoints import (
 from ddpo_torch.utils.images import save_image
 from ddpo_torch.utils.metrics import MetricsLogger
 from ddpo_torch.utils.parser import Parser as BaseParser
-from ddpo_torch.utils.profiling import trace
+from ddpo_torch.utils.profiling import StepTimer, launch_timeline, process_seconds, trace
 from ddpo_torch.utils.serialization import (
     async_to_bucket,
     load_stable_diffusion,
@@ -309,10 +317,21 @@ def _fetch_checkpoints(savepath: str, ckpt_root: str) -> None:
 
 
 def main(argv=None):
-    maybe_initialize_distributed()
+    entered = time.perf_counter()
+    before_main = process_seconds()  # the interpreter and the imports, torch's first
+    boot = StepTimer()  # the start-up's parts, to the first epoch
+    with boot.phase("gloo_group"):
+        maybe_initialize_distributed()
     set_attention_sharding(None)  # a previous run's context must not leak into this one
     args = Parser().parse_args("pg", argv)
     device = resolve_device(args.device)
+    if device.type == "cuda":
+        from ddpo_torch.ops._build import load_library
+
+        with boot.phase("cuda_context"):
+            torch.zeros(1, device=device)
+        with boot.phase("kernel_library"):  # the sources' hash, then the load
+            load_library()
     if args.sp_mode not in SP_MODES:
         raise ValueError(f"--sp_mode {args.sp_mode!r} is not one of {SP_MODES}")
     reduce_dtype = REDUCE_DTYPES[args.grad_reduce_dtype]
@@ -335,11 +354,12 @@ def main(argv=None):
             "lora_rank requires tp=1: adapters replicate and the frozen base "
             "stays whole (tp shards full-finetune states instead)"
         )
-    mesh = create_mesh(MeshConfig(sp=args.mesh_sp, tp=args.mesh_tp), device)
+    with boot.phase("gloo_group"):
+        mesh = create_mesh(MeshConfig(sp=args.mesh_sp, tp=args.mesh_tp), device)
+        # under tp the gradients' mean runs over the dp group (gradient_reduce)
+        group, backend = (gradient_group(device) if mesh.tp == 1 else
+                          (mesh.grad_group, mesh.grad_backend if mesh.dp > 1 else "none"))
     rank, world = process_index(), process_count()
-    # under tp the gradients' mean runs over the dp group (gradient_reduce)
-    group, backend = (gradient_group(device) if mesh.tp == 1 else
-                      (mesh.grad_group, mesh.grad_backend if mesh.dp > 1 else "none"))
     sp_spatial = mesh.sp > 1 and args.sp_mode == "spatial"
 
     # per rank (one device a rank), as JAX's per-process local batch
@@ -382,13 +402,14 @@ def main(argv=None):
     sample_dtype = _dtype(args.sample_dtype)
     train_dtype = _dtype(args.train_dtype)
     # base_seed, the same on every rank: the replicas start equal
-    models = load_stable_diffusion(
-        args.pretrained_model,
-        model_preset=args.model_preset,
-        device=device,
-        dtype=master_dtype,
-        seed=args.base_seed,
-    )
+    with boot.phase("models"):
+        models = load_stable_diffusion(
+            args.pretrained_model,
+            model_preset=args.model_preset,
+            device=device,
+            dtype=master_dtype,
+            seed=args.base_seed,
+        )
     # the text encoder and the VAE compute in the sampling dtype
     models.text_encoder.to(sample_dtype)
     models.vae.to(sample_dtype)
@@ -436,7 +457,8 @@ def main(argv=None):
         own = ()
     # the sampler's UNet at the sampling dtype, refreshed from the trained
     # values once per epoch
-    sample_unet = sampler_unet(unet, sample_dtype, own)
+    with boot.phase("sampler_copy"):
+        sample_unet = sampler_unet(unet, sample_dtype, own)
     sample_apply = sample_unet
     if sp_spatial:
         sample_unet.set_spatial(sp_axis)
@@ -595,8 +617,12 @@ def main(argv=None):
 
     timer = Timer()
     sync_thread = None
+    first_epoch_start = epochs_end = None
+    leave = StepTimer()  # from the last epoch's end to the return
     for epoch in range(start_epoch, args.num_train_epochs):
         epoch_start = time.perf_counter()
+        if first_epoch_start is None:
+            first_epoch_start = epoch_start
         profiling = contextlib.ExitStack()
         if args.profile_dir and epoch == start_epoch + 1:
             path = os.path.join(args.profile_dir, f"epoch{epoch}_rank{rank}.json")
@@ -607,7 +633,7 @@ def main(argv=None):
         with torch.no_grad():
             refresh_sampler(sample_unet, state.params if lora_base is None
                             else merge_lora(lora_base, state.params))
-        comm_before, sample_calls["n"] = comm_counts(), 0
+        sampler_comm, sample_calls["n"] = {}, 0  # the sampler's UNet calls' collectives
         samples = []
         sample_phase_time = 0.0
         for i in range(args.num_sample_batches_per_epoch):
@@ -617,11 +643,13 @@ def main(argv=None):
             )
             prompt_embeds = text_encode(models.tokenizer(list(sample_prompts)))
             timer()
+            comm_before = comm_counts()
             with batch_invariant():
                 traj = sample_trajectories(
                     counted_sample_apply, scheduler, sched_state, prompt_embeds, sample_uncond,
                     sampler_config, generator=sample_gen,
                 )
+            sampler_comm = _comm_sum(sampler_comm, _comm_since(comm_before))
             images = vae_decode(models.vae, traj["final_latents"]).cpu().numpy()
             sample_time = timer()
             sample_phase_time += sample_time
@@ -649,7 +677,6 @@ def main(argv=None):
                 images[0],
             )
 
-        sampler_comm = _comm_since(comm_before)
         # collect rewards
         for sample in samples:
             sample["rewards"], sample["callback_info"] = sample.pop("callbacks").result()[
@@ -768,14 +795,14 @@ def main(argv=None):
                                        f"train_info/{worker_id}_{epoch}_{inner_epoch}.npy"),
                     infos,
                 )
-        if mesh.tp > 1:
+        if mesh.tp > 1 or (mesh.sp > 1 and not sp_spatial):
             # per call, from this epoch's counts: a sampler UNet forward, and
             # a trainer apply (its forward, the remat recompute and the
-            # backward)
+            # backward); the attention mode's VAE decode is in neither
             fwd = json.dumps(_per_call(sampler_comm, sample_calls["n"]), sort_keys=True)
             apply = json.dumps(_per_call(_comm_since(comm_before), applies["n"]), sort_keys=True)
-            print(f"[ pg ] rank {rank}: tp collectives a sampler UNet forward {fwd} | "
-                  f"a trainer apply {apply} "
+            print(f"[ pg ] rank {rank}: {'tp' if mesh.tp > 1 else 'sp'} collectives a sampler "
+                  f"UNet forward {fwd} | a trainer apply {apply} "
                   f"(calls, bytes, seconds; {sample_calls['n']} sampler forwards, "
                   f"{applies['n']} trainer applies)")
         profiling.close()
@@ -789,6 +816,7 @@ def main(argv=None):
                       f"tensors, bit-equal on all {world} ranks)")
             # a SIGTERM seen by any rank stops every rank at this boundary
             shutdown_requested["flag"] = worker_sum(float(shutdown_requested["flag"])) > 0
+        epochs_end, leave = time.perf_counter(), StepTimer()
 
         # ============================ checkpointing ============================ #
         saved = (
@@ -799,10 +827,11 @@ def main(argv=None):
         if saved:
             # the host copy is synchronous (training updates the tensors in
             # place); serialization and the disk write overlap the next epoch
-            save_train_state(
-                ckpt_root, epoch, {"state": state.state_dict(), "epoch": epoch},
-                host_state=host_checkpoint_state(), block=False,
-            )
+            with leave.phase("checkpoint_copy"):
+                save_train_state(
+                    ckpt_root, epoch, {"state": state.state_dict(), "epoch": epoch},
+                    host_state=host_checkpoint_state(), block=False,
+                )
             if args.keep_checkpoints > 0 and rank == 0:  # the ranks share the directory
                 prune_checkpoints(ckpt_root, args.keep_checkpoints)
 
@@ -815,13 +844,16 @@ def main(argv=None):
             # durable artifacts: join the checkpoint writes, then stream
             # everything under localpath to the bucket (rank 0, in the
             # background); every other rank uploads its own host pickle
-            wait_for_pending_saves()
-            if saved and rank > 0:
-                own = host_file(os.path.join(ckpt_root, "checkpoints", str(epoch)))
-                fs.put_file(own, os.path.join(args.savepath, os.path.relpath(own, localpath)))
-            if sync_thread is not None:
-                sync_thread.join()
-            sync_thread = async_to_bucket(localpath, args.savepath)
+            with leave.phase("checkpoint_write"):
+                wait_for_pending_saves()
+            with leave.phase("bucket_sync"):
+                if saved and rank > 0:
+                    own = host_file(os.path.join(ckpt_root, "checkpoints", str(epoch)))
+                    fs.put_file(own, os.path.join(args.savepath,
+                                                  os.path.relpath(own, localpath)))
+                if sync_thread is not None:
+                    sync_thread.join()
+                sync_thread = async_to_bucket(localpath, args.savepath)
 
         print(f"[ pg ] epoch {epoch} wall {time.perf_counter() - epoch_start:.2f} s")
         if shutdown_requested["flag"]:
@@ -837,23 +869,43 @@ def main(argv=None):
     if lora_base is not None:
         # the merged UNet in the reference format, for generate --iteration
         # (the adapters alone stay in the full-state checkpoints)
-        with torch.no_grad():
-            merged = merge_lora(lora_base, state.params)
-        path = save_unet(localpath, unet, epoch=args.num_train_epochs - 1, params=merged)
+        with leave.phase("lora_export"):
+            with torch.no_grad():
+                merged = merge_lora(lora_base, state.params)
+            path = save_unet(localpath, unet, epoch=args.num_train_epochs - 1, params=merged)
         print(f"[ pg ] lora: merged unet exported to {path}")
     executor.shutdown()
-    wait_for_pending_saves()
+    with leave.phase("checkpoint_write"):
+        wait_for_pending_saves()
     if remote:
-        if sync_thread is not None:
-            sync_thread.join()
-        async_to_bucket(localpath, args.savepath, wait=True)  # the final full sync
+        with leave.phase("bucket_sync"):
+            if sync_thread is not None:
+                sync_thread.join()
+            async_to_bucket(localpath, args.savepath, wait=True)  # the final full sync
     if device.type == "cuda":
         from ddpo_torch.ops._build import launch_counts
 
         print(f"[ pg ] rank {rank}: peak memory "
               f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB | kernel launches "
               f"{json.dumps(launch_counts(), sort_keys=True)}")
+    _print_timeline(rank, entered, before_main, boot, first_epoch_start, epochs_end, leave)
     return mean_rewards
+
+
+def _print_timeline(rank, entered, before_main, boot, first_epoch_start, epochs_end, leave):
+    """This run's ``launch_timeline`` as one JSON line: the epochs are the
+    work, the checkpoint's host copy, its write's join and the bucket sync
+    the exit's parts; with rank 0's last checkpoint (bytes, its copy's and
+    write's seconds) and the JPEG library's first load."""
+    from ddpo_torch.native import jpeg
+
+    now = time.perf_counter()
+    first = first_epoch_start if first_epoch_start is not None else now
+    timeline = launch_timeline(entered, before_main, boot, first,
+                               epochs_end if epochs_end is not None else first, leave)
+    timeline["checkpoint"] = {k: last_save.get(k) for k in ("bytes", "copy_s", "write_s")}
+    timeline["jpeg_library"] = jpeg.load_seconds
+    print(f"[ pg ] rank {rank}: launch timeline (s) {json.dumps(timeline)}", flush=True)
 
 
 def _comm_since(before: dict) -> dict:
@@ -863,6 +915,13 @@ def _comm_since(before: dict) -> dict:
     zero = (0, 0, 0.0)
     delta = {k: tuple(a - b for a, b in zip(v, before.get(k, zero))) for k, v in now.items()}
     return {k: v for k, v in delta.items() if v[0]}
+
+
+def _comm_sum(a: dict, b: dict) -> dict:
+    """Two ``_comm_since`` results added kind by kind."""
+    zero = (0, 0, 0.0)
+    return {k: tuple(x + y for x, y in zip(a.get(k, zero), b.get(k, zero)))
+            for k in sorted(set(a) | set(b))}
 
 
 def _per_call(comm: dict, calls: int) -> dict:

@@ -4,6 +4,9 @@
     print for the same calls (one clock for both, stdout not a TTY);
   - ``--profile_dir`` writes a torch.profiler trace of epoch 1 (start
     epoch + 1, as JAX) and none of epoch 0;
+  - ``utils/profiling.py``'s ``process_seconds`` (this process's age, from
+    /proc) and ``launch_timeline`` (a run's seconds that add up, with the
+    exit's parts timed as the DDPO driver's or untimed as sp_check's);
   - two ranks (``ddpo_torch.parallel.launch``, gloo) of ``sample``: each
     writes its own ``-w{rank}-`` split files, with different samples, and
     both count the global number of samples; then ``calibrate``: its curve's
@@ -15,6 +18,7 @@ import io
 import json
 import os
 import sys
+import time
 
 import h5py
 import numpy as np
@@ -54,6 +58,42 @@ def test_progress_and_silent_match_jax(monkeypatch):
     got, want = _drive(t_progress, monkeypatch), _drive(j_progress, monkeypatch)
     assert got == want
     assert "[ epoch 0 ] 5 / 5" in got and "loss : 5.00e-05" in got
+
+
+def test_process_seconds():
+    from ddpo_torch.utils.profiling import process_seconds
+
+    age = process_seconds()
+    if age is None:  # no /proc
+        return
+    assert 0 < age < 24 * 3600
+    assert process_seconds() >= age
+
+
+@pytest.mark.parametrize("timed_exit", [True, False])
+def test_launch_timeline_adds_up(timed_exit):
+    from ddpo_torch.utils.profiling import StepTimer, launch_timeline
+
+    boot, leave = StepTimer(), StepTimer()
+    entered = time.perf_counter()
+    with boot.phase("models"):
+        time.sleep(0.02)
+    start = time.perf_counter()
+    time.sleep(0.02)
+    end = time.perf_counter()
+    with leave.phase("checkpoint_copy"):
+        time.sleep(0.02)
+    t = launch_timeline(entered, 1.5, boot, start, end, leave if timed_exit else None)
+    assert t["before_main"] == 1.5 and t["work"] >= 0.02
+    assert t["startup"]["models"] >= 0.02
+    assert ("checkpoint_copy" in t["exit"]) == timed_exit and t["exit"]["rest"] >= 0
+    if timed_exit:
+        assert t["exit"]["checkpoint_copy"] >= 0.02
+    else:  # the untimed exit is all rest
+        assert t["exit"]["rest"] >= 0.02
+    assert t["main_to_work"] == pytest.approx(sum(t["startup"].values()), abs=1e-3)
+    assert t["exit_to_return"] == pytest.approx(sum(t["exit"].values()), abs=1e-3)
+    assert abs(t["returned_at"] - time.time()) < 5
 
 
 def test_profile_dir_traces_epoch_1(workdir):  # noqa: F811

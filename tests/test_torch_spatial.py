@@ -40,6 +40,8 @@ Through ``ddpo_torch.parallel.launch``, one module-scoped launch each:
     different noise, the sp ranks of a slice the same.
 """
 
+import json
+import re
 import sys
 from types import SimpleNamespace
 
@@ -253,9 +255,13 @@ def grads_of(apply, x, t, c):
 
 
 set_attention_sharding(mesh, batch_axis="dp", seq_axis="sp")
+reset_comm()
 with torch.no_grad():
     out["attention_fwd"] = unet(*inputs["fwd"])
+out["attention_comm_fwd"] = comm_counts()
+reset_comm()
 out["attention_grads"] = grads_of(unet, *inputs["grad"])  # whole on each rank
+out["attention_comm_grads"] = comm_counts()
 set_attention_sharding(None)
 
 apply = make_spatial_unet_apply(mesh, unet)
@@ -281,6 +287,7 @@ args = Parser().parse_args("pg", ["--dataset", "debug-animals", "--device", "cpu
 out["seed"] = [args.base_seed, args.seed]
 for mode in ("spatial", "attention"):
     printed = io.StringIO()
+    reset_comm()
     with contextlib.redirect_stdout(printed):
         out[f"{mode}_rewards"] = policy_gradient.main([
             "--dataset", "debug-animals", "--device", "cpu", "--n_inference_steps", "2",
@@ -291,6 +298,9 @@ for mode in ("spatial", "attention"):
                             if "initial noise digest" in l]
     out[f"{mode}_digest"] = [l for l in lines if "params digest" in l]
     out[f"{mode}_lines"] = [l for l in lines if "sp=2" in l or "sp collectives" in l]
+    out[f"{mode}_comm"] = comm_counts()
+    out[f"{mode}_timeline"] = [json.loads(l.split("launch timeline (s) ")[1]) for l in lines
+                               if "launch timeline (s) " in l]
 torch.save(out, f"sp2_{rank}.pt")
 dist.destroy_process_group()
 '''
@@ -401,6 +411,59 @@ def test_spatial_forward_collectives(sp2):
     comm = sp2.ranks[0]["comm_fwd"]
     assert {k: v[0] for k, v in comm.items()} == {
         "halo": 19, "halo_top": 1, "psum": 21, "gather_kv": 4, "gather_out": 1}
+
+
+def test_attention_forward_collectives(sp2):
+    """The attention mode's collectives, a tiny UNet forward and then the
+    gradients (a forward and its backward): each of the 4 self-attentions
+    gathers its output rows (``seq_out``) in the forward, and in the
+    backward gathers dq (``seq_q.bwd``) and sums dk and dv over the ranks
+    (``seq_k.bwd``, ``seq_v.bwd``); the output gather's backward is a slice
+    and q's shard and k/v's marks move nothing forward."""
+    for out in sp2.ranks:
+        assert {k: v[0] for k, v in out["attention_comm_fwd"].items()} == {"seq_out": 4}
+        assert {k: v[0] for k, v in out["attention_comm_grads"].items()} == {
+            "seq_out": 4, "seq_q.bwd": 4, "seq_k.bwd": 4, "seq_v.bwd": 4}
+
+
+def test_attention_mode_driver_collectives(sp2):
+    """The attention mode through the driver (tiny preset, 32 px, 2 steps,
+    sample batch 2, train batch 1, fp32 training, remat): 2 sampler UNet
+    calls at 2B and 4 updates of 2 applies each (fp32 keeps CFG's two
+    applies), each apply a forward and its remat recompute, so 2 + 16 UNet
+    forwards of 4 ``seq_out`` gathers, plus one for the VAE decoder's
+    mid-block attention (S = 16, sharded too, as in JAX); and 8 backwards
+    of 4 gathers of dq and 4 + 4 sums of dk and dv. The driver prints the
+    same per call: a sampler forward's 4, a trainer apply's 8 and 4 + 4 + 4."""
+    forwards, applies, decodes, attentions = 2 + 2 * 8, 8, 1, 4
+    want = {"seq_out": attentions * forwards + decodes, "seq_q.bwd": attentions * applies,
+            "seq_k.bwd": attentions * applies, "seq_v.bwd": attentions * applies}
+    for out in sp2.ranks:
+        assert {k: v[0] for k, v in out["attention_comm"].items()} == want
+        (line,) = [l for l in out["attention_lines"] if "sp collectives a sampler" in l]
+        fwd, apply = (json.loads(part) for part in re.match(
+            r".*a sampler UNet forward (\{.*?\}) \| a trainer apply (\{.*?\}) \(calls", line
+        ).groups())
+        assert {k: v[0] for k, v in fwd.items()} == {"seq_out": attentions}
+        assert {k: v[0] for k, v in apply.items()} == {
+            "seq_out": 2 * attentions, "seq_q.bwd": attentions, "seq_k.bwd": attentions,
+            "seq_v.bwd": attentions}
+    # the spatial run makes none of them
+    assert not any(k.startswith("seq_") for k in sp2.ranks[0]["spatial_comm"])
+
+
+def test_driver_prints_its_launch_timeline(sp2):
+    """Each driver run's last line: its start-up's parts, the epochs and
+    the exit, in seconds that add up, and rank 0's checkpoint bytes."""
+    for out in sp2.ranks:
+        for mode in ("spatial", "attention"):
+            (t,) = out[f"{mode}_timeline"]
+            assert {"gloo_group", "models", "sampler_copy", "rest"} <= set(t["startup"])
+            assert t["main_to_work"] == pytest.approx(sum(t["startup"].values()), abs=1e-3)
+            assert t["exit_to_return"] == pytest.approx(sum(t["exit"].values()), abs=1e-3)
+            assert t["work"] > 0 and t["before_main"] > 0 and t["returned_at"] > 0
+            assert "checkpoint_copy" in t["exit"]  # the last epoch saves
+            assert t["checkpoint"]["bytes"] > 0 or out["mesh"][3] > 0  # rank 0 writes it
 
 
 @pytest.mark.parametrize("against", ["spatial_grads", "unsharded_grads"])
