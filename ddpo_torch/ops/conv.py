@@ -32,7 +32,8 @@ trainer's convs see a fresh bf16 cast of the fp32 masters at every call, so
 they lay it out at every call, as before; at fp32 they see the masters
 themselves, so each optimizer step, which writes every master, costs one
 layout and one split launch a conv weight at the next call. Both kernels
-count their launches (``_build.launches``: ``tap_layout``, ``tf32_split``).
+count their launches (``_build.launches``: ``tap_layout``, ``tf32_split``),
+and ``operand_cache`` counts the operand's lookups and misses.
 
 ``library_conv`` is the library branch of every 3x3 conv of the models,
 stride 1 and 2. cuDNN gives an image other bits in another batch: on the
@@ -81,6 +82,9 @@ _CONV_OVERRIDE: Optional[bool] = None
 _TAP_WEIGHTS: Dict[int, tuple] = {}
 # id(fp32 source weight) -> (weakref, data_ptr, _version, its layout's tf32 split)
 _TF32_SPLITS: Dict[int, tuple] = {}
+# the two stores' lookups since the process started, and those that made
+# the operand anew (a new tensor, or one written to since)
+operand_cache: Dict[str, int] = {"lookups": 0, "misses": 0}
 
 
 def set_conv_kernel_enabled(value: Optional[bool]) -> None:
@@ -217,9 +221,13 @@ def tap_weight_kn(w_kn: torch.Tensor) -> torch.Tensor:
 def _operand(source: torch.Tensor, lay_out: Callable) -> torch.Tensor:
     """``tap_gemm``'s operand from a CUDA weight, once per version of it:
     ``lay_out()``, or at fp32 its tf32 split alone."""
-    if source.dtype == torch.float32:
-        return cached_per_version(_TF32_SPLITS, source, lambda: _tf32_split(lay_out()))
-    return cached_per_version(_TAP_WEIGHTS, source, lay_out)
+    def make():
+        operand_cache["misses"] += 1
+        return _tf32_split(lay_out()) if source.dtype == torch.float32 else lay_out()
+
+    operand_cache["lookups"] += 1
+    store = _TF32_SPLITS if source.dtype == torch.float32 else _TAP_WEIGHTS
+    return cached_per_version(store, source, make)
 
 
 def tap_operand(weight: torch.Tensor) -> torch.Tensor:

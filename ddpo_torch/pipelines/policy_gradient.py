@@ -57,7 +57,11 @@ over processes, rank r on cuda:LOCAL_RANK:
     its own host pickle) and once more, blocking, at the end; ``--resume``
     on a fresh host fetches the checkpoints from the bucket first;
   - ``--profile_dir`` traces epoch start_epoch + 1 with torch.profiler, one
-    Chrome trace per rank;
+    Chrome trace per rank, the program's spans (utils/profiling.py) in it
+    as ranges over the kernels; each epoch is a span ``epoch``, whose
+    duration is the printed epoch wall, and the printed and logged sample
+    and train times are its spans': ``sampler.trajectories`` to the
+    images' host copy, and ``train.inner_epoch``;
   - each rank's last line is its ``launch timeline``: the seconds from the
     process's start to ``main``, from there to the first epoch (the gloo
     group, the card's context, the kernel library's load, the models'
@@ -157,7 +161,7 @@ from ddpo_torch.training.policy_gradient import (
     inner_epoch_resident,
 )
 from ddpo_torch.training.stat_tracking import PerPromptStatTracker
-from ddpo_torch.utils import Timer, fs
+from ddpo_torch.utils import fs
 from ddpo_torch.utils.checkpoints import (
     host_file,
     last_save,
@@ -170,7 +174,14 @@ from ddpo_torch.utils.checkpoints import (
 from ddpo_torch.utils.images import save_image
 from ddpo_torch.utils.metrics import MetricsLogger
 from ddpo_torch.utils.parser import Parser as BaseParser
-from ddpo_torch.utils.profiling import StepTimer, launch_timeline, process_seconds, trace
+from ddpo_torch.utils.profiling import (
+    StepTimer,
+    launch_timeline,
+    process_seconds,
+    span,
+    spans,
+    trace,
+)
 from ddpo_torch.utils.serialization import (
     async_to_bucket,
     load_stable_diffusion,
@@ -296,10 +307,11 @@ def sampler_unet(unet: torch.nn.Module, sample_dtype: torch.dtype,
 @torch.no_grad()
 def refresh_sampler(sample_unet: torch.nn.Module, params: Dict[str, torch.Tensor]) -> None:
     """Copy (casting) every entry of ``params`` into the sampler's UNet,
-    skipping the tensors the two share."""
-    for name, ps in sample_unet.named_parameters():
-        if ps is not params[name]:
-            ps.copy_(params[name])
+    skipping the tensors the two share (span ``train.refresh``)."""
+    with span("train.refresh"):
+        for name, ps in sample_unet.named_parameters():
+            if ps is not params[name]:
+                ps.copy_(params[name])
 
 
 def _fetch_checkpoints(savepath: str, ckpt_root: str) -> None:
@@ -615,247 +627,244 @@ def main(argv=None):
     except ValueError:  # not the main thread (embedded use): skip the hook
         prev_sigterm = None
 
-    timer = Timer()
     sync_thread = None
     first_epoch_start = epochs_end = None
     leave = StepTimer()  # from the last epoch's end to the return
     for epoch in range(start_epoch, args.num_train_epochs):
-        epoch_start = time.perf_counter()
-        if first_epoch_start is None:
-            first_epoch_start = epoch_start
         profiling = contextlib.ExitStack()
         if args.profile_dir and epoch == start_epoch + 1:
             path = os.path.join(args.profile_dir, f"epoch{epoch}_rank{rank}.json")
             profiling.enter_context(trace(path))
             print(f"[ pg ] tracing epoch {epoch} to {path}")
-        # ============================ sampling phase =========================== #
-        process_barrier(f"pg_sample_{epoch}")
-        with torch.no_grad():
-            refresh_sampler(sample_unet, state.params if lora_base is None
-                            else merge_lora(lora_base, state.params))
-        sampler_comm, sample_calls["n"] = {}, 0  # the sampler's UNet calls' collectives
-        samples = []
-        sample_phase_time = 0.0
-        for i in range(args.num_sample_batches_per_epoch):
-            sample_prompts, training_prompts, prompt_metadata = training.make_prompts(
-                args.prompt_fn, sample_bs, args.identical_batch,
-                evaluate=args.evaluate, **args.prompt_kwargs,
-            )
-            prompt_embeds = text_encode(models.tokenizer(list(sample_prompts)))
-            timer()
-            comm_before = comm_counts()
-            with batch_invariant():
-                traj = sample_trajectories(
-                    counted_sample_apply, scheduler, sched_state, prompt_embeds, sample_uncond,
-                    sampler_config, generator=sample_gen,
+        with profiling, span("epoch") as epoch_span:
+            if first_epoch_start is None:
+                first_epoch_start = epoch_span.start
+            # ============================ sampling phase =========================== #
+            process_barrier(f"pg_sample_{epoch}")
+            with torch.no_grad():
+                refresh_sampler(sample_unet, state.params if lora_base is None
+                                else merge_lora(lora_base, state.params))
+            sampler_comm, sample_calls["n"] = {}, 0  # the sampler's UNet calls' collectives
+            samples = []
+            sample_phase_time = 0.0
+            for i in range(args.num_sample_batches_per_epoch):
+                sample_prompts, training_prompts, prompt_metadata = training.make_prompts(
+                    args.prompt_fn, sample_bs, args.identical_batch,
+                    evaluate=args.evaluate, **args.prompt_kwargs,
                 )
-            sampler_comm = _comm_sum(sampler_comm, _comm_since(comm_before))
-            images = vae_decode(models.vae, traj["final_latents"]).cpu().numpy()
-            sample_time = timer()
-            sample_phase_time += sample_time
+                prompt_embeds = text_encode(models.tokenizer(list(sample_prompts)))
+                comm_before = comm_counts()
+                with batch_invariant():
+                    traj = sample_trajectories(
+                        counted_sample_apply, scheduler, sched_state, prompt_embeds, sample_uncond,
+                        sampler_config, generator=sample_gen,
+                    )
+                sampler_comm = _comm_sum(sampler_comm, _comm_since(comm_before))
+                images = vae_decode(models.vae, traj["final_latents"]).cpu().numpy()
+                sample_time = time.perf_counter() - spans("sampler.trajectories")[-1].start
+                sample_phase_time += sample_time
 
-            callbacks = executor.submit(
-                training.evaluate_callbacks, callback_fns, images,
-                sample_prompts, prompt_metadata,
-            )
-            samples.append({
-                "embeds": prompt_embeds,
-                "latents": traj["latents"],
-                "next_latents": traj["next_latents"],
-                "log_probs": traj["log_probs"],
-                "ts": traj["ts"],
-                "prompts": np.array(sample_prompts),
-                "callbacks": callbacks,
-            })
-            print(
-                f"[ pg ] epoch {epoch} sample batch {i}: {sample_bs} samples "
-                f"in {sample_time:.2f}s ({sample_bs / sample_time:.3f}/s), initial noise "
-                f"digest {digest(traj['latents'][:, 0])}"
-            )
-            save_image(
-                fs.join_and_create(localpath, f"samples/{worker_id}_{epoch}_{i}.png"),
-                images[0],
-            )
-
-        # collect rewards
-        for sample in samples:
-            sample["rewards"], sample["callback_info"] = sample.pop("callbacks").result()[
-                args.filter_field
-            ]
-        samples = _concat(samples)
-        samples["rewards"] = np.asarray(samples["rewards"], dtype=np.float64).reshape(
-            len(samples["prompts"]), -1
-        )[:, 0]
-        # every dp slice's rewards and prompts (once, over this rank's dp
-        # group), so that all compute the same advantages; each then takes
-        # its dp slice's rows
-        rewards = all_gather_array(samples["rewards"], group=mesh.dp_group)
-        all_prompts = np.array(all_gather_strings(samples["prompts"].tolist(),
-                                                  group=mesh.dp_group))
-
-        if per_prompt_stats is not None:
-            advantages = per_prompt_stats.update(all_prompts, rewards)
-            if rank == 0:
-                np.save(
-                    fs.join_and_create(localpath, f"per_prompt_stats/{worker_id}_{epoch}.npy"),
-                    per_prompt_stats.get_stats(),
+                callbacks = executor.submit(
+                    training.evaluate_callbacks, callback_fns, images,
+                    sample_prompts, prompt_metadata,
                 )
-        else:
-            advantages = (rewards - rewards.mean()) / (rewards.std() + 1e-8)
+                samples.append({
+                    "embeds": prompt_embeds,
+                    "latents": traj["latents"],
+                    "next_latents": traj["next_latents"],
+                    "log_probs": traj["log_probs"],
+                    "ts": traj["ts"],
+                    "prompts": np.array(sample_prompts),
+                    "callbacks": callbacks,
+                })
+                print(
+                    f"[ pg ] epoch {epoch} sample batch {i}: {sample_bs} samples "
+                    f"in {sample_time:.2f}s ({sample_bs / sample_time:.3f}/s), initial noise "
+                    f"digest {digest(traj['latents'][:, 0])}"
+                )
+                save_image(
+                    fs.join_and_create(localpath, f"samples/{worker_id}_{epoch}_{i}.png"),
+                    images[0],
+                )
 
-        samples["advantages"] = torch.as_tensor(local_shard(advantages, mesh),
-                                                dtype=torch.float32, device=device)
-        mean_rewards.append(float(rewards.mean()))
-        std_rewards.append(float(rewards.std()))
-        print(f"[ pg ] epoch {epoch} mean reward: {rewards.mean():.4f}")
-        metrics.log(
-            epoch,
-            phase="sample",
-            mean_reward=float(rewards.mean()),
-            std_reward=float(rewards.std()),
-            n_samples=int(rewards.shape[0]),
-            sample_time_s=float(sample_phase_time),
-        )
+            # collect rewards
+            for sample in samples:
+                sample["rewards"], sample["callback_info"] = sample.pop("callbacks").result()[
+                    args.filter_field
+                ]
+            samples = _concat(samples)
+            samples["rewards"] = np.asarray(samples["rewards"], dtype=np.float64).reshape(
+                len(samples["prompts"]), -1
+            )[:, 0]
+            # every dp slice's rewards and prompts (once, over this rank's dp
+            # group), so that all compute the same advantages; each then takes
+            # its dp slice's rows
+            rewards = all_gather_array(samples["rewards"], group=mesh.dp_group)
+            all_prompts = np.array(all_gather_strings(samples["prompts"].tolist(),
+                                                      group=mesh.dp_group))
 
-        for name in ("rewards", "prompts", "callback_info"):
-            np.save(
-                fs.join_and_create(localpath, f"{name}/{worker_id}_{epoch}.npy"),
-                samples[name],
-            )
-            if name != "rewards":
-                del samples[name]
-
-        # ============================ training phase =========================== #
-        process_barrier(f"pg_train_{epoch}")
-        comm_before, applies["n"] = comm_counts(), 0
-        total_bs, num_timesteps = samples["log_probs"].shape
-        assert num_timesteps == args.n_inference_steps
-        num_train_ts = int(num_timesteps * args.train_timestep_ratio)
-        keys = ["embeds", "latents", "next_latents", "log_probs", "ts", "advantages"]
-        epoch_samples = {k: samples[k] for k in keys}
-        epoch_samples["uncond_embeds"] = uncond_embed.expand(total_bs, *uncond_embed.shape)
-        if resident and mesh.dp > 1:
-            # the whole epoch's samples on every rank, in dp order (the
-            # order of the gathered advantages)
-            epoch_samples = {k: torch.cat(all_gather(v.contiguous(), mesh.axis("dp"),
-                                                     "dp_samples"))
-                             for k, v in epoch_samples.items()}
-        for inner_epoch in range(args.num_inner_epochs):
-            n_reduces = len(grad_reduce.calls) if grad_reduce is not None else 0
-            timer()
-            if resident:
-                # drawn on the device from train_gen, the same on every
-                # rank; each rank trains its dp rows of the global minibatch
-                drawn = dict(generator=train_gen, dp=(mesh.dp, mesh.dp_index),
-                             train_batch_size=train_bs * mesh.dp)
+            if per_prompt_stats is not None:
+                advantages = per_prompt_stats.update(all_prompts, rewards)
+                if rank == 0:
+                    np.save(
+                        fs.join_and_create(localpath, f"per_prompt_stats/{worker_id}_{epoch}.npy"),
+                        per_prompt_stats.get_stats(),
+                    )
             else:
-                # this rank's rows: the row and per-sample timestep
-                # permutations from numpy's global stream
-                perm = torch.as_tensor(np.random.permutation(total_bs), device=device)
-                perms = torch.as_tensor(
-                    np.stack([np.random.permutation(num_timesteps) for _ in range(total_bs)]),
-                    device=device,
-                )
-                drawn = dict(perm=perm, t_perms=perms, train_batch_size=train_bs)
-            epoch_fn = inner_epoch_resident if resident or fused else inner_epoch_per_timestep
-            with batch_invariant():
-                state, infos = epoch_fn(state, epoch_samples, num_train_ts=num_train_ts,
-                                        **drawn, **epoch_kwargs)
-            train_time = timer()
-            n_batches = total_bs // train_bs
-            # the global batch's infos: the mean of the dp slices' (equal
-            # rows; the sp and tp ranks of a slice hold the same infos)
-            infos = {k: worker_sum(v.double().cpu().numpy(), group=mesh.dp_group) / mesh.dp
-                     for k, v in infos.items()}
-            all_processes_equal(infos, "train infos")
-            n_updates = n_batches * num_train_ts
-            print(
-                f"[ pg ] epoch {epoch}.{inner_epoch}{' (resident)' if resident else ''}: "
-                f"loss {infos['loss'].mean():.5f} | kl {infos['approx_kl'].mean():.2e} "
-                f"| clipfrac {infos['clipfrac'].mean():.3f} | {train_time:.2f}s, "
-                f"{train_time / n_updates:.4f} s an update ({n_updates})"
-            )
-            if grad_reduce is not None:
-                calls = grad_reduce.calls[n_reduces:]
-                print(f"[ pg ] gradient all-reduce ({backend}, {args.grad_reduce_dtype}): "
-                      f"{len(calls)} calls, {calls[0][0] if calls else 0} bytes each, "
-                      "seconds " + ", ".join(f"{sec:.4f}" for _, sec in calls))
+                advantages = (rewards - rewards.mean()) / (rewards.std() + 1e-8)
+
+            samples["advantages"] = torch.as_tensor(local_shard(advantages, mesh),
+                                                    dtype=torch.float32, device=device)
+            mean_rewards.append(float(rewards.mean()))
+            std_rewards.append(float(rewards.std()))
+            print(f"[ pg ] epoch {epoch} mean reward: {rewards.mean():.4f}")
             metrics.log(
                 epoch,
-                phase="train",
-                inner_epoch=inner_epoch,
-                loss=float(infos["loss"].mean()),
-                approx_kl=float(infos["approx_kl"].mean()),
-                clipfrac=float(infos["clipfrac"].mean()),
-                train_time_s=float(train_time),
+                phase="sample",
+                mean_reward=float(rewards.mean()),
+                std_reward=float(rewards.std()),
+                n_samples=int(rewards.shape[0]),
+                sample_time_s=float(sample_phase_time),
             )
-            if rank == 0:
+
+            for name in ("rewards", "prompts", "callback_info"):
                 np.save(
-                    fs.join_and_create(localpath,
-                                       f"train_info/{worker_id}_{epoch}_{inner_epoch}.npy"),
-                    infos,
+                    fs.join_and_create(localpath, f"{name}/{worker_id}_{epoch}.npy"),
+                    samples[name],
                 )
-        if mesh.tp > 1 or (mesh.sp > 1 and not sp_spatial):
-            # per call, from this epoch's counts: a sampler UNet forward, and
-            # a trainer apply (its forward, the remat recompute and the
-            # backward); the attention mode's VAE decode is in neither
-            fwd = json.dumps(_per_call(sampler_comm, sample_calls["n"]), sort_keys=True)
-            apply = json.dumps(_per_call(_comm_since(comm_before), applies["n"]), sort_keys=True)
-            print(f"[ pg ] rank {rank}: {'tp' if mesh.tp > 1 else 'sp'} collectives a sampler "
-                  f"UNet forward {fwd} | a trainer apply {apply} "
-                  f"(calls, bytes, seconds; {sample_calls['n']} sampler forwards, "
-                  f"{applies['n']} trainer applies)")
-        profiling.close()
-        if world > 1:
-            d = all_processes_equal(state.global_params(), f"params after epoch {epoch}")
-            print(f"[ pg ] epoch {epoch} params digest {d} (equal on all {world} ranks)")
-            if mesh.tp > 1:
-                whole = {k: p for k, p in state.params.items() if not tp_layout.sharded(k)}
-                d = all_processes_equal(whole, f"replicated params after epoch {epoch}")
-                print(f"[ pg ] epoch {epoch} replicated params digest {d} ({len(whole)} "
-                      f"tensors, bit-equal on all {world} ranks)")
-            # a SIGTERM seen by any rank stops every rank at this boundary
-            shutdown_requested["flag"] = worker_sum(float(shutdown_requested["flag"])) > 0
-        epochs_end, leave = time.perf_counter(), StepTimer()
+                if name != "rewards":
+                    del samples[name]
 
-        # ============================ checkpointing ============================ #
-        saved = (
-            (epoch + 1) % args.save_freq == 0
-            or epoch == args.num_train_epochs - 1
-            or shutdown_requested["flag"]
-        )
-        if saved:
-            # the host copy is synchronous (training updates the tensors in
-            # place); serialization and the disk write overlap the next epoch
-            with leave.phase("checkpoint_copy"):
-                save_train_state(
-                    ckpt_root, epoch, {"state": state.state_dict(), "epoch": epoch},
-                    host_state=host_checkpoint_state(), block=False,
+            # ============================ training phase =========================== #
+            process_barrier(f"pg_train_{epoch}")
+            comm_before, applies["n"] = comm_counts(), 0
+            total_bs, num_timesteps = samples["log_probs"].shape
+            assert num_timesteps == args.n_inference_steps
+            num_train_ts = int(num_timesteps * args.train_timestep_ratio)
+            keys = ["embeds", "latents", "next_latents", "log_probs", "ts", "advantages"]
+            epoch_samples = {k: samples[k] for k in keys}
+            epoch_samples["uncond_embeds"] = uncond_embed.expand(total_bs, *uncond_embed.shape)
+            if resident and mesh.dp > 1:
+                # the whole epoch's samples on every rank, in dp order (the
+                # order of the gathered advantages)
+                epoch_samples = {k: torch.cat(all_gather(v.contiguous(), mesh.axis("dp"),
+                                                         "dp_samples"))
+                                 for k, v in epoch_samples.items()}
+            for inner_epoch in range(args.num_inner_epochs):
+                n_reduces = len(grad_reduce.calls) if grad_reduce is not None else 0
+                if resident:
+                    # drawn on the device from train_gen, the same on every
+                    # rank; each rank trains its dp rows of the global minibatch
+                    drawn = dict(generator=train_gen, dp=(mesh.dp, mesh.dp_index),
+                                 train_batch_size=train_bs * mesh.dp)
+                else:
+                    # this rank's rows: the row and per-sample timestep
+                    # permutations from numpy's global stream
+                    perm = torch.as_tensor(np.random.permutation(total_bs), device=device)
+                    perms = torch.as_tensor(
+                        np.stack([np.random.permutation(num_timesteps) for _ in range(total_bs)]),
+                        device=device,
+                    )
+                    drawn = dict(perm=perm, t_perms=perms, train_batch_size=train_bs)
+                epoch_fn = inner_epoch_resident if resident or fused else inner_epoch_per_timestep
+                with batch_invariant():
+                    state, infos = epoch_fn(state, epoch_samples, num_train_ts=num_train_ts,
+                                            **drawn, **epoch_kwargs)
+                train_time = spans("train.inner_epoch")[-1].seconds
+                n_batches = total_bs // train_bs
+                # the global batch's infos: the mean of the dp slices' (equal
+                # rows; the sp and tp ranks of a slice hold the same infos)
+                infos = {k: worker_sum(v.double().cpu().numpy(), group=mesh.dp_group) / mesh.dp
+                         for k, v in infos.items()}
+                all_processes_equal(infos, "train infos")
+                n_updates = n_batches * num_train_ts
+                print(
+                    f"[ pg ] epoch {epoch}.{inner_epoch}{' (resident)' if resident else ''}: "
+                    f"loss {infos['loss'].mean():.5f} | kl {infos['approx_kl'].mean():.2e} "
+                    f"| clipfrac {infos['clipfrac'].mean():.3f} | {train_time:.2f}s, "
+                    f"{train_time / n_updates:.4f} s an update ({n_updates})"
                 )
-            if args.keep_checkpoints > 0 and rank == 0:  # the ranks share the directory
-                prune_checkpoints(ckpt_root, args.keep_checkpoints)
+                if grad_reduce is not None:
+                    calls = grad_reduce.calls[n_reduces:]
+                    print(f"[ pg ] gradient all-reduce ({backend}, {args.grad_reduce_dtype}): "
+                          f"{len(calls)} calls, {calls[0][0] if calls else 0} bytes each, "
+                          "seconds " + ", ".join(f"{sec:.4f}" for _, sec in calls))
+                metrics.log(
+                    epoch,
+                    phase="train",
+                    inner_epoch=inner_epoch,
+                    loss=float(infos["loss"].mean()),
+                    approx_kl=float(infos["approx_kl"].mean()),
+                    clipfrac=float(infos["clipfrac"].mean()),
+                    train_time_s=float(train_time),
+                )
+                if rank == 0:
+                    np.save(
+                        fs.join_and_create(localpath,
+                                           f"train_info/{worker_id}_{epoch}_{inner_epoch}.npy"),
+                        infos,
+                    )
+            if mesh.tp > 1 or (mesh.sp > 1 and not sp_spatial):
+                # per call, from this epoch's counts: a sampler UNet forward, and
+                # a trainer apply (its forward, the remat recompute and the
+                # backward); the attention mode's VAE decode is in neither
+                fwd = json.dumps(_per_call(sampler_comm, sample_calls["n"]), sort_keys=True)
+                apply = json.dumps(_per_call(_comm_since(comm_before), applies["n"]),
+                                   sort_keys=True)
+                print(f"[ pg ] rank {rank}: {'tp' if mesh.tp > 1 else 'sp'} collectives a sampler "
+                      f"UNet forward {fwd} | a trainer apply {apply} "
+                      f"(calls, bytes, seconds; {sample_calls['n']} sampler forwards, "
+                      f"{applies['n']} trainer applies)")
+            if world > 1:
+                d = all_processes_equal(state.global_params(), f"params after epoch {epoch}")
+                print(f"[ pg ] epoch {epoch} params digest {d} (equal on all {world} ranks)")
+                if mesh.tp > 1:
+                    whole = {k: p for k, p in state.params.items() if not tp_layout.sharded(k)}
+                    d = all_processes_equal(whole, f"replicated params after epoch {epoch}")
+                    print(f"[ pg ] epoch {epoch} replicated params digest {d} ({len(whole)} "
+                          f"tensors, bit-equal on all {world} ranks)")
+                # a SIGTERM seen by any rank stops every rank at this boundary
+                shutdown_requested["flag"] = worker_sum(float(shutdown_requested["flag"])) > 0
+            epochs_end, leave = time.perf_counter(), StepTimer()
 
-        if rank == 0:
-            _plot_rewards(mean_rewards, std_rewards, localpath, worker_id)
-            with open(os.path.join(localpath, "reward_curve.json"), "w") as f:
-                json.dump({"mean": mean_rewards, "std": std_rewards}, f)
+            # ============================ checkpointing ============================ #
+            saved = (
+                (epoch + 1) % args.save_freq == 0
+                or epoch == args.num_train_epochs - 1
+                or shutdown_requested["flag"]
+            )
+            if saved:
+                # the host copy is synchronous (training updates the tensors in
+                # place); serialization and the disk write overlap the next epoch
+                with leave.phase("checkpoint_copy"):
+                    save_train_state(
+                        ckpt_root, epoch, {"state": state.state_dict(), "epoch": epoch},
+                        host_state=host_checkpoint_state(), block=False,
+                    )
+                if args.keep_checkpoints > 0 and rank == 0:  # the ranks share the directory
+                    prune_checkpoints(ckpt_root, args.keep_checkpoints)
 
-        if remote:
-            # durable artifacts: join the checkpoint writes, then stream
-            # everything under localpath to the bucket (rank 0, in the
-            # background); every other rank uploads its own host pickle
-            with leave.phase("checkpoint_write"):
-                wait_for_pending_saves()
-            with leave.phase("bucket_sync"):
-                if saved and rank > 0:
-                    own = host_file(os.path.join(ckpt_root, "checkpoints", str(epoch)))
-                    fs.put_file(own, os.path.join(args.savepath,
-                                                  os.path.relpath(own, localpath)))
-                if sync_thread is not None:
-                    sync_thread.join()
-                sync_thread = async_to_bucket(localpath, args.savepath)
+            if rank == 0:
+                _plot_rewards(mean_rewards, std_rewards, localpath, worker_id)
+                with open(os.path.join(localpath, "reward_curve.json"), "w") as f:
+                    json.dump({"mean": mean_rewards, "std": std_rewards}, f)
 
-        print(f"[ pg ] epoch {epoch} wall {time.perf_counter() - epoch_start:.2f} s")
+            if remote:
+                # durable artifacts: join the checkpoint writes, then stream
+                # everything under localpath to the bucket (rank 0, in the
+                # background); every other rank uploads its own host pickle
+                with leave.phase("checkpoint_write"):
+                    wait_for_pending_saves()
+                with leave.phase("bucket_sync"):
+                    if saved and rank > 0:
+                        own = host_file(os.path.join(ckpt_root, "checkpoints", str(epoch)))
+                        fs.put_file(own, os.path.join(args.savepath,
+                                                      os.path.relpath(own, localpath)))
+                    if sync_thread is not None:
+                        sync_thread.join()
+                    sync_thread = async_to_bucket(localpath, args.savepath)
+
+        print(f"[ pg ] epoch {epoch} wall {epoch_span.seconds:.2f} s")
         if shutdown_requested["flag"]:
             print(f"[ pg ] graceful shutdown after epoch {epoch} (checkpointed)")
             break

@@ -13,6 +13,9 @@ The JAX scan becomes a Python loop. Randomness comes from an explicit
 ``torch.Generator``: the initial latents first, then one draw per step.
 Tests inject ``init_latents`` and the per-step ``noise`` instead, since
 torch and jax.random never give the same numbers.
+
+Spans (utils/profiling.py): ``sampler.trajectories``, ``sampler.step``
+around each denoising step's UNet call and scheduler step, ``sampler.decode``.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from ddpo_torch.core.scheduler import (
     DPMSolverPlusPlus,
     DPMSolverState,
 )
+from ddpo_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,13 +73,14 @@ def _denoise(unet, scheduler, scheduler_state, prompt_embeds, uncond_embeds,
     context = torch.cat([uncond_embeds, prompt_embeds])
     latents = _init_latents(state, prompt_embeds, config, generator, init_latents)
     for i, t in enumerate(state.timesteps):
-        eps = _guided_eps(unet, latents, t, context, config.guidance_scale)
-        new_latents, log_prob = scheduler.step(
-            state, eps, t, latents,
-            generator=None if noise is not None else generator,
-            noise=None if noise is None else noise[i],
-            eta=config.eta,
-        )
+        with span("sampler.step"):  # closed before the yield hands the caller control
+            eps = _guided_eps(unet, latents, t, context, config.guidance_scale)
+            new_latents, log_prob = scheduler.step(
+                state, eps, t, latents,
+                generator=None if noise is not None else generator,
+                noise=None if noise is None else noise[i],
+                eta=config.eta,
+            )
         yield t, latents, new_latents, log_prob
         latents = new_latents
 
@@ -96,17 +101,18 @@ def sample_trajectories(
 
     unet(latents_2B, timesteps_2B, context_2B) -> eps_2B (fp32).
     """
-    ts, lat, next_lat, log_probs = zip(*_denoise(
-        unet, scheduler, scheduler_state, prompt_embeds, uncond_embeds,
-        config, generator, init_latents, noise,
-    ))
-    return {
-        "final_latents": next_lat[-1],  # (B, 4, h, w)
-        "latents": torch.stack(lat, dim=1),  # (B, T, 4, h, w)
-        "next_latents": torch.stack(next_lat, dim=1),
-        "log_probs": torch.stack(log_probs, dim=1),  # (B, T)
-        "ts": torch.stack(ts)[None].expand(prompt_embeds.shape[0], -1),
-    }
+    with span("sampler.trajectories"):
+        ts, lat, next_lat, log_probs = zip(*_denoise(
+            unet, scheduler, scheduler_state, prompt_embeds, uncond_embeds,
+            config, generator, init_latents, noise,
+        ))
+        return {
+            "final_latents": next_lat[-1],  # (B, 4, h, w)
+            "latents": torch.stack(lat, dim=1),  # (B, T, 4, h, w)
+            "next_latents": torch.stack(next_lat, dim=1),
+            "log_probs": torch.stack(log_probs, dim=1),  # (B, T)
+            "ts": torch.stack(ts)[None].expand(prompt_embeds.shape[0], -1),
+        }
 
 
 @torch.no_grad()
@@ -166,5 +172,6 @@ def sample_images_ode(
 @torch.no_grad()
 def vae_decode(vae, latents: torch.Tensor, scaling_factor: float = 0.18215) -> torch.Tensor:
     """Latents (B, 4, h, w) -> images (B, H, W, 3) in [0, 1], fp32."""
-    images = vae.decode(latents / scaling_factor)
-    return torch.clamp(images / 2 + 0.5, 0.0, 1.0).permute(0, 2, 3, 1)
+    with span("sampler.decode"):
+        images = vae.decode(latents / scaling_factor)
+        return torch.clamp(images / 2 + 0.5, 0.0, 1.0).permute(0, 2, 3, 1)

@@ -36,6 +36,10 @@ So every rank takes the same clip, and a replicated leaf the same update.
 The optimizers' collectives (``tp_optim`` in ops/spatial.py's ``COMM``) are
 one scalar all-reduce a step for the norm, and in adafactor three more, one
 for each pass of its whole-tensor means over all leaves.
+
+Both optimizers read the global norm back to the host to decide the clip:
+that wait for the device is the span ``train.optimizer.sync``
+(utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -45,6 +49,8 @@ from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ddpo_torch.utils.profiling import span
 
 Schedule = Callable[[int], float]
 
@@ -154,7 +160,8 @@ class ClipAdamW:
              state: dict) -> None:
         """One update of ``params`` and ``state``, in place."""
         g_norm = self.global_norm(grads.values(), self.tp, list(grads))
-        clip = bool(g_norm >= self.max_grad_norm)
+        with span("train.optimizer.sync"):
+            clip = bool(g_norm >= self.max_grad_norm)
         count = state["count"] + 1
         b1, b2 = self.b1, self.b2
         bc1 = 1 - torch.tensor(b1, dtype=torch.float32) ** count
@@ -278,7 +285,9 @@ class ClipAdafactor:
         names = list(params)
         g = [grads[n].float() for n in names]
         g_norm = ClipAdamW.global_norm(g, self.tp, names)
-        if bool(g_norm >= self.max_grad_norm):
+        with span("train.optimizer.sync"):
+            clip = bool(g_norm >= self.max_grad_norm)
+        if clip:
             g = torch._foreach_div(g, g_norm)
             torch._foreach_mul_(g, self.max_grad_norm)
         f32 = np.float32

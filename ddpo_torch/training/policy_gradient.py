@@ -39,6 +39,11 @@ per-sample timestep permutations and the rebatch on the device, then every
 minibatch through ``train_step_fused``. The driver's fused host loop is the
 same function on permutations drawn on the host; ``inner_epoch_per_timestep``
 is the non-fused one (``train_step`` on each trained timestep).
+
+Spans (utils/profiling.py): ``train.inner_epoch`` around each inner epoch;
+``train.apply`` around each trained timestep's ``train.forward``
+(``ppo_loss``) and ``train.backward``; ``train.optimizer`` around each
+update (the reduce, if any, and ``tx.step``).
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ import torch
 from ddpo_torch.parallel.sharding import place_train_state
 
 from ddpo_torch.core.scheduler import DDIMScheduler, DDIMState
+from ddpo_torch.utils.profiling import span
 
 ADV_CLIP_MAX = 10.0
 
@@ -84,9 +90,10 @@ class AccumulatingTrainState:
         self.n_acc = 0
 
     def _update(self, grads: Tensors, reduce: str) -> None:
-        if self.grad_reduce is not None:
-            grads = self.grad_reduce(grads, reduce)
-        self.tx.step(self.params, grads, self.opt_state)
+        with span("train.optimizer"):
+            if self.grad_reduce is not None:
+                grads = self.grad_reduce(grads, reduce)
+            self.tx.step(self.params, grads, self.opt_state)
         self.step += 1
 
     @torch.no_grad()
@@ -220,6 +227,21 @@ def _backward(loss: torch.Tensor, params: Tensors) -> None:
     loss.backward(inputs=list(params.values()))
 
 
+def _apply(state: AccumulatingTrainState, batch: Tensors, scheduler: DDIMScheduler,
+           scheduler_state: DDIMState, *loss_args) -> Tensors:
+    """One trained timestep: ``ppo_loss`` on ``batch`` (``loss_args``: its
+    train_cfg to cfg_concat), then its gradient added to the masters'
+    ``.grad``; returns its info. Spans ``train.apply``, ``train.forward``
+    and ``train.backward``."""
+    with span("train.apply"):
+        with span("train.forward"):
+            loss, info = ppo_loss(state.params, state.apply_fn, batch, scheduler,
+                                  scheduler_state, *loss_args)
+        with span("train.backward"):
+            _backward(loss, state.params)
+    return info
+
+
 def _take_grads(params: Tensors) -> Tensors:
     grads = {}
     for k, p in params.items():
@@ -241,11 +263,8 @@ def train_step(
     cfg_concat: bool = False,
 ) -> Tuple[AccumulatingTrainState, Tensors]:
     """One PPO update/accumulation step on one (batch, timestep) slice."""
-    loss, info = ppo_loss(
-        state.params, state.apply_fn, batch, scheduler, scheduler_state,
-        train_cfg, guidance_scale, eta, clip_range, cfg_concat,
-    )
-    _backward(loss, state.params)
+    info = _apply(state, batch, scheduler, scheduler_state, train_cfg, guidance_scale, eta,
+                  clip_range, cfg_concat)
     state.apply_gradients(grads=_take_grads(state.params), do_update=do_opt_update)
     return state, info
 
@@ -278,11 +297,8 @@ def train_step_fused(
         full = dict(shared, **{
             k: batch[k][t] for k in ("latents", "next_latents", "ts", "log_probs")
         })
-        loss, info = ppo_loss(
-            state.params, state.apply_fn, full, scheduler, scheduler_state,
-            train_cfg, guidance_scale, eta, clip_range, cfg_concat,
-        )
-        _backward(loss, state.params)
+        info = _apply(state, full, scheduler, scheduler_state, train_cfg, guidance_scale, eta,
+                      clip_range, cfg_concat)
         info_sum = info if info_sum is None else {k: info_sum[k] + v for k, v in info.items()}
     grads = _take_grads(state.params)
     with torch.no_grad():
@@ -375,20 +391,21 @@ def inner_epoch_resident(
         f"n_batches {n_batches} not divisible by accumulation_steps {accumulation_steps}")
     size, index = dp
     assert train_batch_size % size == 0, (train_batch_size, size)
-    if perm is None:
-        perm, t_perms = draw_permutations(total_b, num_timesteps, generator,
-                                          samples["log_probs"].device)
-    batched = rebatch(samples, perm, t_perms, train_batch_size)
-    local = train_batch_size // size
-    rows = slice(index * local, (index + 1) * local)
-    infos = []
-    for i in range(n_batches):
-        state, info = train_step_fused(
-            state, fused_minibatch(batched, i, num_train_ts, rows), scheduler_state,
-            scheduler, train_cfg, guidance_scale, eta, clip_range,
-            do_opt_update=(i + 1) % accumulation_steps == 0, cfg_concat=cfg_concat)
-        infos.append(info)
-    return state, {k: torch.stack([info[k] for info in infos]) for k in infos[0]}
+    with span("train.inner_epoch"):
+        if perm is None:
+            perm, t_perms = draw_permutations(total_b, num_timesteps, generator,
+                                              samples["log_probs"].device)
+        batched = rebatch(samples, perm, t_perms, train_batch_size)
+        local = train_batch_size // size
+        rows = slice(index * local, (index + 1) * local)
+        infos = []
+        for i in range(n_batches):
+            state, info = train_step_fused(
+                state, fused_minibatch(batched, i, num_train_ts, rows), scheduler_state,
+                scheduler, train_cfg, guidance_scale, eta, clip_range,
+                do_opt_update=(i + 1) % accumulation_steps == 0, cfg_concat=cfg_concat)
+            infos.append(info)
+        return state, {k: torch.stack([info[k] for info in infos]) for k in infos[0]}
 
 
 def inner_epoch_per_timestep(
@@ -413,18 +430,19 @@ def inner_epoch_per_timestep(
     timesteps, accumulating in the state's buffer, the update on the last
     timestep of every ``accumulation_steps``-th minibatch. Returns (state,
     infos): each info (n_batches * num_train_ts,)."""
-    batched = rebatch(samples, perm, t_perms, train_batch_size)
-    infos = []
-    for i in range(perm.shape[0] // train_batch_size):
-        update = (i + 1) % accumulation_steps == 0
-        base = {"prompt_embeds": batched["embeds"][i],
-                "uncond_embeds": batched["uncond_embeds"][i],
-                "advantages": batched["advantages"][i]}
-        for j in range(num_train_ts):
-            batch = dict(base, **{k: batched[k][i][:, j] for k in PER_T})
-            state, info = train_step(state, batch, scheduler_state, scheduler, train_cfg,
-                                     guidance_scale, eta, clip_range,
-                                     do_opt_update=update and j == num_train_ts - 1,
-                                     cfg_concat=cfg_concat)
-            infos.append(info)
-    return state, {k: torch.stack([info[k] for info in infos]) for k in infos[0]}
+    with span("train.inner_epoch"):
+        batched = rebatch(samples, perm, t_perms, train_batch_size)
+        infos = []
+        for i in range(perm.shape[0] // train_batch_size):
+            update = (i + 1) % accumulation_steps == 0
+            base = {"prompt_embeds": batched["embeds"][i],
+                    "uncond_embeds": batched["uncond_embeds"][i],
+                    "advantages": batched["advantages"][i]}
+            for j in range(num_train_ts):
+                batch = dict(base, **{k: batched[k][i][:, j] for k in PER_T})
+                state, info = train_step(state, batch, scheduler_state, scheduler, train_cfg,
+                                         guidance_scale, eta, clip_range,
+                                         do_opt_update=update and j == num_train_ts - 1,
+                                         cfg_concat=cfg_concat)
+                infos.append(info)
+        return state, {k: torch.stack([info[k] for info in infos]) for k in infos[0]}

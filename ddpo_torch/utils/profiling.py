@@ -1,30 +1,122 @@
-"""Profiling hooks on torch.profiler: traces and named step timers.
+"""Profiling hooks on torch.profiler: the span recorder, traces and named
+step timers.
 
-Port of ddpo_tpu/utils/profiling.py. ``trace(path)`` records the host and,
-on a card, its kernels with ``torch.profiler`` and writes a Chrome trace
-(JSON) to ``path`` (no-op for None); ``annotate(name)`` marks a region in
-the trace (``record_function``); ``StepTimer`` accumulates wall-clock time
-per named phase. ``process_seconds`` reads this process's age from
-Linux's /proc (None elsewhere), and ``launch_timeline`` puts it together
-with a run's start-up, work and exit: the DDPO driver and sp_check print
-it as their last line.
+Port of ddpo_tpu/utils/profiling.py. ``span(name)`` times a region of the
+host's work on ``time.perf_counter()``, the clock the benchmark ties to the
+device trace (h100_bench/trace.py), and keeps it with the span it ran
+inside (per thread) in a bounded store that ``spans()`` reads and
+``self_seconds`` takes apart. The recorder is always on: a span costs a
+few microseconds of the host, never synchronizes and touches no device.
+``trace(path)`` records the host and, on a card, its kernels with
+``torch.profiler`` and writes a Chrome trace (JSON) to ``path`` (no-op for
+None); while it is on, each span is also a ``record_function`` range in
+that trace, over the kernels it launched. ``StepTimer`` accumulates
+wall-clock time per named phase, through spans. ``process_seconds`` reads
+this process's age from Linux's /proc (None elsewhere), and
+``launch_timeline`` puts it together with a run's start-up, work and exit:
+the DDPO pipeline and sp_check print it as their last line.
+
+The port's spans, by layer (a name's prefix): ``epoch`` (``policy_gradient.main``'s
+loop); ``sampler.trajectories``, ``sampler.step`` (one
+denoising step), ``sampler.decode``; ``train.inner_epoch``, ``train.apply``
+(one trained timestep: ``train.forward``, then ``train.backward``),
+``train.optimizer`` (the reduce, if any, and the step) with
+``train.optimizer.sync`` (the clip's read-back of the norm), ``train.refresh``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
+import threading
 import time
-from collections import defaultdict
-from typing import Dict, Optional
+from collections import defaultdict, deque
+from typing import Dict, List, Optional
 
 import torch
+
+# spans kept, the oldest dropped first: an SD-1.4 DDPO epoch records about
+# 120, so this holds over 100 epochs
+SPAN_CAPACITY = 1 << 14
+
+_SPANS: deque = deque(maxlen=SPAN_CAPACITY)
+_IDS = itertools.count()
+_TRACING = False
+
+
+class _Open(threading.local):
+    """Each thread's open spans, innermost last."""
+
+    def __init__(self):
+        self.stack: List["span"] = []
+
+
+_OPEN = _Open()
+
+
+class span:
+    """A timed region of the host's work: ``with span(name):``.
+
+    Once closed it is the record: ``name``, ``start`` and ``end`` (seconds
+    on ``time.perf_counter()``), ``ident`` (unique in the process),
+    ``parent`` (the ``ident`` of the span open around it on its thread,
+    None at the top) and ``thread`` (``threading.get_ident()``). It is
+    stored when it closes, also on an exception.
+    """
+
+    __slots__ = ("name", "ident", "parent", "thread", "start", "end", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> "span":
+        stack = _OPEN.stack
+        self.parent = stack[-1].ident if stack else None
+        self.ident = next(_IDS)
+        self.thread = threading.get_ident()
+        stack.append(self)
+        self._range = None
+        if _TRACING:
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.end = time.perf_counter()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+        _OPEN.stack.pop()
+        _SPANS.append(self)
+
+    @property
+    def seconds(self) -> float:
+        return self.end - self.start
+
+
+def spans(name: Optional[str] = None, since: Optional[float] = None) -> List[span]:
+    """The closed spans kept, in the order they closed: those named
+    ``name``, and that started at ``since`` or later (``perf_counter``
+    seconds); all by default."""
+    kept = list(_SPANS)
+    return [s for s in kept if (name is None or s.name == name)
+            and (since is None or s.start >= since)]
+
+
+def self_seconds(parent: span, recorded: List[span]) -> float:
+    """``parent``'s duration less the time its children among ``recorded``
+    cover (children on one thread do not overlap)."""
+    return parent.seconds - sum(s.seconds for s in recorded if s.parent == parent.ident)
 
 
 @contextlib.contextmanager
 def trace(path: Optional[str]):
     """torch.profiler over the block, exported as a Chrome trace to
-    ``path``; no-op when path is None."""
+    ``path``, with each span a ``record_function`` range; no-op when path
+    is None."""
+    global _TRACING
     if path is None:
         yield
         return
@@ -32,20 +124,17 @@ def trace(path: Optional[str]):
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=activities) as prof:
-        yield
+        _TRACING = True
+        try:
+            yield
+        finally:
+            _TRACING = False
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     prof.export_chrome_trace(path)
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """Named region in the profiler timeline."""
-    with torch.profiler.record_function(name):
-        yield
-
-
 class StepTimer:
-    """Accumulate wall-clock per named phase; report means."""
+    """Accumulate wall-clock per named phase, each a ``span``; report means."""
 
     def __init__(self):
         self.totals: Dict[str, float] = defaultdict(float)
@@ -53,11 +142,12 @@ class StepTimer:
 
     @contextlib.contextmanager
     def phase(self, name: str):
-        start = time.perf_counter()
+        timed = span(name)
         try:
-            yield
+            with timed:
+                yield
         finally:
-            self.totals[name] += time.perf_counter() - start
+            self.totals[name] += timed.seconds
             self.counts[name] += 1
 
     def means(self) -> Dict[str, float]:

@@ -307,6 +307,22 @@ def test_layout_cache_follows_the_weight():
     assert store == {}
 
 
+def test_operand_cache_counts_lookups_and_misses():
+    """``tap_operand`` counts each lookup in ``operand_cache`` and each
+    operand it makes as a miss: a hit for the same unchanged weight, a miss
+    after an in-place write (a new version) and a miss for another tensor
+    (bf16 CPU weights, laid out by the plain version)."""
+    before = dict(tconv.operand_cache)
+    w = torch.randn(8, 4, 3, 3).to(torch.bfloat16)
+    first = tconv.tap_operand(w)
+    assert tconv.tap_operand(w) is first
+    w.mul_(2)
+    assert torch.equal(tconv.tap_operand(w), tconv.tap_weight_reference(w))
+    tconv.tap_operand(w.clone())
+    delta = {k: tconv.operand_cache[k] - before[k] for k in before}
+    assert delta == {"lookups": 4, "misses": 3}
+
+
 @pytest.mark.parametrize("n", [1, 6])
 @pytest.mark.parametrize("stride", [1, 2])
 def test_conv_per_image_matches_one_call(n, stride):

@@ -3,7 +3,7 @@
   - ``utils/progress.py``: ``Progress`` and ``Silent`` print what ddpo_tpu's
     print for the same calls (one clock for both, stdout not a TTY);
   - ``--profile_dir`` writes a torch.profiler trace of epoch 1 (start
-    epoch + 1, as JAX) and none of epoch 0;
+    epoch + 1, as JAX) and none of epoch 0, with the program's spans in it;
   - ``utils/profiling.py``'s ``process_seconds`` (this process's age, from
     /proc) and ``launch_timeline`` (a run's seconds that add up, with the
     exit's parts timed as the DDPO driver's or untimed as sp_check's);
@@ -109,6 +109,8 @@ def test_profile_dir_traces_epoch_1(workdir):  # noqa: F811
     trace = json.loads((workdir / "prof" / "epoch1_rank0.json").read_text())
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any("conv" in name for name in names)  # the UNet's ops were recorded
+    # and the program's spans over them, the epoch's around them all
+    assert {"epoch", "train.apply", "sampler.step"} <= names
 
 
 WORKER = r'''
