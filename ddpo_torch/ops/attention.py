@@ -296,6 +296,11 @@ def set_attention_sharding(mesh=None, batch_axis: Optional[str] = None,
     _SHARD_CTX = {"mesh": mesh, "seq": seq_axis}
 
 
+def attention_sharded() -> bool:
+    """Whether ``set_attention_sharding`` has set a context."""
+    return _SHARD_CTX is not None
+
+
 def _sharded_self_attention(q, k, v, scale):
     """The attention mode's self-attention, or None where the context has
     nothing to shard (a size-1 axis, or a sequence that does not split)."""

@@ -26,7 +26,9 @@ over processes, rank r on cuda:LOCAL_RANK:
     ``make_train_apply``: the fp32 masters are cast at use, a differentiable
     cast, so gradients land on them in fp32, and the whole UNet call is
     rematerialized (``torch.utils.checkpoint``) when ``remat`` is set; CFG
-    is one 2B apply (``cfg_concat``) when ``train_dtype`` is bf16;
+    is one 2B apply (``cfg_concat``) when ``train_dtype`` is bf16; a
+    remat'd bf16 full finetune on one card without sp or tp replays the
+    apply from two CUDA graphs, its forward and its recompute-and-backward;
   - the fused loop trains all timesteps of a minibatch and then updates
     once (``inner_epoch_resident`` on permutations drawn on the host); the
     non-fused loop (``inner_epoch_per_timestep``) updates on each
@@ -130,8 +132,9 @@ from torch.utils.checkpoint import checkpoint
 from ddpo_torch import training
 from ddpo_torch.models.lora import init_lora, merge_lora, n_lora_params, target_paths
 from ddpo_torch.models.tokenizer import make_uncond_ids
+from ddpo_torch.ops import _build, conv, invariance
 from ddpo_torch.ops.invariance import batch_invariant
-from ddpo_torch.ops.attention import set_attention_sharding
+from ddpo_torch.ops.attention import attention_sharded, set_attention_sharding
 from ddpo_torch.ops.spatial import all_gather, comm_counts, validate_spatial_geometry
 from ddpo_torch.parallel import (
     GradientAllReduce,
@@ -238,6 +241,143 @@ def gradient_reduce(mesh, spatial: bool, group, backend: str,
     return GradientAllReduce(group, backend, reduce_dtype, divisor=mesh.dp if spatial else None)
 
 
+# make_train_apply's applies since the process started: ``captures`` captured
+# their key's pair of CUDA graphs, then replayed it; ``replays`` replayed a
+# pair captured before; ``eager`` ran without graphs
+train_graphs: Dict[str, int] = {"captures": 0, "replays": 0, "eager": 0}
+
+
+def graph_refusal(axes, params: Dict[str, torch.Tensor], compute_dtype: torch.dtype,
+                  remat: bool, base, inputs) -> Optional[str]:
+    """Why ``make_train_apply``'s apply runs a call eagerly, or None where it
+    replays CUDA graphs: a remat'd full finetune in bf16 over masters of
+    another dtype, with grad on and the inputs off it, on CUDA tensors,
+    through a UNet none of whose modules in ``axes`` has a spatial or tp
+    axis, with no attention sharding set. The axes' collectives go through
+    gloo or host memory and cannot be captured; at fp32 the tap-GEMM's
+    operand is the masters' own tf32 split, made once per master version,
+    which a graph would keep stale, as it would a bf16 master's layout;
+    LoRA merges its adapters outside the remat and stays eager."""
+    if base is not None:
+        return "lora"
+    if not remat:
+        return "no remat"
+    if compute_dtype != torch.bfloat16:
+        return "compute dtype"
+    for m in axes:
+        if getattr(m, "spatial", None) is not None:
+            return "spatial axis"
+        if getattr(m, "tp", None) is not None:
+            return "tp axis"
+    if attention_sharded():
+        return "attention sharding"
+    if not torch.is_grad_enabled():
+        return "no grad"
+    if not all(isinstance(x, torch.Tensor) and not x.requires_grad for x in inputs):
+        return "inputs"
+    masters = params.values()
+    if not all(p.requires_grad and p.dtype != compute_dtype for p in masters):
+        return "masters"
+    if not all(x.is_cuda for x in (*inputs, *masters)):
+        return "cpu"
+    return None
+
+
+def _counters() -> tuple:
+    """The counters a capture runs up without running anything: the kernel
+    launches and the tap-GEMM operand's lookups and misses."""
+    return _build.launches, conv.operand_cache
+
+
+def _counts_since(before: tuple) -> tuple:
+    return tuple({k: n - old.get(k, 0) for k, n in counter.items()}
+                 for counter, old in zip(_counters(), before))
+
+
+def _add_counts(counts: tuple, sign: int = 1) -> None:
+    for counter, delta in zip(_counters(), counts):
+        for k, n in delta.items():
+            counter[k] += sign * n
+
+
+def _pointers(params: Dict[str, torch.Tensor]) -> tuple:
+    return tuple(p.data_ptr() for p in params.values())
+
+
+class _ApplyGraphs:
+    """One input key's pair of CUDA graphs over the trainer's remat'd UNet
+    call, on a private memory pool, reading the masters where they are.
+
+    The forward graph casts the masters to ``compute_dtype`` and runs the
+    UNet, keeping nothing for the backward. The backward graph recomputes
+    the same (the remat), runs the backward and casts the gradients to the
+    masters' dtype, into buffers the next forward replay may overwrite:
+    autograd adds them to the masters' ``.grad`` first. Each replay adds to
+    the kernel launch and operand counters what its capture counted."""
+
+    def __init__(self, unet: torch.nn.Module, params: Dict[str, torch.Tensor],
+                 compute_dtype: torch.dtype, inputs):
+        self.pointers = _pointers(params)
+        self.inputs = [x.clone() for x in inputs]
+        self.fwd, self.bwd = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        pool = torch.cuda.graph_pool_handle()
+        names, masters = list(params), list(params.values())
+
+        def unet_on(weights):
+            return functional_call(unet, dict(zip(names, weights)), tuple(self.inputs))
+
+        before = tuple(dict(c) for c in _counters())
+        with torch.cuda.graph(self.fwd, pool=pool, capture_error_mode="thread_local"):
+            with torch.no_grad():
+                self.out = unet_on([p.to(compute_dtype) for p in masters])
+        self.fwd_counts = _counts_since(before)
+        _add_counts(self.fwd_counts, -1)  # the capture ran nothing
+        self.grad_out = torch.empty_like(self.out)
+        with torch.cuda.graph(self.bwd, pool=pool, capture_error_mode="thread_local"):
+            cast = [p.detach().to(compute_dtype).requires_grad_() for p in masters]
+            with torch.enable_grad():
+                grads = torch.autograd.grad(unet_on(cast), cast, self.grad_out,
+                                            allow_unused=True)
+            self.grads = [g if g is None else g.to(p.dtype) for g, p in zip(grads, masters)]
+        self.bwd_counts = _counts_since(before)
+        _add_counts(self.bwd_counts, -1)
+
+    def _load(self, inputs) -> None:
+        for static, x in zip(self.inputs, inputs):
+            static.copy_(x)
+
+    def forward(self, inputs) -> torch.Tensor:
+        self._load(inputs)
+        self.fwd.replay()
+        _add_counts(self.fwd_counts)
+        return self.out.clone()
+
+    def backward(self, inputs, grad_out: torch.Tensor) -> list:
+        self._load(inputs)  # another call's forward may have replayed since
+        self.grad_out.copy_(grad_out)
+        self.bwd.replay()
+        _add_counts(self.bwd_counts)
+        return self.grads
+
+
+class _GraphedUNet(torch.autograd.Function):
+    """An ``_ApplyGraphs`` pair under autograd: the masters are inputs only
+    so that their gradients reach them; the graphs read them in place."""
+
+    @staticmethod
+    def forward(ctx, graphs: _ApplyGraphs, latents, t, context, *masters):
+        ctx.graphs = graphs
+        ctx.save_for_backward(latents, t, context)
+        return graphs.forward((latents, t, context))
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        # the static buffers themselves, held by the pair too: AccumulateGrad
+        # copies them into a fresh .grad rather than taking them as it
+        return (None, None, None, None,
+                *ctx.graphs.backward(ctx.saved_tensors, grad_out))
+
+
 def make_train_apply(unet: torch.nn.Module, compute_dtype: torch.dtype,
                      remat: bool, base: Optional[Dict[str, torch.Tensor]] = None,
                      spatial=None) -> Callable:
@@ -248,6 +388,17 @@ def make_train_apply(unet: torch.nn.Module, compute_dtype: torch.dtype,
     values the sampler's once-per-epoch cast gives, and it is differentiable,
     so the gradients reach the masters in their own dtype. With ``remat``
     the whole call is checkpointed and recomputed in the backward.
+
+    Where ``graph_refusal`` finds nothing against it, the call replays CUDA
+    graphs instead (``_ApplyGraphs``): the same kernels in the same order,
+    the host's launches of an apply reduced to two replays. Each key (the
+    inputs' shapes and dtypes, ``batch_invariant()``'s state and the conv
+    kernel's override) runs its first call eagerly, which warms its kernels
+    up, and captures its pair at its second; a pair whose masters have moved
+    is captured anew. A graphed call's backward recomputes under its
+    forward's key, where the checkpoint's reads the state at the backward:
+    the trainer runs both inside one ``batch_invariant()``. ``train_graphs``
+    counts the applies of each kind.
 
     With ``base`` (LoRA) the params are the adapters: ``merge_lora`` puts
     them onto the frozen base first, outside the checkpoint, so the
@@ -260,12 +411,36 @@ def make_train_apply(unet: torch.nn.Module, compute_dtype: torch.dtype,
     """
     if spatial is not None:
         unet.set_spatial(spatial)
+    axes = [m for m in unet.modules() if hasattr(m, "spatial") or hasattr(m, "tp")]
+    # key -> its pair of graphs, or None between its eager first call and the capture
+    graphs: Dict[tuple, Optional[_ApplyGraphs]] = {}
 
     def run(params, latents, t, context):
         cast = {k: p.to(compute_dtype) for k, p in params.items()}
         return functional_call(unet, cast, (latents, t, context))
 
+    def graphed(params, inputs) -> Optional[torch.Tensor]:
+        key = (*((x.shape, x.dtype) for x in inputs), invariance.enabled(),
+               conv._CONV_OVERRIDE)
+        if key not in graphs:
+            graphs[key] = None
+            return None
+        pair = graphs[key]
+        if pair is None or pair.pointers != _pointers(params):
+            graphs[key] = pair = None  # the old pool goes before the new capture
+            graphs[key] = pair = _ApplyGraphs(unet, params, compute_dtype, inputs)
+            train_graphs["captures"] += 1
+        else:
+            train_graphs["replays"] += 1
+        return _GraphedUNet.apply(pair, *inputs, *params.values())
+
     def apply(params: Dict[str, torch.Tensor], latents, t, context):
+        inputs = (latents, t, context)
+        if graph_refusal(axes, params, compute_dtype, remat, base, inputs) is None:
+            out = graphed(params, inputs)
+            if out is not None:
+                return out
+        train_graphs["eager"] += 1
         if base is not None:
             params = merge_lora(base, params)
 

@@ -208,3 +208,63 @@ def test_unfused_accumulation_equals_fused_step(setup):
     for k in results[0]:
         np.testing.assert_allclose(results[1][k].numpy(), results[0][k].numpy(),
                                    rtol=1e-6, atol=1e-9, err_msg=k)
+
+
+# graph_refusal's cases: (case, what the case changes, the reason it gives)
+GRAPH_GATE_CASES = [
+    ("cpu", {}, "cpu"),
+    ("fp32", {"compute_dtype": torch.float32}, "compute dtype"),
+    ("no remat", {"remat": False}, "no remat"),
+    ("lora", {"lora": True}, "lora"),
+    ("spatial axis", {"spatial": True}, "spatial axis"),
+    ("tp axis", {"tp": True}, "tp axis"),
+    ("attention sharding", {"attention_sharding": True}, "attention sharding"),
+    ("no grad", {"no_grad": True}, "no grad"),
+    ("input grad", {"input_grad": True}, "inputs"),
+    ("bf16 masters", {"masters": torch.bfloat16}, "masters"),
+]
+
+
+@pytest.mark.parametrize("case,change,reason", GRAPH_GATE_CASES,
+                         ids=[c[0] for c in GRAPH_GATE_CASES])
+def test_train_apply_graph_gate(case, change, reason):
+    """Which calls of make_train_apply's apply would replay CUDA graphs
+    (``graph_refusal`` None) and which run eagerly, and why: a remat'd full
+    finetune in bf16 over fp32 masters, with no spatial, tp or attention
+    axis, gives only "cpu" here (on the card it is None). Every call runs
+    eagerly here and counts as such."""
+    from ddpo_torch.models.lora import init_lora
+    from ddpo_torch.ops.attention import set_attention_sharding
+    from ddpo_torch.ops.spatial import Axis
+    from ddpo_torch.pipelines import policy_gradient as pg
+
+    _, _, unet = build_models("tiny", "cpu")
+    unet.to(change.get("masters", torch.float32))
+    if change.get("spatial"):
+        unet.set_spatial(Axis("sp", 2, 0))
+    if change.get("tp"):
+        unet.set_tensor_parallel(Axis("tp", 2, 0))
+    params = dict(unet.requires_grad_(True).named_parameters())
+    base = None
+    if change.get("lora"):
+        base = dict(unet.requires_grad_(False).named_parameters())
+        params = init_lora(base, 2, torch.Generator().manual_seed(0))
+        for p in params.values():
+            p.requires_grad_(True)
+    compute = change.get("compute_dtype", torch.bfloat16)
+    remat = change.get("remat", True)
+    inputs = (torch.randn(2, 4, 8, 8, requires_grad=bool(change.get("input_grad"))),
+              torch.tensor([901, 601]), torch.randn(2, 77, 32))
+    axes = [m for m in unet.modules() if hasattr(m, "spatial") or hasattr(m, "tp")]
+    if change.get("attention_sharding"):
+        set_attention_sharding(SimpleNamespace(shape={"sp": 2}), seq_axis="sp")
+    try:
+        with torch.set_grad_enabled(not change.get("no_grad")):
+            assert pg.graph_refusal(axes, params, compute, remat, base, inputs) == reason
+            if change.get("spatial") or change.get("tp") or change.get("attention_sharding"):
+                return  # their collectives need ranks to run
+            before = dict(pg.train_graphs)
+            make_train_apply(unet, compute, remat, base)(params, *inputs)
+    finally:
+        set_attention_sharding(None)
+    assert pg.train_graphs == dict(before, eager=before["eager"] + 1)
